@@ -6,23 +6,33 @@
 Phases; any failure exits non-zero before the result line:
 
 0. the card: name and power limit from ``nvidia-smi``; no CUDA, no run;
-1. build kernel K1 (``mpi_tpu_torch/csrc/bitlife.cu``) with nvcc, and
-   count the instructions of its row loops in the built SASS
-   (``cuobjdump``) against the compiled form's ``word_ops``;
-2. K1 against its plain PyTorch version, exact (``torch.equal``), over
-   gens x boundaries x rules x ragged shapes, 60 random rules, shapes and
-   depths, and one pass at each of the main path's depths (1, the
-   remainder 4, and 8) at the flagship 65536² (512 MiB packed);
-3. the main path: ``run_cuda`` at 65536², Life, periodic, comm_every 8,
-   300 generations, with the launch counter reset just before; its final
-   grid, packed again on the card, must equal the plain version's from the
-   same init word for word, and its population the plain population.
-   Then the CLI at 512², both boundaries, whose ``.gol`` files must equal
-   the serial oracle's byte for byte;
-4. times at 65536² (CUDA events after warm-up): K1 per pass at the main
-   path's depths (1, the remainder 4, and 8) and its cell-updates/s, the
-   plain version, and the bound of the card;
-5. a ``torch.profiler`` trace of the main path's steady stepping: kernel
+1. build kernels K1, K2 and K3 (``mpi_tpu_torch/csrc/*.cu``) with nvcc,
+   one process per source; report each kernel's registers and spills
+   (ptxas), and count the instructions of K1's row loops in the built SASS
+   (``cuobjdump``) against the compiled form's ``word_ops``; then time that
+   build against one nvcc call over every source, alternating, twice each;
+2. each kernel against its plain PyTorch version, exact (``torch.equal``):
+   K1 over gens x boundaries x rules x ragged shapes and random rules, and
+   at 65536² at the main path's depths; K2 over radii 1, 2, 3, 5, 7 x
+   depths with gens x r <= 16 x boundaries x ragged widths (grids below the
+   neighbourhood too, a birth-on-0 rule, random rules), and at 16384²
+   (Bosco, gens 1 and 3); K3 over radii 2..7 x gens 1..⌊8/r⌋ x boundaries
+   x ragged shapes (one word per row, small H, random rules), and at 65536²
+   (Bosco gens 1, R2 gens 4);
+3. the main paths, each kernel's launch counter reset just before and
+   required above 0 just after, each whole final grid equal to the plain
+   version's from the same init: ``run_cuda`` at 65536² for Life (comm_every
+   8, K1), for Bosco (comm_every 1, K3) and for R2,B10-13,S8-12 (comm_every
+   4, K3), and at 16384² for Bosco (comm_every 3, K2), each a few hundred
+   ms of stepping.  Then the CLI at 512²
+   (Life at comm_every 4 and Bosco, both boundaries) and at 500x500 (Life
+   and Bosco, on K2), whose ``.gol`` files must equal the serial oracle's
+   byte for byte;
+4. times (CUDA events after warm-up) of each kernel at its main paths'
+   depths, with cell-updates/s, the plain version's time, the card's bound,
+   and a library call where one exists (for K2, ``conv2d`` of the padded
+   grid in float16: the counts only);
+5. a ``torch.profiler`` trace of each main path's steady stepping: kernel
    time by name and the device's idle share of the wall time.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
@@ -40,6 +50,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -47,35 +58,64 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from mpi_tpu_torch.backends.cuda import build_engine, run_cuda  # noqa: E402
+from mpi_tpu_torch.backends import cuda as backend  # noqa: E402
 from mpi_tpu_torch.cli import main as cli_main  # noqa: E402
 from mpi_tpu_torch.config import GolConfig  # noqa: E402
 from mpi_tpu_torch.interop import grid_from_numpy  # noqa: E402
 from mpi_tpu_torch.models.rules import (  # noqa: E402
-    DAY_AND_NIGHT, HIGHLIFE, LIFE, SEEDS, Rule, rule_from_name,
+    BOSCO, DAY_AND_NIGHT, HIGHLIFE, LIFE, SEEDS, Rule, rule_from_name,
 )
 from mpi_tpu_torch.ops import _build  # noqa: E402
 from mpi_tpu_torch.ops.bitlife import (  # noqa: E402
     bit_step, init_packed, pack, population, word_ops,
 )
+from mpi_tpu_torch.ops.bitltl import (  # noqa: E402
+    ltl_step, ltl_word_ops, ltl_word_ops_lower,
+)
 from mpi_tpu_torch.ops.cuda_bitlife import (  # noqa: E402
     bit_step_plain, cuda_bit_step,
 )
+from mpi_tpu_torch.ops.cuda_bitltl import (  # noqa: E402
+    cuda_ltl_step, ltl_step_plain, max_gens,
+)
+from mpi_tpu_torch.ops.cuda_stencil import (  # noqa: E402
+    cuda_dense_step, dense_step_plain,
+)
+from mpi_tpu_torch.ops.stencil import (  # noqa: E402
+    counts_from_padded, pad_grid,
+)
+from mpi_tpu_torch.utils.hashinit import init_dense  # noqa: E402
 from mpi_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of
 # HBM, and 67 TFLOP/s float32 outside the tensor cores, which is 132 SMs x
 # 128 lanes x 2 (an FMA) x 1.98 GHz.  A Hopper SM has 64 int32 lanes, so
-# the int32 rate is a quarter of that figure, in instructions per second;
-# ``word_ops`` counts K1's work in those instructions (LOP3 and SHF).
+# the int32 rate is a quarter of that figure, in instructions per second.
+# K1's and K3's work is counted in those instructions (LOP3 and SHF):
+# ``word_ops`` exactly for K1's compiled form; ``ltl_word_ops_lower`` and
+# ``ltl_word_ops`` from below and above for K3's, the bound taking the
+# lower count.  K2's least work: sliding window sums need about 6 per
+# cell-generation whatever r is (a three-input add to slide each of the
+# vertical and horizontal windows, the centre, the rule's test, the
+# result), and every sum fits a byte (<= 225), so four cells share one
+# 32-bit instruction.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+K2_CELL_OPS = 6 / 4
 
-FLAGSHIP = 65536
-MAIN_GENS = 8            # comm_every of the main path: K1's depth per pass
-MAIN_STEPS = 300         # 37 passes of 8 and a remainder pass of 4
-MAIN_DEPTHS = (1, MAIN_STEPS % MAIN_GENS, MAIN_GENS)  # warm-up, remainder, K
 SEED = 1
+FLAGSHIP = 65536         # K1 and K3 main paths: 512 MiB packed
+MAIN_GENS = 8            # K1's main path: comm_every 8
+MAIN_STEPS = 500         # 62 passes of 8 and a remainder pass of 4
+MAIN_DEPTHS = (1, MAIN_STEPS % MAIN_GENS, MAIN_GENS)  # warm-up, remainder, K
+R2 = rule_from_name("R2,B10-13,S8-12")
+# (label, rule, comm_every, steps) of K3's main paths at 65536²
+LTL_PATHS = (("bosco", BOSCO, 1, 100), ("r2", R2, 4, 150))
+DENSE = 16384            # K2's main path: 256 MiB of cells
+DENSE_PATH = ("bosco", BOSCO, 3, 241)
+
+# each kernel's wrapper, whose ``launches`` the main paths read
+KERNELS = {kid: wrapper for kid, wrapper, _ in backend.KERNELS.values()}
 
 
 def fail(msg: str) -> None:
@@ -107,76 +147,160 @@ def phase0_card() -> str:
 def phase1_build() -> None:
     t0 = time.perf_counter()
     lib = _build.load_library()
-    emit({"phase": "build", "kernel": "K1", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(lib._name, ROOT)})
+    seconds = time.perf_counter() - t0
+    resources = _build.kernel_resources(_build.library_path())
+    emit({"phase": "build", "kernels": ["K1", "K2", "K3"],
+          "sources": [p.name for p in _build.sources()], "seconds": seconds,
+          "library": os.path.relpath(lib._name, ROOT),
+          "ptxas": resources})
+    if len(resources) != 1 + 7 + 6:  # K1, K2 at r 1..7, K3 at r 2..7
+        fail(f"expected 14 kernels in the ptxas report, got {resources}")
     _sass_loops(lib._name)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        emit({"phase": "build_seconds", **_build_seconds(Path(d))})
 
 
-def _sass_loops(library: str) -> None:
-    """K1's instructions per word per generation as the card runs them.
+def _build_seconds(d: Path) -> dict:
+    """Seconds to build the library into ``d`` two ways, alternating, twice
+    each: one nvcc call over every source, and the port's build (one nvcc
+    per source, started together, then a link)."""
+    single = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared"]
+    out = {"single_call": [], "per_source": []}
+    for rep in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            single + ["-o", str(d / f"single{rep}.so"),
+                      *map(str, _build.sources())],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"one-call nvcc build failed: {proc.stderr.strip()}")
+        out["single_call"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        _build.build(d / f"per_source{rep}.so")
+        out["per_source"].append(time.perf_counter() - t0)
+    return out
 
-    In the SASS of the built library, an innermost loop (a backward branch
-    with no other inside it) whose body holds 4u shuffles steps u words of
-    one lane per iteration, since each word's generation shuffles four
-    column sums.  Its instruction count over u, by opcode, is K1's code per
-    word per generation in that loop (static: a store that a predicate
-    skips still counts)."""
+
+def _sass_functions(library: str) -> dict:
+    """Each kernel's SASS in the built library, by its short name (e.g.
+    ``ltl_step_kernel<5>``): a list of (address, opcode, backward-branch
+    target or None)."""
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     dump = subprocess.run([tool, "-sass", library], capture_output=True,
                           text=True, timeout=300)
     if dump.returncode != 0:
         fail(f"cuobjdump failed: {dump.stderr.strip()}")
-    code = []  # (address, opcode, backward-branch target or None)
-    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
-                         r"([A-Z][A-Z0-9_.]*)([^;]*);", dump.stdout):
-        addr, op = int(m[1], 16), m[2]
-        t = re.search(r"0x([0-9a-f]+)\s*$", m[3]) if op == "BRA" else None
-        code.append((addr, op, int(t[1], 16) if t and int(t[1], 16) < addr
-                     else None))
+    out = {}
+    for f in dump.stdout.split("Function : ")[1:]:
+        k = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d+)E)?", f.splitlines()[0])
+        if not k:
+            continue
+        code = []
+        for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z][A-Z0-9_.]*)([^;]*);", f):
+            addr, op = int(m[1], 16), m[2]
+            t = re.search(r"0x([0-9a-f]+)\s*$", m[3]) if op == "BRA" else None
+            code.append((addr, op, int(t[1], 16)
+                         if t and int(t[1], 16) < addr else None))
+        out[k[1] + (f"<{k[2]}>" if k[2] else "")] = code
+    return out
+
+
+def _inner_loops(code) -> list:
+    """The bodies of the innermost loops (a backward branch with no other
+    inside it), as lists of opcodes."""
     loops = []
     for end, _, start in code:
         if start is None:
             continue
         body = [(a, op, b) for a, op, b in code if start <= a <= end]
-        shuffles = sum(op.startswith("SHFL") for _, op, _ in body)
-        inner = all(b is None for a, _, b in body if a != end)
-        if inner and shuffles and shuffles % 4 == 0:
+        if all(b is None for a, _, b in body if a != end):
+            loops.append([op.split(".")[0] for _, op, _ in body])
+    return loops
+
+
+def _sass_loops(library: str) -> None:
+    """Instructions per unit of work as the card runs them, counted
+    statically in the innermost loops of the built SASS (a store that a
+    predicate skips still counts).
+
+    K1: a row loop whose body holds 4u shuffles steps u words of one lane
+    per iteration (each word's generation shuffles four column sums); its
+    count over u is K1's code per word per generation.  K2 at r = 5: its
+    two column loops step one cell each, the vertical window sum and the
+    horizontal sum with the rule.  K3 at r = 5: its innermost loops are
+    the run-time rule's interval tests, one birth or survive interval per
+    iteration."""
+    funcs = _sass_functions(library)
+    k1 = []
+    for body in _inner_loops(funcs.get("bit_step_kernel", [])):
+        shuffles = sum(op.startswith("SHFL") for op in body)
+        if shuffles and shuffles % 4 == 0:
             u = shuffles // 4
-            ops = Counter(op.split(".")[0] for _, op, _ in body)
-            loops.append({"words_per_iteration": u,
-                          "instructions_per_word": len(body) / u,
-                          "by_opcode": {k: v / u
-                                        for k, v in ops.most_common()}})
-    if not loops:
+            k1.append({"words_per_iteration": u,
+                       "instructions_per_word": len(body) / u,
+                       "by_opcode": {k: v / u for k, v
+                                     in Counter(body).most_common()}})
+    if not k1:
         fail("no row loop of K1 found in its SASS")
-    emit({"phase": "sass", "kernel": "K1", "row_loops": loops,
+    emit({"phase": "sass", "kernel": "K1", "row_loops": k1,
           "compiled_form_word_ops": word_ops(LIFE)})
+    for kid, name, unit in (("K2", "dense_step_kernel<5>", "cell"),
+                            ("K3", "ltl_step_kernel<5>", "interval")):
+        if name not in funcs:
+            fail(f"{name} not found in the SASS")
+        emit({"phase": "sass", "kernel": kid, "function": name,
+              "instructions": len(funcs[name]),
+              f"inner_loops_per_{unit}": [
+                  {"instructions": len(b),
+                   "by_opcode": dict(Counter(b).most_common(8))}
+                  for b in _inner_loops(funcs[name])]})
 
 
-def _compare(x, rule, boundary, gens) -> int:
-    """The largest |K1 - plain| over the cells, which are 0 or 1: 0 when
-    ``torch.equal`` holds for the words, else 1 (and the case is named)."""
-    got = cuda_bit_step(x, rule, boundary, gens)
-    want = bit_step_plain(x, rule, boundary, gens)
+# -- phase 2: each kernel against its plain version -------------------------
+
+def _compare(kernel, plain, x, rule, boundary, gens) -> int:
+    """The largest |kernel - plain| over the cells, which are 0 or 1: 0
+    when ``torch.equal`` holds, else 1 (and the case is named)."""
+    got = kernel(x, rule, boundary, gens)
+    want = plain(x, rule, boundary, gens)
     if torch.equal(got, want):
         return 0
     bad = int((got != want).sum().item())
-    print(f"chip_smoke: K1 != plain: {tuple(x.shape)} {rule.name} {boundary} "
-          f"gens={gens}: {bad} words differ", file=sys.stderr, flush=True)
+    print(f"chip_smoke: {kernel.__name__} != plain: {tuple(x.shape)} "
+          f"{rule.name} r={rule.radius} {boundary} gens={gens}: {bad} "
+          f"elements differ", file=sys.stderr, flush=True)
     return 1
 
 
-def phase2_exact() -> int:
-    rng = np.random.default_rng(SEED)
+def _random_rule(rng, radius: int) -> Rule:
+    n = (2 * radius + 1) ** 2
+    birth = np.flatnonzero(rng.random(n) < 0.3)
+    survive = np.flatnonzero(rng.random(n) < 0.4)
+    return Rule("fuzz", frozenset(birth[birth > 0].tolist()),
+                frozenset(survive.tolist()), radius)
+
+
+def _words(rng, shape):
+    return grid_from_numpy(rng.integers(0, 2**32, size=shape, dtype=np.uint32),
+                           "cuda")
+
+
+def _cells(rng, shape):
+    return torch.from_numpy(rng.integers(0, 2, size=shape,
+                                         dtype=np.uint8)).cuda()
+
+
+def _k1_exact(rng) -> tuple:
     b0 = rule_from_name("B0/S8")
     cases = err = 0
     for shape in [(1000, 96), (7, 33), (2048, 128), (1, 1), (130, 31)]:
-        x = grid_from_numpy(
-            rng.integers(0, 2**32, size=shape, dtype=np.uint32), "cuda")
+        x = _words(rng, shape)
         for rule in (LIFE, HIGHLIFE, SEEDS, DAY_AND_NIGHT, b0):
             for boundary in ("periodic", "dead"):
                 for gens in ([1] if 0 in rule.birth else [1, 2, 8, 9, 16]):
-                    err = max(err, _compare(x, rule, boundary, gens))
+                    err = max(err, _compare(cuda_bit_step, bit_step_plain, x,
+                                            rule, boundary, gens))
                     cases += 1
     for _ in range(60):  # random rules, shapes, depths and boundaries
         birth, survive = (int(v) for v in rng.integers(0, 512, size=2))
@@ -184,81 +308,220 @@ def phase2_exact() -> int:
                     frozenset(c for c in range(9) if survive >> c & 1))
         gens = 1 if 0 in rule.birth else int(rng.integers(1, 17))
         shape = (int(rng.integers(1, 300)), int(rng.integers(1, 70)))
-        x = grid_from_numpy(
-            rng.integers(0, 2**32, size=shape, dtype=np.uint32), "cuda")
         boundary = ("periodic", "dead")[int(rng.integers(0, 2))]
-        err = max(err, _compare(x, rule, boundary, gens))
+        err = max(err, _compare(cuda_bit_step, bit_step_plain,
+                                _words(rng, shape), rule, boundary, gens))
         cases += 1
     x = init_packed(FLAGSHIP, FLAGSHIP, SEED, device="cuda")
     for gens in MAIN_DEPTHS:
         for boundary in ("periodic", "dead"):
-            err = max(err, _compare(x, LIFE, boundary, gens))
+            err = max(err, _compare(cuda_bit_step, bit_step_plain, x, LIFE,
+                                    boundary, gens))
             cases += 1
-    del x
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    emit({"phase": "kernel_vs_plain", "cases": cases, "max_abs_err": err})
-    if err:
-        fail("K1 disagrees with its plain version (tolerance: exact)")
-    return err
+    return cases, err
 
 
-def phase3_main_path() -> int:
-    cfg = GolConfig(rows=FLAGSHIP, cols=FLAGSHIP, steps=MAIN_STEPS, seed=SEED,
-                    comm_every=MAIN_GENS)
+DENSE_RULES = {1: LIFE, 2: R2, 3: rule_from_name("R3,B20-25,S18-30"),
+               5: BOSCO, 7: rule_from_name("R7,B80-100,S75-119")}
+
+
+def _k2_exact(rng) -> tuple:
+    cases = err = 0
+    # widths off 32 and 128, and grids below the neighbourhood (periodic
+    # wraps count cells more than once)
+    shapes = [(300, 333), (37, 100), (129, 257), (3, 2), (1, 1)]
+    for r, named in DENSE_RULES.items():
+        top = 16 // r
+        for rule in (named, _random_rule(rng, r)):
+            for shape in shapes:
+                x = _cells(rng, shape)
+                for boundary in ("periodic", "dead"):
+                    for gens in sorted({1, 2, top - 1, top} - {0}):
+                        err = max(err, _compare(cuda_dense_step,
+                                                dense_step_plain, x, rule,
+                                                boundary, gens))
+                        cases += 1
+    b0 = Rule("b0", frozenset({0, 3}), frozenset({2, 3}), 2)
+    for shape in [(40, 33), (5, 3)]:
+        for boundary in ("periodic", "dead"):
+            err = max(err, _compare(cuda_dense_step, dense_step_plain,
+                                    _cells(rng, shape), b0, boundary, 1))
+            cases += 1
+    for _ in range(40):  # random rules, radii, shapes, depths, boundaries
+        r = int(rng.integers(1, 8))
+        shape = (int(rng.integers(1, 400)), int(rng.integers(1, 400)))
+        boundary = ("periodic", "dead")[int(rng.integers(0, 2))]
+        err = max(err, _compare(cuda_dense_step, dense_step_plain,
+                                _cells(rng, shape), _random_rule(rng, r),
+                                boundary, int(rng.integers(1, 16 // r + 1))))
+        cases += 1
+    x = init_dense(DENSE, DENSE, SEED, device="cuda")
+    for gens in (1, DENSE_PATH[2]):
+        for boundary in ("periodic", "dead"):
+            err = max(err, _compare(cuda_dense_step, dense_step_plain, x,
+                                    BOSCO, boundary, gens))
+            cases += 1
+    return cases, err
+
+
+LTL_RULES = {2: R2, 3: DENSE_RULES[3], 4: rule_from_name("R4,B30-40,S25-50"),
+             5: BOSCO, 6: rule_from_name("R6,B50-70,S40-90"),
+             7: DENSE_RULES[7]}
+
+
+def _k3_exact(rng) -> tuple:
+    cases = err = 0
+    # (rows, words): ragged, one word per row, small H
+    shapes = [(300, 70), (130, 31), (5, 1), (1, 1), (64, 3)]
+    for r, named in LTL_RULES.items():
+        for rule in (named, _random_rule(rng, r)):
+            for shape in shapes:
+                x = _words(rng, shape)
+                for boundary in ("periodic", "dead"):
+                    for gens in range(1, max_gens(r) + 1):
+                        err = max(err, _compare(cuda_ltl_step, ltl_step_plain,
+                                                x, rule, boundary, gens))
+                        cases += 1
+    for _ in range(30):  # random rules, radii, shapes, depths, boundaries
+        r = int(rng.integers(2, 8))
+        shape = (int(rng.integers(1, 300)), int(rng.integers(1, 70)))
+        boundary = ("periodic", "dead")[int(rng.integers(0, 2))]
+        err = max(err, _compare(cuda_ltl_step, ltl_step_plain,
+                                _words(rng, shape), _random_rule(rng, r),
+                                boundary, int(rng.integers(1, max_gens(r) + 1))))
+        cases += 1
+    x = init_packed(FLAGSHIP, FLAGSHIP, SEED, device="cuda")
+    for _, rule, gens, _ in LTL_PATHS:
+        for boundary in ("periodic", "dead"):
+            err = max(err, _compare(cuda_ltl_step, ltl_step_plain, x, rule,
+                                    boundary, gens))
+            cases += 1
+    return cases, err
+
+
+def phase2_exact() -> dict:
+    rng = np.random.default_rng(SEED)
+    errs = {}
+    for kid, check in (("K1", _k1_exact), ("K2", _k2_exact),
+                       ("K3", _k3_exact)):
+        t0 = time.perf_counter()
+        cases, err = check(rng)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        emit({"phase": "kernel_vs_plain", "kernel": kid, "cases": cases,
+              "max_abs_err": err, "seconds": time.perf_counter() - t0})
+        errs[kid] = err
+    if any(errs.values()):
+        fail(f"a kernel disagrees with its plain version (tolerance: exact): "
+             f"{errs}")
+    return errs
+
+
+# -- phase 3: the main paths -------------------------------------------------
+
+def _plain_final(kind, rows, cols, rule, steps):
+    """The plain version's grid after ``steps`` generations from the same
+    hash init, on the card (periodic)."""
+    if kind == "dense":
+        g = init_dense(rows, cols, SEED, device="cuda")
+        for _ in range(steps):
+            g = dense_step_plain(g, rule, "periodic")
+        return g
+    g = init_packed(rows, cols, SEED, device="cuda")
+    plain = bit_step if kind == "bit" else ltl_step
+    for _ in range(steps):
+        g = plain(g, rule, "periodic")
+    return g
+
+
+def _blocks_differ(final: np.ndarray, g: torch.Tensor, packed: bool) -> int:
+    """Blocks of 2048 rows where the host grid ``final`` differs from the
+    device grid ``g`` (packed again on the card when ``g`` is packed)."""
+    block, differ = 2048, 0
+    for r0 in range(0, final.shape[0], block):
+        cells = torch.from_numpy(final[r0:r0 + block]).cuda()
+        differ += not torch.equal(pack(cells) if packed else cells,
+                                  g[r0:r0 + block])
+    return differ
+
+
+def _drive(label, kid, kind, size, rule, comm_every, steps) -> int:
+    """``run_cuda`` on one main path with the kernel's launch counter reset
+    just before; its whole final grid must equal the plain version's."""
+    cfg = GolConfig(rows=size, cols=size, steps=steps, seed=SEED, rule=rule,
+                    comm_every=comm_every)
     timer = PhaseTimer()
-    cuda_bit_step.launches = 0
-    final = run_cuda(cfg, timer=timer)
-    launches = cuda_bit_step.launches
-    if launches == 0:
-        fail("the main path launched K1 no time")
-    if final.shape != (FLAGSHIP, FLAGSHIP) or final.dtype != np.uint8:
+    for k in KERNELS.values():
+        k.launches = 0
+    final = backend.run_cuda(cfg, timer=timer)
+    launches = {k: w.launches for k, w in KERNELS.items()}
+    if launches[kid] == 0:
+        fail(f"the {label} main path launched {kid} no time: {launches}")
+    if final.shape != (size, size) or final.dtype != np.uint8:
         fail(f"run_cuda returned {final.shape} {final.dtype}")
     pop = int(final.sum(dtype=np.int64))
-
-    g = init_packed(FLAGSHIP, FLAGSHIP, SEED, device="cuda")
-    for _ in range(MAIN_STEPS):
-        g = bit_step(g, LIFE, "periodic")
-    plain_pop = population(g)
-    # the whole final grid, packed again on the card a block of rows at a time
-    block = 2048
-    rows_differ = sum(
-        not torch.equal(pack(torch.from_numpy(final[r0:r0 + block]).cuda()),
-                        g[r0:r0 + block])
-        for r0 in range(0, FLAGSHIP, block))
+    g = _plain_final(kind, size, size, rule, steps)
+    plain_pop = (int(g.sum(dtype=torch.int64).item()) if kind == "dense"
+                 else population(g))
+    differ = _blocks_differ(final, g, kind != "dense")
     del g
     torch.cuda.empty_cache()
-    if pop != plain_pop or rows_differ:
-        fail(f"main path population {pop} vs plain {plain_pop}; "
-             f"{rows_differ} blocks of {block} rows differ from the plain grid")
-    emit({"phase": "main_path", "grid": [FLAGSHIP, FLAGSHIP],
-          "steps": MAIN_STEPS, "comm_every": MAIN_GENS, "launches": launches,
-          "grid_equal_to_plain": True,
-          "population": pop, "plain_population": plain_pop,
+    if pop != plain_pop or differ:
+        fail(f"{label} main path population {pop} vs plain {plain_pop}; "
+             f"{differ} blocks of 2048 rows differ from the plain grid")
+    emit({"phase": "main_path", "path": label, "kernel": kid,
+          "grid": [size, size], "rule": str(rule), "steps": steps,
+          "comm_every": comm_every, "launches": launches,
+          "grid_equal_to_plain": True, "population": pop,
+          "plain_population": plain_pop,
           "setup_s": timer.setup_us / 1e6, "steady_s": timer.nosetup_us / 1e6,
-          "cell_updates_per_s": timer.cells_per_sec(FLAGSHIP, FLAGSHIP,
-                                                    MAIN_STEPS)})
+          "cell_updates_per_s": timer.cells_per_sec(size, size, steps)})
+    return launches[kid]
 
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+
+def _cli_cases(d: str) -> None:
+    """The CLI against the serial oracle: every ``.gol`` file byte for
+    byte, and the kernel the run should take launched."""
+    cases = [(512, "life", "4", "K1"), (512, "bosco", "1", "K3"),
+             (500, "life", "3", "K2"), (500, "bosco", "2", "K2")]
+    for size, rule, comm, kid in cases:
         for boundary in ("periodic", "dead"):
-            common = ["512", "512", "10", "30", "--save", "--seed", "5",
-                      "--boundary", boundary, "--quiet"]
-            cu, ser = os.path.join(d, f"cu-{boundary}"), os.path.join(d, f"se-{boundary}")
-            rc = (cli_main(common + ["--name", "n", "--out-dir", cu,
-                                     "--comm-every", "4"]),
-                  cli_main(common + ["--name", "n", "--out-dir", ser,
-                                     "--backend", "serial"]))
+            common = [str(size), str(size), "10", "30", "--save", "--seed",
+                      "5", "--rule", rule, "--boundary", boundary, "--quiet",
+                      "--name", "n"]
+            tag = f"{size}-{rule}-{boundary}"
+            cu, ser = os.path.join(d, f"cu-{tag}"), os.path.join(d, f"se-{tag}")
+            KERNELS[kid].launches = 0
+            rc = (cli_main(common + ["--out-dir", cu, "--comm-every", comm]),
+                  cli_main(common + ["--out-dir", ser, "--backend", "serial"]))
             if rc != (0, 0):
-                fail(f"CLI exit codes {rc} ({boundary})")
+                fail(f"CLI exit codes {rc} ({tag})")
+            if KERNELS[kid].launches == 0:
+                fail(f"the CLI run {tag} launched {kid} no time")
             names = sorted(f for f in os.listdir(ser) if f.endswith(".gol"))
             _, mismatch, errors = filecmp.cmpfiles(ser, cu, names, shallow=False)
             if len(names) != 5 or mismatch or errors:
-                fail(f"CLI .gol files differ from the serial oracle "
-                     f"({boundary}): {mismatch + errors}")
-    emit({"phase": "cli", "grid": [512, 512], "boundaries": ["periodic", "dead"],
+                fail(f"CLI .gol files differ from the serial oracle ({tag}): "
+                     f"{mismatch + errors}")
+    emit({"phase": "cli", "cases": [f"{s}x{s} {r} comm_every {c} ({k})"
+                                    for s, r, c, k in cases],
+          "boundaries": ["periodic", "dead"],
           "gol_files_identical_to_serial": True})
+
+
+def phase3_main_paths() -> dict:
+    launches = {"K1": _drive("life", "K1", "bit", FLAGSHIP, LIFE, MAIN_GENS,
+                             MAIN_STEPS)}
+    launches["K3"] = {label: _drive(label, "K3", "ltl", FLAGSHIP, rule, k, n)
+                      for label, rule, k, n in LTL_PATHS}
+    label, rule, k, n = DENSE_PATH
+    launches["K2"] = _drive(label, "K2", "dense", DENSE, rule, k, n)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        _cli_cases(d)
     return launches
 
+
+# -- phase 4: times ----------------------------------------------------------
 
 def _events_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
@@ -271,104 +534,216 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _pass_ms(kernel, x, rule, gens, reps=20) -> float:
+    """ms per pass, ping-ponging as the engine does: each pass reads the
+    last output."""
+    bufs = [x.clone(), torch.empty_like(x)]
+
+    def one_pass():
+        kernel(bufs[0], rule, "periodic", gens, out=bufs[1])
+        bufs.reverse()
+
+    for _ in range(3):
+        one_pass()
+    return _events_ms(one_pass, reps)
+
+
+def _plain_ms(plain, x, rule, gens) -> float:
+    plain(x, rule, "periodic", gens)  # warm the allocator
+    return _events_ms(lambda: plain(x, rule, "periodic", gens), 2)
+
+
+def _row(card, kid, grid, rule, gens, ms, plain_ms, t_bytes, t_ops, **extra):
+    cells = grid[0] * grid[1]
+    row = {"phase": "times", "card": card, "kernel": kid, "grid": grid,
+           "rule": str(rule), "gens": gens, "ms": ms,
+           "cell_updates_per_s": cells * gens / (ms / 1e3),
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes_ms": t_bytes, "operations_ms": t_ops, **extra}
+    emit(row)
+    return row
+
+
 def phase4_times(card: str) -> dict:
+    rows = {}
     x = init_packed(FLAGSHIP, FLAGSHIP, SEED, device="cuda")
-    y = torch.empty_like(x)
     words = x.numel()
-    out = {}
-    for gens in MAIN_DEPTHS:
-        bufs = [x, y]
-
-        def one_pass():
-            # ping-pong as the engine does: each pass reads the last output
-            cuda_bit_step(bufs[0], LIFE, "periodic", gens, out=bufs[1])
-            bufs.reverse()
-
-        for _ in range(3):
-            one_pass()
-        ms = _events_ms(one_pass, 20)
-        bit_step_plain(x, LIFE, "periodic", gens)  # warm the allocator
-        plain_ms = _events_ms(lambda: bit_step_plain(x, LIFE, "periodic", gens), 2)
-        t_bytes = 8 * words / HBM_BYTES_PER_S * 1e3
-        t_ops = gens * words * word_ops(LIFE) / INT32_OPS_PER_S * 1e3
-        row = {"phase": "times", "card": card, "grid": [FLAGSHIP, FLAGSHIP],
-               "gens": gens, "ms": ms,
-               "cell_updates_per_s": FLAGSHIP * FLAGSHIP * gens / (ms / 1e3),
-               "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bytes_ms": t_bytes, "operations_ms": t_ops,
-               "word_ops": word_ops(LIFE),
-               "library_ms": None,
-               "library_note": "no single PyTorch call computes a Life "
-                               "generation"}
-        emit(row)
-        out[gens] = row
-    del x, y
+    for gens in MAIN_DEPTHS:  # K1: 8 B per word per pass; word_ops per gen
+        rows["K1", gens] = _row(
+            card, "K1", [FLAGSHIP, FLAGSHIP], LIFE, gens,
+            _pass_ms(cuda_bit_step, x, LIFE, gens),
+            _plain_ms(bit_step_plain, x, LIFE, gens),
+            8 * words / HBM_BYTES_PER_S * 1e3,
+            gens * words * word_ops(LIFE) / INT32_OPS_PER_S * 1e3,
+            word_ops=word_ops(LIFE), library_ms=None,
+            library_note="no single PyTorch call computes a Life generation")
+    for label, rule, k, n in LTL_PATHS:  # K3: as K1, from below and above
+        lower, upper = ltl_word_ops_lower(rule), ltl_word_ops(rule)
+        for gens in sorted({k, n % k} - {0}):
+            t_bytes = 8 * words / HBM_BYTES_PER_S * 1e3
+            rows["K3", label, gens] = _row(
+                card, "K3", [FLAGSHIP, FLAGSHIP], rule, gens,
+                _pass_ms(cuda_ltl_step, x, rule, gens, reps=10),
+                _plain_ms(ltl_step_plain, x, rule, gens),
+                t_bytes, gens * words * lower / INT32_OPS_PER_S * 1e3,
+                word_ops_lower=lower, word_ops_upper=upper,
+                bound_ms_upper_count=max(
+                    t_bytes, gens * words * upper / INT32_OPS_PER_S * 1e3),
+                library_ms=None,
+                library_note="no single PyTorch call computes a "
+                             "Larger-than-Life generation")
+    del x
     torch.cuda.empty_cache()
-    return out
+
+    label, rule, k, n = DENSE_PATH
+    x = init_dense(DENSE, DENSE, SEED, device="cuda")
+    cells, r = x.numel(), rule.radius
+    # the counts alone, as one library call: a (2r+1)² box of ones over the
+    # pre-padded grid in float16 (exact: counts <= 225 < 2048)
+    padded = pad_grid(x, r, "periodic")
+    box = torch.ones((1, 1, 2 * r + 1, 2 * r + 1), dtype=torch.half,
+                     device="cuda")
+    conv_in = padded.half()[None, None]
+    conv = lambda: torch.nn.functional.conv2d(conv_in, box)  # noqa: E731
+    # let cuDNN time its algorithms for this shape and keep the fastest
+    torch.backends.cudnn.benchmark = True
+    if not torch.equal((conv()[0, 0] - x.half()).to(torch.uint8),
+                       counts_from_padded(padded, r)):
+        fail("conv2d's counts differ from the plain counts")
+    library_ms = _events_ms(conv, 10)
+    torch.backends.cudnn.benchmark = False
+    del padded, conv_in
+    for gens in sorted({k, n % k} - {0}):  # K2: 2 B per cell per pass
+        rows["K2", gens] = _row(
+            card, "K2", [DENSE, DENSE], rule, gens,
+            _pass_ms(cuda_dense_step, x, rule, gens, reps=10),
+            _plain_ms(dense_step_plain, x, rule, gens),
+            2 * cells / HBM_BYTES_PER_S * 1e3,
+            gens * cells * K2_CELL_OPS / INT32_OPS_PER_S * 1e3,
+            ops_per_cell=K2_CELL_OPS, library_ms=library_ms,
+            library_note="conv2d of the padded grid, float16, (2r+1)² ones: "
+                         "one generation's counts only (centre included), "
+                         "no rule")
+    del x
+    torch.cuda.empty_cache()
+    return rows
 
 
-def phase5_trace(card: str) -> None:
-    """The steady stepping of ``run_cuda`` (its engine, config and segment
-    loop) under ``torch.profiler``: the device is busy for the union of its
-    kernel intervals, and idle for the rest of the host's wall time from the
-    first launch to the closing synchronise."""
+# -- phase 5: traces ---------------------------------------------------------
+
+def _trace(card, label, size, rule, comm_every, steps) -> None:
+    """The steady stepping of ``run_cuda``'s engine on one main path under
+    ``torch.profiler``, inside a ``steady`` host range opened once the
+    profiler has seen one kernel: the device is busy for the union of its
+    kernel intervals in that range, and idle for the rest of it.  Host
+    operations that run before the first kernel say what delays it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    cfg = GolConfig(rows=FLAGSHIP, cols=FLAGSHIP, steps=MAIN_STEPS, seed=SEED,
-                    comm_every=MAIN_GENS)
-    engine = build_engine(cfg)
+    cfg = GolConfig(rows=size, cols=size, steps=steps, seed=SEED, rule=rule,
+                    comm_every=comm_every)
+    engine = backend.build_engine(cfg)
     grid = engine.init_grid()
     engine.warm_up()
     engine.sync()
+    wrapper = KERNELS[engine.kernel_id]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        grid = engine.step(grid, MAIN_STEPS)
-        engine.sync()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        torch.ones(1, device="cuda").add_(1)  # the profiler's first kernel
+        torch.cuda.synchronize()
+        before = wrapper.launches
+        with record_function("steady"):
+            grid = engine.step(grid, steps)
+            engine.sync()
+    launches = wrapper.launches - before
     del grid
     torch.cuda.empty_cache()
+    events = prof.events()
+    # the host's range: the profiler also puts a copy of it on the device's
+    # timeline, spanning only the kernels
+    steady = next(e.time_range for e in events if e.name == "steady"
+                  and e.device_type == DeviceType.CPU)
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end, by_name = 0.0, float("-inf"), {}
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and e.name != "steady"
+                   and e.time_range.start >= steady.start)
+    wall_us = steady.end - steady.start
+    busy_us, end, by_name, gaps = 0.0, float("-inf"), {}, []
     for start, stop, name in spans:
+        if end > float("-inf"):
+            gaps.append(max(0.0, start - end))
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
         count, us = by_name.get(name, (0, 0.0))
         by_name[name] = (count + 1, us + stop - start)
-    emit({"phase": "trace", "card": card, "grid": [FLAGSHIP, FLAGSHIP],
-          "steps": MAIN_STEPS, "comm_every": MAIN_GENS, "wall_ms": wall_us / 1e3,
-          "device_busy_ms": busy_us / 1e3,
+    first = spans[0][0] if spans else steady.end
+    early = sorted(((e.time_range.end - e.time_range.start, e.name)
+                    for e in events if e.device_type == DeviceType.CPU
+                    and e.name != "steady"
+                    and steady.start <= e.time_range.start < first),
+                   reverse=True)[:5]
+    emit({"phase": "trace", "card": card, "path": label,
+          "kernel": engine.kernel_id, "grid": [size, size],
+          "steps": steps, "comm_every": comm_every, "launches": launches,
+          "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
           # None when the profiler recorded no device activity
           "idle_share": 1 - busy_us / wall_us if spans else None,
+          # where the idle time lies: before the first kernel, between
+          # kernels (and the largest such gap), after the last
+          "first_kernel_after_ms": (first - steady.start) / 1e3,
+          "gaps_between_kernels_ms": sum(gaps) / 1e3,
+          "largest_gap_ms": max(gaps, default=0.0) / 1e3,
+          "after_last_kernel_ms": (steady.end - end) / 1e3 if spans else None,
+          "host_ops_before_first_kernel": [
+              {"name": n, "ms": us / 1e3} for us, n in early],
           "kernels": [{"name": n, "count": c, "ms": us / 1e3}
                       for n, (c, us) in sorted(by_name.items())]})
+
+
+def phase5_traces(card: str) -> None:
+    _trace(card, "life", FLAGSHIP, LIFE, MAIN_GENS, MAIN_STEPS)
+    for label, rule, k, n in LTL_PATHS:
+        _trace(card, label, FLAGSHIP, rule, k, n)
+    label, rule, k, n = DENSE_PATH
+    _trace(card, label, DENSE, rule, k, n)
 
 
 def main() -> int:
     card = phase0_card()
     phase1_build()
-    err = phase2_exact()
-    launches = phase3_main_path()
+    errs = phase2_exact()
+    launches = phase3_main_paths()
     times = phase4_times(card)
-    phase5_trace(card)
-    main_row = times[MAIN_GENS]
+    phase5_traces(card)
+    k1 = times["K1", MAIN_GENS]
+    k2 = times["K2", DENSE_PATH[2]]
+    k3 = times["K3", LTL_PATHS[0][0], LTL_PATHS[0][2]]
     print(card, flush=True)
-    emit({"kernels": [{
-        "name": "K1 bit_step",
-        "route": "cuda",
-        "source": "mpi_tpu_torch/csrc/bitlife.cu",
-        "replaces": "mpi_tpu/ops/pallas_bitlife.py:351",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-    }]})
+    emit({"kernels": [
+        {"name": "K1 bit_step", "route": "cuda",
+         "source": "mpi_tpu_torch/csrc/bitlife.cu",
+         "replaces": "mpi_tpu/ops/pallas_bitlife.py:351",
+         "launches": launches["K1"], "max_abs_err": errs["K1"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None},
+        {"name": "K2 dense_step", "route": "cuda",
+         "source": "mpi_tpu_torch/csrc/stencil.cu",
+         "replaces": "mpi_tpu/ops/pallas_stencil.py:285",
+         "launches": launches["K2"], "max_abs_err": errs["K2"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": k2["library_ms"]},
+        {"name": "K3 ltl_step", "route": "cuda",
+         "source": "mpi_tpu_torch/csrc/bitltl.cu",
+         "replaces": "mpi_tpu/ops/pallas_bitltl.py:264",
+         "launches": launches["K3"][LTL_PATHS[0][0]],
+         "max_abs_err": errs["K3"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": None},
+    ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,12 +6,21 @@ reference: for the same rule, boundary, seed, shape and step count the two
 produce bit-identical grids and byte-identical ``.gol`` files.  The port
 imports nothing from ``mpi_tpu`` and no JAX.
 
-This slice runs the packed (SWAR) main path: hash init straight into
-32-cell words, K-generation passes of kernel K1 (``ops/cuda_bitlife.py``,
-``csrc/bitlife.cu``), snapshots and timing reports.  Entry points run on the
-GPU unless the caller asks for the CPU.
+The port runs one device: hash init, K-generation passes of one of three
+hand-written kernels, snapshots and timing reports.  K1 (``csrc/bitlife.cu``)
+steps radius-1 rules on packed 32-cell words, K3 (``csrc/bitltl.cu``)
+Larger-than-Life rules on bit planes of packed words, and K2
+(``csrc/stencil.cu``) any rule on dense uint8 cells at any width
+(``backends/cuda.py:select_engine``).  Entry points run on the GPU unless
+the caller asks for the CPU.
 """
 
+from mpi_tpu_torch.backends.cuda import (
+    Engine,
+    build_engine,
+    run_cuda,
+    select_engine,
+)
 from mpi_tpu_torch.config import ConfigError, GolConfig
 from mpi_tpu_torch.models.rules import (
     BOSCO,
@@ -26,6 +35,10 @@ from mpi_tpu_torch.models.rules import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "Engine",
+    "build_engine",
+    "run_cuda",
+    "select_engine",
     "ConfigError",
     "GolConfig",
     "Rule",

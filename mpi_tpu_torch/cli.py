@@ -4,14 +4,19 @@
 Examples::
 
     python -m mpi_tpu_torch.cli 65536 65536 0 1000 --comm-every 8
+    python -m mpi_tpu_torch.cli 16384 16384 0 300 --rule bosco --comm-every 3
     python -m mpi_tpu_torch.cli 512 512 10 50 --save --out-dir /tmp/run
     python -m mpi_tpu_torch.cli 512 512 10 50 --backend serial --save
     python -m mpi_tpu_torch.cli 64 64 10 50 --device cpu --resume NAME@50
 
-``--backend cuda`` (the default) runs the packed engine through kernel K1
-on the GPU, or its plain PyTorch version with ``--device cpu``; ``serial``
-runs the numpy oracle.  Every backend writes the same ``.gol`` files and
-the same two timing reports.
+``--backend cuda`` (the default) runs on the GPU through one of three
+kernels (``backends/cuda.py:select_engine``): K1 for radius-1 rules at a
+width of whole 32-cell words, K3 for Larger-than-Life rules (radius 2..7)
+at such a width with ``--comm-every`` <= ⌊8/r⌋, K2 for every other width
+or depth with comm-every x radius <= 16; ``--device cpu`` runs the
+kernel's plain PyTorch version instead.  ``serial`` runs the numpy oracle.
+Every backend writes the same ``.gol`` files and the same two timing
+reports.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "version instead of the kernel")
     p.add_argument("--boundary", choices=["periodic", "dead"], default="periodic")
     p.add_argument("--rule", default="life",
-                   help="life|highlife|seeds|daynight or B3/S23 syntax")
+                   help="life|highlife|seeds|daynight|bosco, B3/S23 syntax "
+                   "or Larger-than-Life R5,B34-45,S33-57 syntax")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--save", action="store_true",
                    help="write .gol snapshots every iteration_gap steps")
@@ -60,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
                    % golio.GOLP_THRESHOLD)
     p.add_argument("--out-dir", default=".")
     p.add_argument("--comm-every", default="1", metavar="K",
-                   help="cuda backend: generations per kernel pass (1..16), "
+                   help="cuda backend: generations per kernel pass (1..16, "
+                   "and comm-every x radius <= 16 off the packed engines), "
                    "the kernel's temporal-blocking depth")
     p.add_argument("--name", default=None, help="run name (default: timestamp)")
     p.add_argument("--strict", action="store_true",

@@ -1,12 +1,15 @@
 """Run configuration of the port: the single-device subset of
 ``mpi_tpu.config``.
 
-The fields keep the reference's names and meanings.  What this slice of
-the port does not run yet is refused here with a :class:`ConfigError` that
-names the ROADMAP item which brings it, rather than run on a slower path:
-device meshes, ``overlap``, ``sparse_tile``, radius > 1 and widths that are
-not a whole number of 32-cell words (the last two on the ``cuda`` backend;
-the ``serial`` oracle serves any rule and width).
+The fields keep the reference's names and meanings.  What no kernel of
+the port serves yet is refused here with a :class:`ConfigError` that names
+the ROADMAP item which brings it, rather than run on a slower path: device
+meshes, ``overlap``, ``sparse_tile``, and on the ``cuda`` backend a
+``comm_every`` deeper than kernel K2's halo (comm_every x radius >
+``cuda_stencil.MAX_DEPTH``), which the packed kernels, shallower still,
+cannot take either.  Every other rule and width runs on one of kernels K1,
+K2 and K3 (``backends/cuda.py:select_engine``); the ``serial`` oracle
+serves any rule and width.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 from mpi_tpu_torch.models.rules import LIFE, Rule
+from mpi_tpu_torch.ops.cuda_stencil import MAX_DEPTH as MAX_DENSE_DEPTH
 
 WORD = 32  # cells per packed word
 BACKENDS = ("cuda", "serial")
@@ -87,18 +91,15 @@ class GolConfig:
                 "item 10"
             )
         if self.backend == "cuda":
-            if self.rule.radius != 1:
+            depth = self.rule.radius * self.comm_every
+            if depth > MAX_DENSE_DEPTH:
                 raise ConfigError(
-                    f"radius {self.rule.radius}: the cuda backend runs "
-                    f"radius-1 rules; the bit-sliced LtL engine is ROADMAP "
-                    f"queue 1 item 7 (kernel K3)"
-                )
-            if self.cols % WORD:
-                raise ConfigError(
-                    f"width {self.cols} is not a multiple of {WORD}: the "
-                    f"cuda backend runs the packed engine only; pad-to-32 "
-                    f"routing is ROADMAP queue 1 item 8 and the dense engine "
-                    f"item 6 (kernel K2)"
+                    f"comm_every {self.comm_every} x radius "
+                    f"{self.rule.radius} = {depth} > {MAX_DENSE_DEPTH}: the "
+                    f"dense kernel K2 blocks at most {MAX_DENSE_DEPTH} cells "
+                    f"of halo and the packed kernels fewer; the 1x1-mesh "
+                    f"stepper that would serve it is ROADMAP queue 1 item 8 "
+                    f"(routing) and item 13 (meshes)"
                 )
             validate_size(self.rows, self.cols,
                           self.rule.radius * self.comm_every)

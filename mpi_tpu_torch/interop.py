@@ -1,6 +1,7 @@
 """Carry state between the JAX package and the port: packed uint32 words
 as numpy arrays on one side, int32 tensors of the same bit pattern on the
-other, and rules rebuilt from their fields."""
+other; dense uint8 0/1 cells as numpy arrays and uint8 tensors; and rules
+rebuilt from their fields."""
 
 from __future__ import annotations
 
@@ -23,6 +24,22 @@ def grid_to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.int32:
         raise TypeError(f"packed words must be int32, got {t.dtype}")
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def dense_from_numpy(cells: np.ndarray, device) -> torch.Tensor:
+    """A uint8 0/1 (H, W) array → a uint8 tensor on ``device``."""
+    cells = np.ascontiguousarray(cells)
+    if cells.dtype != np.uint8 or cells.ndim != 2:
+        raise TypeError(f"dense cells must be a 2-D uint8 array, got "
+                        f"{cells.dtype} {cells.shape}")
+    return torch.from_numpy(cells).to(device)
+
+
+def dense_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A uint8 (H, W) tensor → a uint8 numpy array."""
+    if t.dtype != torch.uint8:
+        raise TypeError(f"dense cells must be uint8, got {t.dtype}")
+    return t.detach().cpu().contiguous().numpy()
 
 
 def rule_from_fields(name: str, birth, survive, radius: int = 1) -> Rule:

@@ -11,6 +11,25 @@ packages.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Iterable, List, Tuple
+
+
+def _intervals(counts: Iterable[int]) -> Tuple[Tuple[int, int], ...]:
+    """Sorted, inclusive (lo, hi) runs of a set of counts: the form in
+    which the dense and bit-sliced engines test a rule."""
+    s = sorted(set(int(c) for c in counts))
+    if not s:
+        return ()
+    out: List[Tuple[int, int]] = []
+    lo = hi = s[0]
+    for c in s[1:]:
+        if c == hi + 1:
+            hi = c
+        else:
+            out.append((lo, hi))
+            lo = hi = c
+    out.append((lo, hi))
+    return tuple(out)
 
 
 @dataclass(frozen=True)
@@ -47,6 +66,14 @@ class Rule:
         """Largest possible neighbour count: (2r+1)² − 1."""
         side = 2 * self.radius + 1
         return side * side - 1
+
+    @property
+    def birth_intervals(self) -> Tuple[Tuple[int, int], ...]:
+        return _intervals(self.birth)
+
+    @property
+    def survive_intervals(self) -> Tuple[Tuple[int, int], ...]:
+        return _intervals(self.survive)
 
     @property
     def birth_mask(self) -> int:

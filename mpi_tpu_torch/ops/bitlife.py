@@ -322,6 +322,9 @@ class _Node:
 
     __and__ = __or__ = __xor__ = __rand__ = __ror__ = __rxor__ = _gate
 
+    def __invert__(self):
+        return _Node(self.graph, (self,))
+
 
 def _cuts(node, memo):
     """The sets of at most three nodes that ``node`` is a function of and
@@ -363,6 +366,82 @@ def _cover(root) -> int:
         return best[todo]
 
     return cost(owed([root])) if isinstance(root, _Node) else 0
+
+
+def _map_cover(root, passes: int = 3) -> int:
+    """Instructions that compute ``root``, for graphs too large for the
+    exact :func:`_cover`: a technology mapping of the graph onto LOP3 and
+    SHF.  Each gate first takes the cut of least area flow (a leaf's cost
+    shared among its readers), then, for a few passes, the cut that adds the
+    fewest instructions given the rest of the cover.  A valid cover, so an
+    upper bound on the exact count; on the radius-1 rules it lands within
+    two instructions of it (``tests/test_torch_bitltl.py``)."""
+    if not isinstance(root, _Node):
+        return 0
+    nodes, stack = {}, [root]
+    while stack:
+        n = stack.pop()
+        if n.id not in nodes:
+            nodes[n.id] = n
+            stack.extend(n.kids)
+    readers = dict.fromkeys(nodes, 0)
+    for n in nodes.values():
+        for k in n.kids:
+            readers[k.id] += 1
+    cut_memo, flow, choice = {}, {}, {}
+
+    def candidates(n):
+        if n.shift:
+            return [frozenset(n.kids)]
+        # in a fixed order, so ties break the same way in every run
+        return sorted((c for c in _cuts(n, cut_memo) if n not in c),
+                      key=lambda c: sorted(x.id for x in c))
+
+    def gates(cut):
+        return [x for x in cut if x.kids]
+
+    for i in sorted(nodes):
+        n = nodes[i]
+        if n.kids:
+            flow[i], choice[i] = min(
+                ((1 + sum(flow[x.id] / readers[x.id] for x in gates(c)), c)
+                 for c in candidates(n)), key=lambda fc: fc[0])
+
+    refs: dict = {}
+
+    def ref(n) -> int:    # take n's cut into the cover; instructions added
+        added = 1
+        for x in gates(choice[n.id]):
+            refs[x.id] = refs.get(x.id, 0) + 1
+            if refs[x.id] == 1:
+                added += ref(x)
+        return added
+
+    def deref(n) -> int:  # take it out again; instructions removed
+        removed = 1
+        for x in gates(choice[n.id]):
+            refs[x.id] -= 1
+            if refs[x.id] == 0:
+                removed += deref(x)
+        return removed
+
+    total = ref(root)
+    for _ in range(passes):
+        for i in sorted(nodes, reverse=True):
+            n = nodes[i]
+            if n.shift or not n.kids or (n is not root and not refs.get(i)):
+                continue
+            total -= deref(n)
+            best = None
+            for c in candidates(n):
+                choice[i] = c
+                added = ref(n)
+                deref(n)
+                if best is None or added < best[0]:
+                    best = (added, c)
+            choice[i] = best[1]
+            total += ref(n)
+    return total
 
 
 def word_ops(rule: Rule) -> int:

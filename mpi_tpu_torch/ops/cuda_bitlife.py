@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from mpi_tpu_torch.models.rules import LIFE, Rule
+from mpi_tpu_torch.ops._launch import check_cuda, check_out, raise_on_error
 from mpi_tpu_torch.ops.bitlife import WORD, bit_step, packable
 
 MAX_GENS = 16
@@ -61,18 +62,6 @@ def _check(packed: torch.Tensor, rule: Rule, boundary: str, gens: int) -> None:
         raise ValueError(reason)
 
 
-def _span(t: torch.Tensor):
-    """The byte addresses [start, end) that ``t``'s elements can touch."""
-    extent = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
-    start = t.data_ptr()
-    return start, start + (extent if t.numel() else 0) * t.element_size()
-
-
-def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
-    (a0, a1), (b0, b1) = _span(a), _span(b)
-    return a0 < b1 and b0 < a1
-
-
 def bit_step_plain(packed: torch.Tensor, rule: Rule = LIFE,
                    boundary: str = "periodic", gens: int = 1) -> torch.Tensor:
     """The plain version of K1: ``gens`` applications of ``bit_step``."""
@@ -94,20 +83,11 @@ def cuda_bit_step(packed: torch.Tensor, rule: Rule = LIFE,
     ``cuda_bit_step.launches`` counts kernel launches."""
     _check(packed, rule, boundary, gens)
     if out is not None:
-        if (out.shape != packed.shape or out.dtype != packed.dtype
-                or out.device != packed.device or not out.is_contiguous()):
-            raise ValueError("out must be a contiguous tensor of the input's "
-                             "shape, dtype and device")
-        if _overlaps(out, packed):
-            raise ValueError("out must not overlap the input: K1 cannot run "
-                             "in place")
+        check_out(out, packed, "K1")
     if packed.device.type == "cpu":
         res = bit_step_plain(packed, rule, boundary, gens)
         return res if out is None else out.copy_(res)
-    if packed.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA tensors, got device {packed.device}")
-    if not packed.is_contiguous():
-        raise ValueError("packed grid must be contiguous")
+    check_cuda(packed, "K1")
     from mpi_tpu_torch.ops._build import load_library
 
     lib = load_library()
@@ -121,11 +101,7 @@ def cuda_bit_step(packed: torch.Tensor, rule: Rule = LIFE,
             int(boundary == "periodic"), rule.birth_mask, rule.survive_mask,
             stream,
         )
-    if err:
-        raise RuntimeError(
-            f"K1 launch failed: CUDA error {err} "
-            f"({lib.gol_error_string(err).decode()})"
-        )
+    raise_on_error(lib, err, "K1")
     cuda_bit_step.launches += 1
     return out
 

@@ -99,3 +99,14 @@ def init_tile_torch(
     h = _fmix32_torch(i ^ as_i32(seed))
     h = _fmix32_torch(h ^ j)
     return ((h.to(torch.int64) & 0xFFFFFFFF) % 3 == 0).to(torch.uint8)
+
+
+def init_dense(rows: int, cols: int, seed: int, device="cuda",
+               block_rows: int = 1024) -> torch.Tensor:
+    """The whole (rows, cols) grid as uint8 0/1 on ``device``, hashed a
+    block of rows at a time so the int64 intermediates stay small."""
+    out = torch.empty((rows, cols), dtype=torch.uint8, device=device)
+    for r0 in range(0, rows, block_rows):
+        n = min(block_rows, rows - r0)
+        out[r0:r0 + n] = init_tile_torch(n, cols, seed, r0, device=device)
+    return out

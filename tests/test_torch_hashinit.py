@@ -44,3 +44,11 @@ def test_as_i32_bit_patterns():
     for v in (0, 1, 2**31 - 1, 2**31, 2**32 - 1, 2**32 + 5):
         assert port.as_i32(v) & 0xFFFFFFFF == v & 0xFFFFFFFF
         assert -2**31 <= port.as_i32(v) < 2**31
+
+
+@pytest.mark.parametrize("block_rows", [1, 4, 1024])
+def test_init_dense_matches_jax_in_any_block(block_rows):
+    want = np.asarray(init_tile_jnp(11, 45, 9))
+    got = port.init_dense(11, 45, 9, device="cpu", block_rows=block_rows)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)

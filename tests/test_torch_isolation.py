@@ -42,8 +42,11 @@ def test_cpu_slice_runs_without_loading_jax(tmp_path):
         "from mpi_tpu_torch.backends.cuda import run_cuda\n"
         "from mpi_tpu_torch.config import GolConfig\n"
         "import mpi_tpu_torch.interop, mpi_tpu_torch.ops._build\n"
-        "run_cuda(GolConfig(rows=16, cols=64, steps=5, comm_every=2),"
-        " device='cpu')\n"
+        "import mpi_tpu_torch.ops.cuda_bitltl, mpi_tpu_torch.ops.cuda_stencil\n"
+        "from mpi_tpu_torch.models.rules import BOSCO\n"
+        "for kw in (dict(cols=64, comm_every=2), dict(cols=64, rule=BOSCO),"
+        " dict(cols=50, rule=BOSCO, comm_every=2)):\n"
+        "    run_cuda(GolConfig(rows=16, steps=5, **kw), device='cpu')\n"
         f"assert main(['16', '64', '2', '4', '--save', '--device', 'cpu',"
         f" '--quiet', '--out-dir', {str(tmp_path)!r}]) == 0\n"
         "bad = [m for m in sys.modules"

@@ -33,6 +33,8 @@ def test_rule_from_name_matches_reference(name):
         (ref.name, ref.birth, ref.survive, ref.radius)
     assert str(mine) == str(ref)
     assert mine.max_count == ref.max_count
+    assert mine.birth_intervals == ref.birth_intervals
+    assert mine.survive_intervals == ref.survive_intervals
     for a, b in zip(mine.tables(), ref.tables()):
         np.testing.assert_array_equal(a, b)
 

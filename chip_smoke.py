@@ -6,11 +6,14 @@
 Phases; any failure exits non-zero before the result line:
 
 0. the card: name and power limit from ``nvidia-smi``; no CUDA, no run;
-1. build kernels K1, K2 and K3 (``mpi_tpu_torch/csrc/*.cu``) with nvcc,
-   one process per source; report each kernel's registers and spills
-   (ptxas), and count the instructions of K1's row loops in the built SASS
-   (``cuobjdump``) against the compiled form's ``word_ops``; then time that
-   build against one nvcc call over every source, alternating, twice each;
+1. build kernels K1 and K2 (``mpi_tpu_torch/csrc/*.cu``) with nvcc, one
+   process per source, into the common library, and K3 once per rule (one
+   library for each radius 2..7, in parallel nvcc processes); report each
+   kernel's registers and spills (ptxas; none may spill), and count the
+   instructions of K1's, K2's and K3's row loops in the built SASS
+   (``cuobjdump``), per word-generation (K1, K3) and per cell-generation
+   (K2); then time the common build against one nvcc call over its
+   sources, alternating, twice each, and one per-rule build alone;
 2. each kernel against its plain PyTorch version, exact (``torch.equal``):
    K1 over gens x boundaries x rules x ragged shapes and random rules, and
    at 65536² at the main path's depths; K2 over radii 1, 2, 3, 5, 7 x
@@ -18,22 +21,24 @@ Phases; any failure exits non-zero before the result line:
    neighbourhood too, a birth-on-0 rule, random rules), and at 16384²
    (Bosco, gens 1 and 3); K3 over radii 2..7 x gens 1..⌊8/r⌋ x boundaries
    x ragged shapes (one word per row, small H, random rules), and at 65536²
-   (Bosco gens 1, R2 gens 4);
+   (Bosco gens 1, R2 gens 4), its distinct rules built first, together;
 3. the main paths, each kernel's launch counter reset just before and
    required above 0 just after, each whole final grid equal to the plain
    version's from the same init: ``run_cuda`` at 65536² for Life (comm_every
    8, K1), for Bosco (comm_every 1, K3) and for R2,B10-13,S8-12 (comm_every
-   4, K3), and at 16384² for Bosco (comm_every 3, K2), each a few hundred
-   ms of stepping.  Then the CLI at 512²
+   4, K3), and at 16384² for Bosco (comm_every 3, K2), each ~90-330 ms of
+   stepping.  Then the CLI at 512²
    (Life at comm_every 4 and Bosco, both boundaries) and at 500x500 (Life
    and Bosco, on K2), whose ``.gol`` files must equal the serial oracle's
    byte for byte;
 4. times (CUDA events after warm-up) of each kernel at its main paths'
    depths, with cell-updates/s, the plain version's time, the card's bound,
    and a library call where one exists (for K2, ``conv2d`` of the padded
-   grid in float16: the counts only);
+   grid in float16: the counts only); and K3's two horizontal sums
+   (carry-save adders, doubling) at every radius, in turns;
 5. a ``torch.profiler`` trace of each main path's steady stepping: kernel
-   time by name and the device's idle share of the wall time.
+   time by name, the device's idle share of the wall time, and no kernel
+   build inside it.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -76,7 +81,10 @@ from mpi_tpu_torch.ops.cuda_bitlife import (  # noqa: E402
     bit_step_plain, cuda_bit_step,
 )
 from mpi_tpu_torch.ops.cuda_bitltl import (  # noqa: E402
-    cuda_ltl_step, ltl_step_plain, max_gens,
+    cuda_ltl_step, launch, ltl_step_plain, max_gens,
+)
+from mpi_tpu_torch.ops.ltl_codegen import (  # noqa: E402
+    lop3_count, rule_key, rule_program,
 )
 from mpi_tpu_torch.ops.cuda_stencil import (  # noqa: E402
     cuda_dense_step, dense_step_plain,
@@ -93,8 +101,8 @@ from mpi_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
 # the int32 rate is a quarter of that figure, in instructions per second.
 # K1's and K3's work is counted in those instructions (LOP3 and SHF):
 # ``word_ops`` exactly for K1's compiled form; ``ltl_word_ops_lower`` and
-# ``ltl_word_ops`` from below and above for K3's, the bound taking the
-# lower count.  K2's least work: sliding window sums need about 6 per
+# ``ltl_word_ops`` from below and above for K3's function, the bound
+# taking the lower count.  K2's least work: sliding window sums need about 6 per
 # cell-generation whatever r is (a three-input add to slide each of the
 # vertical and horizontal windows, the centre, the rule's test, the
 # result), and every sum fits a byte (<= 225), so four cells share one
@@ -112,7 +120,7 @@ R2 = rule_from_name("R2,B10-13,S8-12")
 # (label, rule, comm_every, steps) of K3's main paths at 65536²
 LTL_PATHS = (("bosco", BOSCO, 1, 100), ("r2", R2, 4, 150))
 DENSE = 16384            # K2's main path: 256 MiB of cells
-DENSE_PATH = ("bosco", BOSCO, 3, 241)
+DENSE_PATH = ("bosco", BOSCO, 3, 481)
 
 # each kernel's wrapper, whose ``launches`` the main paths read
 KERNELS = {kid: wrapper for kid, wrapper, _ in backend.KERNELS.values()}
@@ -144,18 +152,39 @@ def phase0_card() -> str:
     return card
 
 
+def _spills(resources) -> list:
+    return [r for r in resources if r.get("spill_stores") or
+            r.get("spill_loads")]
+
+
 def phase1_build() -> None:
     t0 = time.perf_counter()
     lib = _build.load_library()
     seconds = time.perf_counter() - t0
     resources = _build.kernel_resources(_build.library_path())
+    t0 = time.perf_counter()
+    ltl_libs = _build.build_ltl(list(LTL_RULES.values()))
+    ltl_seconds = time.perf_counter() - t0
+    ltl_resources = {r: _build.kernel_resources(p)
+                     for r, p in zip(LTL_RULES, ltl_libs)}
     emit({"phase": "build", "kernels": ["K1", "K2", "K3"],
           "sources": [p.name for p in _build.sources()], "seconds": seconds,
           "library": os.path.relpath(lib._name, ROOT),
-          "ptxas": resources})
-    if len(resources) != 1 + 7 + 6:  # K1, K2 at r 1..7, K3 at r 2..7
-        fail(f"expected 14 kernels in the ptxas report, got {resources}")
-    _sass_loops(lib._name)
+          "ptxas": resources,
+          "k3_rules": {r: rule_key(rule) for r, rule in LTL_RULES.items()},
+          "k3_parallel_build_seconds": ltl_seconds,
+          "k3_hsum": _build.LTL_HSUM,
+          "k3_ptxas": ltl_resources})
+    # K1 and K2 at r 1..7 in the common library, K3 once in each of the
+    # six per-rule libraries (r 2..7)
+    if len(resources) != 1 + 7 or any(len(v) != 1
+                                      for v in ltl_resources.values()):
+        fail(f"expected 1 + 7 kernels in the common library and one in each "
+             f"K3 library, got {resources} and {ltl_resources}")
+    spilled = _spills(resources + sum(ltl_resources.values(), []))
+    if spilled:
+        fail(f"kernels spill: {spilled}")
+    _sass_loops(lib._name, str(ltl_libs[list(LTL_RULES).index(5)]))
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
         emit({"phase": "build_seconds", **_build_seconds(Path(d))})
 
@@ -178,6 +207,17 @@ def _build_seconds(d: Path) -> dict:
         t0 = time.perf_counter()
         _build.build(d / f"per_source{rep}.so")
         out["per_source"].append(time.perf_counter() - t0)
+    # one K3 library alone (Bosco), into a fresh directory each time
+    out["k3_one_rule"] = []
+    home = _build.BUILD_DIR
+    try:
+        for rep in range(2):
+            _build.BUILD_DIR = d / f"ltl{rep}"
+            t0 = time.perf_counter()
+            _build.build_ltl([BOSCO])
+            out["k3_one_rule"].append(time.perf_counter() - t0)
+    finally:
+        _build.BUILD_DIR = home
     return out
 
 
@@ -219,18 +259,31 @@ def _inner_loops(code) -> list:
     return loops
 
 
-def _sass_loops(library: str) -> None:
+def _row_loop(code, mark: str, marker: str) -> dict:
+    """The innermost loop of ``code`` with the most ``mark`` opcodes, which
+    in K2 (PRMT) and K3 (SHFL) is the row loop, with the rows it steps per
+    iteration: the count of its ``marker`` opcode, which each row issues
+    once."""
+    body = max(_inner_loops(code), key=lambda b: b.count(mark), default=[])
+    rows = body.count(marker)
+    if not body.count(mark) or not rows:
+        fail(f"no row loop with {mark} and {marker} found in the SASS; "
+             f"innermost loops: {[Counter(b).most_common(6) for b in _inner_loops(code)]}")
+    return {"instructions": len(body), "rows_per_iteration": rows,
+            "by_opcode": dict(Counter(body).most_common(10))}
+
+
+def _sass_loops(library: str, ltl_library: str) -> None:
     """Instructions per unit of work as the card runs them, counted
     statically in the innermost loops of the built SASS (a store that a
     predicate skips still counts).
 
     K1: a row loop whose body holds 4u shuffles steps u words of one lane
     per iteration (each word's generation shuffles four column sums); its
-    count over u is K1's code per word per generation.  K2 at r = 5: its
-    two column loops step one cell each, the vertical window sum and the
-    horizontal sum with the rule.  K3 at r = 5: its innermost loops are
-    the run-time rule's interval tests, one birth or survive interval per
-    iteration."""
+    count over u is K1's code per word per generation.  K2 at r = 5: the
+    row loop steps 16 cells (four words) of one thread per row, one STS
+    each.  K3 for Bosco: the row loop steps one word of one lane per row,
+    one STG each (a predicate picks it or the shared store)."""
     funcs = _sass_functions(library)
     k1 = []
     for body in _inner_loops(funcs.get("bit_step_kernel", [])):
@@ -245,16 +298,22 @@ def _sass_loops(library: str) -> None:
         fail("no row loop of K1 found in its SASS")
     emit({"phase": "sass", "kernel": "K1", "row_loops": k1,
           "compiled_form_word_ops": word_ops(LIFE)})
-    for kid, name, unit in (("K2", "dense_step_kernel<5>", "cell"),
-                            ("K3", "ltl_step_kernel<5>", "interval")):
-        if name not in funcs:
-            fail(f"{name} not found in the SASS")
-        emit({"phase": "sass", "kernel": kid, "function": name,
-              "instructions": len(funcs[name]),
-              f"inner_loops_per_{unit}": [
-                  {"instructions": len(b),
-                   "by_opcode": dict(Counter(b).most_common(8))}
-                  for b in _inner_loops(funcs[name])]})
+    if "dense_step_kernel<5>" not in funcs:
+        fail("dense_step_kernel<5> not found in the SASS")
+    k2 = _row_loop(funcs["dense_step_kernel<5>"], "PRMT", "STS")
+    emit({"phase": "sass", "kernel": "K2", "function": "dense_step_kernel<5>",
+          "row_loop": k2, "instructions_per_cell_generation":
+              k2["instructions"] / (16 * k2["rows_per_iteration"])})
+    k3_funcs = _sass_functions(ltl_library)
+    if "ltl_step_kernel" not in k3_funcs:
+        fail(f"ltl_step_kernel not found in {ltl_library}")
+    k3 = _row_loop(k3_funcs["ltl_step_kernel"], "SHFL", "STG")
+    prog = rule_program(BOSCO)
+    emit({"phase": "sass", "kernel": "K3", "function": "ltl_step_kernel",
+          "rule": rule_key(BOSCO), "hsum": _build.LTL_HSUM[5],
+          "row_loop": k3, "instructions_per_word_generation":
+              k3["instructions"] / k3["rows_per_iteration"],
+          "rule_gates": len(prog.ops), "rule_lop3": lop3_count(prog)})
 
 
 # -- phase 2: each kernel against its plain version -------------------------
@@ -370,7 +429,7 @@ LTL_RULES = {2: R2, 3: DENSE_RULES[3], 4: rule_from_name("R4,B30-40,S25-50"),
 
 
 def _k3_exact(rng) -> tuple:
-    cases = err = 0
+    cases = []  # (grid, rule, boundary, gens)
     # (rows, words): ragged, one word per row, small H
     shapes = [(300, 70), (130, 31), (5, 1), (1, 1), (64, 3)]
     for r, named in LTL_RULES.items():
@@ -379,24 +438,30 @@ def _k3_exact(rng) -> tuple:
                 x = _words(rng, shape)
                 for boundary in ("periodic", "dead"):
                     for gens in range(1, max_gens(r) + 1):
-                        err = max(err, _compare(cuda_ltl_step, ltl_step_plain,
-                                                x, rule, boundary, gens))
-                        cases += 1
+                        cases.append((x, rule, boundary, gens))
     for _ in range(30):  # random rules, radii, shapes, depths, boundaries
         r = int(rng.integers(2, 8))
         shape = (int(rng.integers(1, 300)), int(rng.integers(1, 70)))
         boundary = ("periodic", "dead")[int(rng.integers(0, 2))]
-        err = max(err, _compare(cuda_ltl_step, ltl_step_plain,
-                                _words(rng, shape), _random_rule(rng, r),
-                                boundary, int(rng.integers(1, max_gens(r) + 1))))
-        cases += 1
+        cases.append((_words(rng, shape), _random_rule(rng, r), boundary,
+                      int(rng.integers(1, max_gens(r) + 1))))
     x = init_packed(FLAGSHIP, FLAGSHIP, SEED, device="cuda")
     for _, rule, gens, _ in LTL_PATHS:
         for boundary in ("periodic", "dead"):
-            err = max(err, _compare(cuda_ltl_step, ltl_step_plain, x, rule,
-                                    boundary, gens))
-            cases += 1
-    return cases, err
+            cases.append((x, rule, boundary, gens))
+    # every distinct rule's library, in parallel nvcc processes
+    rules = list({rule_key(c[1]): c[1] for c in cases}.values())
+    t0 = time.perf_counter()
+    libs = _build.build_ltl(rules)
+    extra = {"rules": len(rules), "build_seconds": time.perf_counter() - t0}
+    spilled = _spills(sum((_build.kernel_resources(p) for p in libs), []))
+    if spilled:
+        fail(f"K3 libraries spill: {spilled}")
+    err = 0
+    for x, rule, boundary, gens in cases:
+        err = max(err, _compare(cuda_ltl_step, ltl_step_plain, x, rule,
+                                boundary, gens))
+    return len(cases), err, extra
 
 
 def phase2_exact() -> dict:
@@ -405,11 +470,12 @@ def phase2_exact() -> dict:
     for kid, check in (("K1", _k1_exact), ("K2", _k2_exact),
                        ("K3", _k3_exact)):
         t0 = time.perf_counter()
-        cases, err = check(rng)
+        cases, err, *extra = check(rng)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         emit({"phase": "kernel_vs_plain", "kernel": kid, "cases": cases,
-              "max_abs_err": err, "seconds": time.perf_counter() - t0})
+              "max_abs_err": err, "seconds": time.perf_counter() - t0,
+              **(extra[0] if extra else {})})
         errs[kid] = err
     if any(errs.values()):
         fail(f"a kernel disagrees with its plain version (tolerance: exact): "
@@ -565,6 +631,37 @@ def _row(card, kid, grid, rule, gens, ms, plain_ms, t_bytes, t_ops, **extra):
     return row
 
 
+def _hsum_turns(card: str, x: torch.Tensor) -> None:
+    """K3's two horizontal sums (0: carry-save adders over the 2r+1
+    shifted copies; 1: doubling window sums) at every radius's deepest
+    pass and at the main paths' depths, in turns (0, 1, 1, 0), ms per
+    pass on the 65536² grid."""
+    configs = [(rule, max_gens(r)) for r, rule in LTL_RULES.items()]
+    configs += [(rule, g) for _, rule, k, n in LTL_PATHS
+                for g in sorted({k, n % k} - {0})
+                if (rule, g) not in configs]
+    t0 = time.perf_counter()
+    for form in (0, 1):
+        _build.build_ltl([rule for rule, _ in configs], hsum=form)
+    build_s = time.perf_counter() - t0
+    out = torch.empty_like(x)
+    for rule, gens in configs:
+        libs = [_build.load_ltl_library(rule, form) for form in (0, 1)]
+        ms = {0: [], 1: []}
+        for form in (0, 1, 1, 0):
+            def one_pass(lib=libs[form]):
+                launch(lib, x, out, rule, "periodic", gens)
+            for _ in range(3):
+                one_pass()
+            ms[form].append(_events_ms(one_pass, 10))
+        best = min((0, 1), key=lambda f: sum(ms[f]))
+        emit({"phase": "k3_hsum", "card": card, "rule": rule_key(rule),
+              "gens": gens, "grid": [FLAGSHIP, FLAGSHIP],
+              "ms_carry_save": ms[0], "ms_doubling": ms[1],
+              "faster": best, "kept": _build.LTL_HSUM[rule.radius],
+              "build_seconds_both_forms_all_rules": build_s})
+
+
 def phase4_times(card: str) -> dict:
     rows = {}
     x = init_packed(FLAGSHIP, FLAGSHIP, SEED, device="cuda")
@@ -593,6 +690,7 @@ def phase4_times(card: str) -> dict:
                 library_ms=None,
                 library_note="no single PyTorch call computes a "
                              "Larger-than-Life generation")
+    _hsum_turns(card, x)
     del x
     torch.cuda.empty_cache()
 
@@ -652,11 +750,13 @@ def _trace(card, label, size, rule, comm_every, steps) -> None:
                              ProfilerActivity.CUDA]) as prof:
         torch.ones(1, device="cuda").add_(1)  # the profiler's first kernel
         torch.cuda.synchronize()
-        before = wrapper.launches
+        before, builds = wrapper.launches, _build.builds
         with record_function("steady"):
             grid = engine.step(grid, steps)
             engine.sync()
     launches = wrapper.launches - before
+    if _build.builds != builds:
+        fail(f"the {label} path built a kernel while it stepped")
     del grid
     torch.cuda.empty_cache()
     events = prof.events()
@@ -686,6 +786,7 @@ def _trace(card, label, size, rule, comm_every, steps) -> None:
     emit({"phase": "trace", "card": card, "path": label,
           "kernel": engine.kernel_id, "grid": [size, size],
           "steps": steps, "comm_every": comm_every, "launches": launches,
+          "builds_in_window": 0,
           "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
           # None when the profiler recorded no device activity
           "idle_share": 1 - busy_us / wall_us if spans else None,

@@ -1,21 +1,27 @@
 // Kernel K3: `gens` generations (1..floor(8/r)) of a radius-r (2..7)
 // outer-totalistic rule on a bit-packed grid, computed on bit planes, in one
-// read and one write of device memory.
+// read and one write of device memory.  Built once per rule: the radius
+// (-DLTL_RADIUS) and the rule (a header that ops/ltl_codegen.py generates,
+// named by -DLTL_RULE_HEADER and found on the include path) are fixed at
+// compile time (ops/_build.py: build_ltl).
 //
 // Replaces the TPU kernel `pallas_ltl_step` (mpi_tpu/ops/pallas_bitltl.py),
 // which streams whole-row slabs through VMEM with DMA halos and rolls lanes
 // for the cross-word bits.  The arithmetic per word is that of
 // ops/bitltl.py: every per-cell integer is a set of 32-bit bit planes (plane
 // k holds bit k of 32 cells);
-//   1. the 2r+1 row words of a column are summed by carry-save adders into
-//      the column's vertical sum (at most 4 planes);
-//   2. each plane is shifted by d = -r..r bits, the cross-word bits coming
-//      from the neighbouring words' planes (one funnel shift each);
-//   3. the 2r+1 shifted sums are summed by carry-save adders into the
-//      neighbourhood total, centre included (at most 8 planes);
-//   4. the rule is a set of interval tests on the total, each two bit-sliced
-//      comparisons (`bs_ge`); survive intervals are tested at +1, because the
-//      total includes the live centre.
+//   1. the vertical sum of the 2r+1 row words of a column (at most 4
+//      planes) slides down the rows: the entering row's word is added and the
+//      leaving row's subtracted, bit-sliced;
+//   2. the horizontal sum over 2r+1 columns (the neighbourhood total, centre
+//      included, at most 8 planes), either by carry-save adders over the
+//      2r+1 funnel-shifted copies of the vertical sum (LTL_HSUM 0), or by
+//      doubling window sums S2 = v + (v >> 1), S4 = S2 + (S2 >> 2), ...
+//      (LTL_HSUM 1); ops/_build.py picks the faster by radius, from
+//      chip_smoke.py phase 4, which times both in turns;
+//   3. the rule: ltl_rule(total, centre), straight-line gates that split
+//      the rule's birth and survive tables on the total's planes (a
+//      multiplexer each, constant and equal halves folded).
 //
 // Layout: `in` and `out` are (H, NW) 32-bit words, row-major; bit j of word
 // w is the cell at column 32w + j.  The host holds them as int32 tensors;
@@ -23,23 +29,23 @@
 //
 // What bounds it on an H100.  One pass moves 8 bytes per word: at 3.35 TB/s
 // a 65536^2 grid (2^27 words) costs 0.32 ms of traffic.  A generation of
-// Bosco (r = 5) in this form costs 63 to 171 integer instructions per word
-// (LOP3 and SHF; ops/bitltl.py: ltl_word_ops_lower bounds the count from
-// below, ltl_word_ops from above), so one generation of the same grid costs
-// 0.5 to 1.4 ms of ALU time: the kernel is bound by integer instructions at
-// every depth.  So the kernel
-//   * is templated on the radius, so the plane arrays and the adder trees
-//     are fixed at compile time and live in registers;
+// Bosco (r = 5) costs at least 7 and, in the carry-save form, 171 LOP3 and
+// SHF per word (ops/bitltl.py: ltl_word_ops_lower, ltl_word_ops); the
+// kernel issues about 180 instructions per word-generation, so its time is
+// integer instructions at every depth, not bytes.  So the kernel
+//   * is built per rule, so the plane arrays, the adder trees and the rule
+//     are fixed at compile time and live in registers, and the rule costs a
+//     few LOP3 (9 for Bosco) instead of comparators over run-time
+//     thresholds (about 194 instructions per word-generation for Bosco);
 //   * maps one warp lane to one word column of a 32-word tile row (30 owned
 //     words plus one ghost word per side, as kernel K1 does): the
-//     neighbouring words' vertical sums arrive by register shuffle, and
-//     each lane walks a run of rows, reading 2r+1 row words from shared
-//     memory for each;
+//     neighbouring words' planes arrive by register shuffle;
+//   * gives each warp a run of rows, summing the first row's 2r+1 words in
+//     full and sliding the sum down the rest: three shared loads per
+//     word-generation;
 //   * steps the tile `gens` times in shared memory (temporal blocking), each
 //     generation shrinking the valid rows by r per side, and re-zeroes,
 //     after every in-tile generation, the cells outside a dead-boundary grid.
-// The rule arrives at run time as interval thresholds and is evaluated by
-// comparison on the planes; compiling a per-rule expression is later work.
 //
 // Why one ghost word per side is enough: a ghost word has no neighbour
 // beyond it, so its outer bits go stale by r bits per generation; after
@@ -54,134 +60,213 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#if !defined(LTL_RADIUS) || !defined(LTL_RULE_HEADER)
+#error "bitltl.cu is built per rule: -DLTL_RADIUS=r -DLTL_RULE_HEADER=name"
+#endif
+#ifndef LTL_HSUM
+#define LTL_HSUM 1
+#endif
+#define LTL_STR2(x) #x
+#define LTL_STR(x) LTL_STR2(x)
+#include LTL_STR(LTL_RULE_HEADER)  // LTL_RULE_PLANES, ltl_rule(T, mid)
+
 namespace {
 
+constexpr int R = LTL_RADIUS;
+constexpr int N = 2 * R + 1;           // rows and columns of a neighbourhood
 constexpr int kLanes = 32;             // words per tile row, ghosts included
 constexpr int kOwned = kLanes - 2;     // words a CTA writes per row
 constexpr int kRows = 128;             // rows a CTA writes
 constexpr int kWarps = 8;
-constexpr int kMaxIntervals = 128;     // a rule has at most 113 per set
 constexpr unsigned kAll = 0xFFFFFFFFu;
+static_assert(R >= 2 && R <= 7, "K3 serves radius 2..7");
 
-// Column sums of a carry-save adder tree over N numbers of P planes each:
-// column w holds the N numbers' bits of weight w (w < P) and the carries out
-// of column w - 1; full adders reduce it to one bit, each pushing a carry
-// into column w + 1, so M bits give M / 2 carries.
-__host__ __device__ constexpr int col_bits(int N, int P, int w) {
-  return w < 0 ? 0 : (w < P ? N : 0) + col_bits(N, P, w - 1) / 2;
+__host__ __device__ constexpr int bit_width(int x) {
+  return x > 0 ? 1 + bit_width(x >> 1) : 0;
 }
 
-__host__ __device__ constexpr int out_planes(int N, int P) {
+// Column sums of a carry-save adder tree over M numbers of P planes each:
+// column w holds the numbers' bits of weight w (w < P) and the carries out
+// of column w - 1; full adders reduce it to one bit, each pushing a carry
+// into column w + 1, so K bits give K / 2 carries.
+__host__ __device__ constexpr int col_bits(int M, int P, int w) {
+  return w < 0 ? 0 : (w < P ? M : 0) + col_bits(M, P, w - 1) / 2;
+}
+
+__host__ __device__ constexpr int out_planes(int M, int P) {
   int w = 0;
-  while (col_bits(N, P, w) > 0) ++w;
+  while (col_bits(M, P, w) > 0) ++w;
   return w;
 }
 
-template <int N, int P, int W, int NP>
+template <int M, int P, int W, int NP>
 struct Column {
   template <typename Get>
   static __device__ __forceinline__ void run(const Get& get,
                                              const uint32_t* cin,
                                              uint32_t* out) {
-    constexpr int own = W < P ? N : 0;
-    constexpr int M = col_bits(N, P, W);
-    uint32_t bits[M];
+    constexpr int own = W < P ? M : 0;
+    constexpr int K = col_bits(M, P, W);
+    uint32_t bits[K];
 #pragma unroll
     for (int n = 0; n < own; ++n) bits[n] = get(n, W);
 #pragma unroll
-    for (int c = 0; c < M - own; ++c) bits[own + c] = cin[c];
-    uint32_t cout[M / 2 > 0 ? M / 2 : 1];
+    for (int c = 0; c < K - own; ++c) bits[own + c] = cin[c];
+    uint32_t cout[K / 2 > 0 ? K / 2 : 1];
     uint32_t acc = bits[0];
 #pragma unroll
-    for (int k = 0; k < (M - 1) / 2; ++k) {  // full adders
+    for (int k = 0; k < (K - 1) / 2; ++k) {  // full adders
       const uint32_t x = bits[1 + 2 * k], y = bits[2 + 2 * k];
       const uint32_t t = acc ^ x;
       cout[k] = (acc & x) | (y & t);
       acc = t ^ y;
     }
-    if constexpr ((M - 1) % 2 == 1) {        // a half adder for the last bit
-      cout[M / 2 - 1] = acc & bits[M - 1];
-      acc ^= bits[M - 1];
+    if constexpr ((K - 1) % 2 == 1) {        // a half adder for the last bit
+      cout[K / 2 - 1] = acc & bits[K - 1];
+      acc ^= bits[K - 1];
     }
     out[W] = acc;
-    if constexpr (W + 1 < NP) Column<N, P, W + 1, NP>::run(get, cout, out);
+    if constexpr (W + 1 < NP) Column<M, P, W + 1, NP>::run(get, cout, out);
   }
 };
 
-// out = the sum of N numbers of P planes, get(n, p) giving plane p of number n
-template <int N, int P, typename Get>
+// out = the sum of M numbers of P planes, get(n, p) giving plane p of number n
+template <int M, int P, typename Get>
 __device__ __forceinline__ void csa_sum(const Get& get,
-                                        uint32_t (&out)[out_planes(N, P)]) {
-  Column<N, P, 0, out_planes(N, P)>::run(get, nullptr, out);
+                                        uint32_t (&out)[out_planes(M, P)]) {
+  Column<M, P, 0, out_planes(M, P)>::run(get, nullptr, out);
 }
 
-// Mask of the cells whose NP-plane value is >= t (an MSB-first comparator;
-// t is uniform across the warp).
-template <int NP>
-__device__ __forceinline__ uint32_t ge(const uint32_t (&T)[NP], int t) {
-  if (t <= 0) return kAll;
-  if (t >= (1 << NP)) return 0u;
-  uint32_t gt = 0u, eq = kAll;
+constexpr int NV = out_planes(N, 1);   // planes of a vertical sum
+constexpr int NT = bit_width(N * N);   // planes of the total
+static_assert(NT == LTL_RULE_PLANES, "the rule header is for another radius");
+
+// A bit-sliced number of P planes.
+template <int P>
+struct Num {
+  uint32_t p[P];
+};
+
+// v - leave + enter, where leave is a row already in v: the decrement comes
+// first, so no plane overflows.
+__device__ __forceinline__ void slide(Num<NV>& v, uint32_t enter,
+                                      uint32_t leave) {
+  uint32_t b = leave, c = enter;
 #pragma unroll
-  for (int k = NP - 1; k >= 0; --k) {
-    const uint32_t m = ((t >> k) & 1) ? kAll : 0u;
-    gt |= eq & T[k] & ~m;
-    eq &= ~(T[k] ^ m);
+  for (int k = 0; k < NV; ++k) {
+    const uint32_t t = ~v.p[k] & b;
+    v.p[k] ^= b;
+    b = t;
   }
-  return gt | eq;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const uint32_t t = v.p[k] & c;
+    v.p[k] ^= c;
+    c = t;
+  }
 }
 
-// OR over n intervals of lo <= total < hi, given as (lo, hi) pairs
-template <int NP>
-__device__ __forceinline__ uint32_t in_intervals(const uint32_t (&T)[NP],
-                                                 const int16_t* iv, int n) {
-  uint32_t acc = 0u;
-  for (int k = 0; k < n; ++k) acc |= ge(T, iv[2 * k]) & ~ge(T, iv[2 * k + 1]);
-  return acc;
+// The planes of the next lane's (ahead) or previous lane's number.  The
+// ghost lanes at either end get their own planes back: the bits those
+// feed are a ghost word's outer bits, stale in any case, and no lane
+// reads them (see "one ghost word per side" above).
+template <int P>
+__device__ __forceinline__ Num<P> next_lane(const Num<P>& x) {
+  Num<P> o;
+#pragma unroll
+  for (int k = 0; k < P; ++k) o.p[k] = __shfl_down_sync(kAll, x.p[k], 1);
+  return o;
 }
 
-// Next state of the word at tile row i of this lane's column.  Every lane of
-// the warp calls it together: the neighbouring words' vertical sums arrive
-// by shuffle, and the ghost lanes at either end see zero beyond themselves.
-template <int R>
-__device__ __forceinline__ uint32_t next_word(const uint32_t* src, int i,
-                                              int lane, const int16_t* thr,
-                                              int nb, int ns) {
-  constexpr int N = 2 * R + 1;
-  constexpr int NV = out_planes(N, 1);      // planes of a vertical sum
-  constexpr int NT = out_planes(N, NV);     // planes of the total
-  uint32_t rows[N];                         // mid, then +1..+R, then -1..-R
+template <int P>
+__device__ __forceinline__ Num<P> prev_lane(const Num<P>& x) {
+  Num<P> o;
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    const int d = n == 0 ? 0 : (n <= R ? n : R - n);
-    rows[n] = src[(i + d) * kLanes + lane];
-  }
-  uint32_t v[NV];
-  csa_sum<N, 1>([&](int n, int) { return rows[n]; }, v);
+  for (int k = 0; k < P; ++k) o.p[k] = __shfl_up_sync(kAll, x.p[k], 1);
+  return o;
+}
 
-  uint32_t prv[NV], nxt[NV];
+// x seen from s columns to the right (bit j is column j + s), the bits
+// beyond the word from the next word `nx`
+template <int S, int P>
+__device__ __forceinline__ Num<P> ahead(const Num<P>& x, const Num<P>& nx) {
+  if constexpr (S == 0) return x;
+  Num<P> o;
 #pragma unroll
-  for (int p = 0; p < NV; ++p) {
-    prv[p] = __shfl_up_sync(kAll, v[p], 1);
-    nxt[p] = __shfl_down_sync(kAll, v[p], 1);
-    if (lane == 0) prv[p] = 0u;
-    if (lane == kLanes - 1) nxt[p] = 0u;
+  for (int k = 0; k < P; ++k) o.p[k] = __funnelshift_r(x.p[k], nx.p[k], S);
+  return o;
+}
+
+// a + b in PO planes (the sum fits them)
+template <int PO, int PA, int PB>
+__device__ __forceinline__ Num<PO> add(const Num<PA>& a, const Num<PB>& b) {
+  Num<PO> o;
+  uint32_t c = 0u;
+#pragma unroll
+  for (int k = 0; k < PO; ++k) {
+    const uint32_t x = k < PA ? a.p[k] : 0u, y = k < PB ? b.p[k] : 0u;
+    const uint32_t t = x ^ y;
+    o.p[k] = t ^ c;
+    c = (x & y) | (c & t);
   }
+  return o;
+}
+
+// The neighbourhood total of each cell of this lane's word, from the
+// column's vertical sum v; every lane of the warp calls it together.
+__device__ __forceinline__ Num<NT> horizontal_sum(const Num<NV>& v) {
+  Num<NT> total;
+  const Num<NV> nv = next_lane(v);
+#if LTL_HSUM == 0
+  const Num<NV> pv = prev_lane(v);
   // number 0 is v itself, 1..R are v seen from columns j+1..j+R, R+1..2R
   // from columns j-1..j-R
-  uint32_t total[NT];
+  constexpr int NC = out_planes(N, NV);
+  static_assert(NC >= NT, "the adder tree keeps every plane of the total");
+  uint32_t sum[NC];
   csa_sum<N, NV>(
       [&](int n, int p) {
-        if (n == 0) return v[p];
-        if (n <= R) return __funnelshift_r(v[p], nxt[p], n);
-        return __funnelshift_l(prv[p], v[p], n - R);
+        if (n == 0) return v.p[p];
+        if (n <= R) return __funnelshift_r(v.p[p], nv.p[p], n);
+        return __funnelshift_l(pv.p[p], v.p[p], n - R);
       },
-      total);
+      sum);
+#pragma unroll
+  for (int k = 0; k < NT; ++k) total.p[k] = sum[k];  // the rest are zero
+#else
+  // one-sided window sums W(j) = v(j) + ... + v(j + 2R) by doubling: S_m is
+  // the sum over m columns, S_2m = S_m + S_m seen m columns ahead; W adds
+  // the S_m of N's set bits at growing offsets; the total is W seen R
+  // columns back
+  constexpr int P2 = bit_width(2 * N), P4 = bit_width(4 * N);
+  constexpr int P8 = bit_width(8 * N);
+  constexpr bool b8 = N & 8, b4 = N & 4, b2 = N & 2;
+  constexpr int o4 = b8 ? 8 : 0, o2 = o4 + (b4 ? 4 : 0);
+  constexpr int o1 = o2 + (b2 ? 2 : 0);
+  const Num<P2> s2 = add<P2>(v, ahead<1>(v, nv));
+  const Num<P2> n2 = next_lane(s2);
+  const Num<P4> s4 = add<P4>(s2, ahead<2>(s2, n2));
+  Num<P4> n4 = {};
+  if constexpr (b8 || (b4 && o4 > 0)) n4 = next_lane(s4);
+  Num<NT> w = {};
+  if constexpr (b8) w = add<NT>(w, add<P8>(s4, ahead<4>(s4, n4)));
+  if constexpr (b4) w = add<NT>(w, ahead<o4>(s4, n4));
+  if constexpr (b2) w = add<NT>(w, ahead<o2>(s2, n2));
+  w = add<NT>(w, ahead<o1>(v, nv));  // N is odd
+  const Num<NT> pw = prev_lane(w);
+#pragma unroll
+  for (int k = 0; k < NT; ++k) total.p[k] = __funnelshift_l(pw.p[k], w.p[k], R);
+#endif
+  return total;
+}
 
-  const uint32_t mid = rows[0];
-  const uint32_t born = in_intervals(total, thr, nb);
-  const uint32_t stay = in_intervals(total, thr + 2 * nb, ns);
-  return (~mid & born) | (mid & stay);
+// The vertical sum of the 2r+1 rows centred on tile row i, in full.
+__device__ __forceinline__ Num<NV> vertical_sum(const uint32_t* src, int i,
+                                                int lane) {
+  Num<NV> v;
+  csa_sum<N, 1>([&](int n, int) { return src[(i - R + n) * kLanes + lane]; },
+                v.p);
+  return v;
 }
 
 __device__ __forceinline__ int wrap(int i, int n) {
@@ -190,16 +275,15 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : i;
 }
 
-template <int R>
 __global__ void __launch_bounds__(kLanes * kWarps)
 ltl_step_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                int H, int NW, int gens, int periodic,
-                const int16_t* __restrict__ thresholds, int nb, int ns) {
+                int H, int NW, int gens, int periodic) {
   extern __shared__ uint32_t smem[];
-  __shared__ int16_t thr[4 * kMaxIntervals];  // the rule, read by every lane
   const int halo = gens * R;
   const int span = kRows + 2 * halo;          // tile rows, halos included
-  const int plane = span * kLanes;            // words per ping-pong buffer
+  // words per ping-pong buffer: the tile rows and one spare row, which the
+  // slide past a generation's last row reads and discards
+  const int plane = (span + 1) * kLanes;
 
   const int lane = threadIdx.x;
   const int warp = threadIdx.y;
@@ -212,23 +296,33 @@ ltl_step_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   const int col = col_in ? wrap(gw, NW) : 0;
   const bool col_out = lane >= 1 && lane <= kOwned && gw < NW;
 
-  for (int k = warp * kLanes + lane; k < 2 * (nb + ns); k += kLanes * kWarps)
-    thr[k] = thresholds[k];
-  // generation 0: the tile plus `halo` rows above and below
-  for (int i = warp; i < span; i += kWarps) {
-    const int gr = r0 - halo + i;
-    uint32_t v = 0u;
-    if (periodic) {
-      v = in[(size_t)wrap(gr, H) * NW + col];
-    } else if (col_in && gr >= 0 && gr < H) {
-      v = in[(size_t)gr * NW + col];
+  // generation 0: the tile plus `halo` rows above and below, in batches of
+  // loads in flight before their stores
+  constexpr int kBatch = 6;
+  for (int i0 = warp; i0 < span; i0 += kWarps * kBatch) {
+    uint32_t v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kWarps, gr = r0 - halo + i;
+      v[u] = 0u;
+      if (i < span) {
+        if (periodic) {
+          v[u] = in[(size_t)wrap(gr, H) * NW + col];
+        } else if (col_in && gr >= 0 && gr < H) {
+          v[u] = in[(size_t)gr * NW + col];
+        }
+      }
     }
-    smem[i * kLanes + lane] = v;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kWarps;
+      if (i < span) smem[i * kLanes + lane] = v[u];
+    }
   }
   __syncthreads();
 
-  // generation g computes rows [g R, span - g R); the last writes the owned
-  // rows
+  // generation g computes rows [g R, span - g R), each warp a run of them;
+  // the last generation writes the owned rows
   for (int g = 1; g <= gens; ++g) {
     const uint32_t* src = smem + ((g - 1) & 1) * plane;
     uint32_t* dst = smem + (g & 1) * plane;
@@ -238,32 +332,25 @@ ltl_step_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     const int a = lo + warp * chunk;
     const int b = min(a + chunk, hi);
     // uniform across the warp: every lane joins the shuffles
-    for (int i = a; i < b; ++i) {
-      uint32_t nw = next_word<R>(src, i, lane, thr, nb, ns);
-      const int gr = r0 - halo + i;
-      if (!periodic && !(col_in && gr >= 0 && gr < H)) nw = 0u;
-      if (last) {
-        if (col_out && gr < H) out[(size_t)gr * NW + gw] = nw;
-      } else {
-        dst[i * kLanes + lane] = nw;
+    if (a < b) {
+      Num<NV> v = vertical_sum(src, a, lane);
+      for (int i = a; i < b; ++i) {
+        const Num<NT> total = horizontal_sum(v);
+        uint32_t nw = ltl_rule(total.p, src[i * kLanes + lane]);
+        const int gr = r0 - halo + i;
+        if (!periodic && !(col_in && gr >= 0 && gr < H)) nw = 0u;
+        if (last) {
+          if (col_out && gr < H) out[(size_t)gr * NW + gw] = nw;
+        } else {
+          dst[i * kLanes + lane] = nw;
+        }
+        // on to row i + 1, after the last row too (a branch would cost more
+        // than the slide; its entering row is at most the spare row)
+        slide(v, src[(i + 1 + R) * kLanes + lane], src[(i - R) * kLanes + lane]);
       }
     }
     if (!last) __syncthreads();
   }
-}
-
-template <int R>
-int launch(const void* in, void* out, int H, int NW, int gens, int periodic,
-           const void* thresholds, int nb, int ns, cudaStream_t stream) {
-  if (gens > (8 / R > 1 ? 8 / R : 1)) return (int)cudaErrorInvalidValue;
-  const dim3 block(kLanes, kWarps);
-  const dim3 grid((NW + kOwned - 1) / kOwned, (H + kRows - 1) / kRows);
-  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = 2u * (kRows + 2 * gens * R) * kLanes * sizeof(uint32_t);
-  ltl_step_kernel<R><<<grid, block, smem, stream>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), H, NW,
-      gens, periodic, static_cast<const int16_t*>(thresholds), nb, ns);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -271,26 +358,26 @@ int launch(const void* in, void* out, int H, int NW, int gens, int periodic,
 extern "C" {
 
 // Launches one pass on `stream`; returns a CUDA error code (0 on success).
-// `thresholds` points to 2 (nb + ns) int16 values on the device: nb birth
-// pairs (lo, hi + 1), then ns survive pairs (lo + 1, hi + 2).  `in` and
-// `out` must not overlap.
+// `radius` must be the radius this library was built for.  `in` and `out`
+// must not overlap.
 int gol_ltl_step(const void* in, void* out, int H, int NW, int radius,
-                 int gens, int periodic, const void* thresholds, int nb,
-                 int ns, void* stream) {
-  if (H < 1 || NW < 1 || gens < 1 || radius < 2 || radius > 7 || nb < 0 ||
-      nb > kMaxIntervals || ns < 0 || ns > kMaxIntervals)
+                 int gens, int periodic, void* stream) {
+  if (H < 1 || NW < 1 || radius != R || gens < 1 ||
+      gens > (8 / R > 1 ? 8 / R : 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GOL_LTL(R) launch<R>(in, out, H, NW, gens, periodic, thresholds, nb, ns, s)
-  switch (radius) {
-    case 2: return GOL_LTL(2);
-    case 3: return GOL_LTL(3);
-    case 4: return GOL_LTL(4);
-    case 5: return GOL_LTL(5);
-    case 6: return GOL_LTL(6);
-    default: return GOL_LTL(7);
-  }
-#undef GOL_LTL
+  const dim3 block(kLanes, kWarps);
+  const dim3 grid((NW + kOwned - 1) / kOwned, (H + kRows - 1) / kRows);
+  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem =
+      2u * (kRows + 2 * gens * R + 1) * kLanes * sizeof(uint32_t);
+  ltl_step_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), H, NW,
+      gens, periodic);
+  return (int)cudaGetLastError();
+}
+
+const char* gol_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -1,15 +1,27 @@
 """Build the port's CUDA kernels from ``mpi_tpu_torch/csrc`` at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
-per source, all started together, and links the objects into one shared
-library with a plain C interface, which :func:`load_library` loads with
-``ctypes``.  The library lands in ``build/mpi_tpu_torch/`` at the root of
-the checkout, named by a hash of the sources and flags, so an edited
-source is rebuilt on the next run and an unchanged one is reused.  Beside
-it, ``<library>.ptxas.txt`` keeps ptxas's report of each kernel's registers
-and spills (:func:`kernel_resources` reads it).
+Two kinds of library, both compiled by ``nvcc`` for Hopper (``sm_90a``)
+with a plain C interface and loaded with ``ctypes``:
 
-There is no fallback: without ``nvcc``, or when the build fails, this
+* the common library (:func:`load_library`): every ``csrc/*.cu`` but
+  ``bitltl.cu`` (kernels K1 and K2), one nvcc process per source, all
+  started together, linked into one shared library;
+* one library per Larger-than-Life rule (:func:`load_ltl_library`):
+  ``csrc/bitltl.cu`` (kernel K3) compiled for the rule's radius alone,
+  with the rule itself as straight-line code that ``ops/ltl_codegen.py``
+  emits into a header, included by the macro ``LTL_RULE_HEADER``.
+  :func:`build_ltl` builds many rules in parallel nvcc processes.
+
+Libraries land in ``build/mpi_tpu_torch/`` at the root of the checkout,
+named by a hash of what went into them (sources, flags, and for a rule
+its canonical text and generated header), so an edited source or a new
+rule is built on the next run and an unchanged one is reused.  Beside
+each, ``<library>.ptxas.txt`` keeps ptxas's report of its kernels'
+registers and spills (:func:`kernel_resources` reads it).  The engine
+builds at warm-up (``backends/cuda.py:Engine.warm_up``), which is setup,
+never inside the stepping.
+
+There is no fallback: without ``nvcc``, or when a build fails, this
 raises with the compiler's message.
 """
 
@@ -34,12 +46,26 @@ NVCC_FLAGS = (
 )
 
 
+# kernel K3's source, built once per rule, not into the common library
+LTL_SOURCE = CSRC_DIR / "bitltl.cu"
+# K3's horizontal sum by radius: 0 carry-save adders over the 2r+1 shifted
+# copies, 1 doubling window sums; each the faster of the two on the H100
+# (chip_smoke.py phase 4 builds both and times them in turns)
+LTL_HSUM = {2: 0, 3: 1, 4: 1, 5: 1, 6: 1, 7: 1}
+
+
 class BuildError(RuntimeError):
     """The CUDA kernels could not be built."""
 
 
+# nvcc processes started by this process (the traces check that none
+# starts while the engine steps)
+builds = 0
+
+
 def sources() -> list:
-    return sorted(CSRC_DIR.glob("*.cu"))
+    """The sources of the common library."""
+    return sorted(p for p in CSRC_DIR.glob("*.cu") if p != LTL_SOURCE)
 
 
 def find_nvcc() -> str:
@@ -83,9 +109,7 @@ def build(out: Optional[Path] = None) -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = f"tmp{os.getpid()}"
     objs = [out.parent / f"{src.stem}.{tag}.o" for src in sources()]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True)
+    procs = [_nvcc([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
              for src, obj in zip(sources(), objs)]
     logs, failed = [], []
     for src, proc in zip(sources(), procs):
@@ -110,6 +134,77 @@ def build(out: Optional[Path] = None) -> Path:
         for obj in objs:
             obj.unlink(missing_ok=True)
     return out
+
+
+def _nvcc(cmd: list) -> subprocess.Popen:
+    global builds
+    builds += 1
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _ltl_parts(rule, hsum: int):
+    """(library path, header name, header text) of ``rule``'s K3 build."""
+    from mpi_tpu_torch.ops.ltl_codegen import rule_header, rule_key
+
+    header = rule_header(rule)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for part in (LTL_SOURCE.read_bytes(), rule_key(rule).encode(),
+                 f"hsum={hsum}".encode(), header.encode()):
+        h.update(part)
+    digest = h.hexdigest()[:16]
+    return (BUILD_DIR / f"libmpi_tpu_torch_ltl_r{rule.radius}_{digest}.so",
+            f"ltl_rule_{digest}.cuh", header)
+
+
+def _hsum(rule, hsum: Optional[int]) -> int:
+    return LTL_HSUM[rule.radius] if hsum is None else hsum
+
+
+def ltl_library_path(rule, hsum: Optional[int] = None) -> Path:
+    """Where the K3 library of ``rule`` lives: equal for rules with equal
+    counts and radius, whatever their names."""
+    return _ltl_parts(rule, _hsum(rule, hsum))[0]
+
+
+def build_ltl(rules, hsum: Optional[int] = None, jobs: int = 0) -> list:
+    """Build the K3 library of every rule in ``rules`` that is not built
+    yet, ``jobs`` nvcc processes at a time (default: one per CPU), and
+    return their paths in order.  ``hsum`` picks the horizontal sum
+    (default ``LTL_HSUM`` for each rule's radius)."""
+    parts = [_ltl_parts(rule, _hsum(rule, hsum)) for rule in rules]
+    todo = {}
+    for rule, (lib, name, text) in zip(rules, parts):
+        if not lib.exists():
+            todo[lib] = (rule, name, text)
+    if todo:
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = jobs or os.cpu_count() or 1
+        queue, running, failed = list(todo.items()), [], []
+        while queue or running:
+            while queue and len(running) < jobs:
+                lib, (rule, name, text) = queue.pop(0)
+                (BUILD_DIR / name).write_text(text)
+                tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+                cmd = [nvcc, *NVCC_FLAGS, f"-DLTL_RADIUS={rule.radius}",
+                       f"-DLTL_RULE_HEADER={name}",
+                       f"-DLTL_HSUM={_hsum(rule, hsum)}",
+                       f"-I{BUILD_DIR}", "-shared", "-o", str(tmp),
+                       str(LTL_SOURCE)]
+                running.append((lib, tmp, rule, _nvcc(cmd)))
+            lib, tmp, rule, proc = running.pop(0)
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed ({proc.returncode}) on "
+                              f"{LTL_SOURCE.name} for {rule}:\n{stderr}{stdout}")
+                continue
+            ptxas_log(lib).write_text(stdout + stderr)
+            os.replace(tmp, lib)
+        if failed:
+            raise BuildError("\n".join(failed))
+    return [lib for lib, _, _ in parts]
 
 
 def kernel_resources(library: Path) -> list:
@@ -147,10 +242,30 @@ def load_library() -> ctypes.CDLL:
                                  ctypes.c_uint, ptr]
     lib.gol_dense_step.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
                                    ctypes.POINTER(ctypes.c_uint), ptr]
-    lib.gol_ltl_step.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, i32,
-                                 i32, ptr]
-    for fn in (lib.gol_bit_step, lib.gol_dense_step, lib.gol_ltl_step):
+    for fn in (lib.gol_bit_step, lib.gol_dense_step):
         fn.restype = ctypes.c_int
+    return _error_string(lib)
+
+
+def _error_string(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gol_error_string.argtypes = [ctypes.c_int]
     lib.gol_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_LTL_LIBS: dict = {}  # (canonical rule text, hsum) -> loaded library
+
+
+def load_ltl_library(rule, hsum: Optional[int] = None) -> ctypes.CDLL:
+    """The K3 library of ``rule``, built at first use and loaded once per
+    rule (rules with equal counts and radius share it)."""
+    from mpi_tpu_torch.ops.ltl_codegen import rule_key
+
+    key = (rule_key(rule), _hsum(rule, hsum))
+    if key not in _LTL_LIBS:
+        lib = ctypes.CDLL(str(build_ltl([rule], key[1])[0]))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.gol_ltl_step.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        lib.gol_ltl_step.restype = ctypes.c_int
+        _LTL_LIBS[key] = _error_string(lib)
+    return _LTL_LIBS[key]

@@ -274,19 +274,22 @@ def _bit_planes(rng, n: int, density: np.ndarray) -> List[np.ndarray]:
 
 def ltl_word_ops_lower(rule: Rule, words: int = 128, seed: int = 0) -> int:
     """A lower bound on the LOP3 and SHF instructions per word per
-    generation of any program that, like the compiled form, sums each
-    column's 2r+1 cells into bit planes (per row, or slid from the row
-    before) and funnel-shifts those planes across words.
+    generation of any program that, like kernel K3, sums each column's
+    2r+1 cells into bit planes (per row, or slid from the row before) and
+    takes the neighbouring words' planes by shuffle.
 
-    Each shifted plane that the next state depends on costs one SHF, and a
-    LOP3 reads at most three operands, so the LOP3s that join ``n`` such
-    values into one word number at least ceil((n - 1) / 2).  The values
-    are the shifted planes and the row words at the cell's own column; a
-    sliding vertical sum replaces those rows by the previous row's planes,
-    the entering and leaving rows and the centre, and the smaller count of
-    the two is taken.  A value counts only where the random words of
-    ``ltl_next`` (cells of every density, one column's planes changed only
-    to another reachable sum) show that flipping it changes the state."""
+    An instruction reads at most three operands, so the instructions that
+    join ``n`` values into one word number at least ceil((n - 1) / 2).
+    The values are the row words at the cell's own column (a sliding
+    vertical sum replaces them by the previous row's planes, the entering
+    and leaving rows and the centre, and the smaller count of the two is
+    taken) and the planes of the two neighbouring words' vertical sums,
+    each counted once however it is shifted: K3's doubling horizontal sum
+    shifts sums of planes, not every plane at every distance, so a count
+    of one SHF per plane and distance would not bound it.  A value counts
+    only where the random words of ``ltl_next`` (cells of every density,
+    one column's planes changed only to another reachable sum) show that
+    flipping it changes the state."""
     r = rule.radius
     rng = np.random.default_rng(seed)
     density = rng.random((words, 1)) * np.ones((1, WORD))
@@ -318,10 +321,12 @@ def ltl_word_ops_lower(rule: Rule, words: int = 128, seed: int = 0) -> int:
         return ltl_next(rows, lambda p, d: p, rule, zero, funnel)
 
     base = next_state(rows)
-    shifts = sum(not np.array_equal(next_state(rows, (i, k)), base)
-                 for k in far for i, p in enumerate(v) if p is not None)
+    # a plane of the next (previous) word matters where flipping it at some
+    # distance k > 0 (k < 0) changes the state
+    sides = {(i, k > 0) for k in far for i, p in enumerate(v) if p is not None
+             and not np.array_equal(next_state(rows, (i, k)), base)}
     own = sum(not np.array_equal(next_state(
         [x ^ np.uint32(0xFFFFFFFF) if j == b else x
          for j, x in enumerate(rows)]), base) for b in range(len(rows)))
     own = min(own, sum(p is not None for p in v) + 3)
-    return shifts + -(-(shifts + own - 1) // 2)
+    return -(-(len(sides) + own - 1) // 2)

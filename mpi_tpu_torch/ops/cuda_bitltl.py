@@ -4,9 +4,11 @@ CUDA for Hopper.
 Replaces ``mpi_tpu.ops.pallas_bitltl.pallas_ltl_step``: ``gens``
 (1..⌊8/r⌋) generations of a radius-r rule (2..7) on a packed (H, W/32)
 grid in one read and one write of device memory.  The kernel is
-``csrc/bitltl.cu`` (its header says what bounds it and how it is tiled);
-``ops/_build.py`` builds it.  Unlike the TPU kernel it takes any H >= 1
-and any whole number of words per row.
+``csrc/bitltl.cu`` (its header says what bounds it and how it is tiled),
+built once per rule with the rule compiled in (``ops/ltl_codegen.py``
+emits it, ``ops/_build.py:load_ltl_library`` builds and loads it at first
+use).  Unlike the TPU kernel it takes any H >= 1 and any whole number of
+words per row.
 
 :func:`cuda_ltl_step` launches the kernel for a CUDA tensor.  For a tensor
 on the CPU it runs :func:`ltl_step_plain`, the plain PyTorch version, and
@@ -15,7 +17,6 @@ for nothing else: on a CUDA tensor it launches or raises.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -72,21 +73,6 @@ def _check(packed: torch.Tensor, rule: Rule, boundary: str, gens: int) -> None:
         raise ValueError(reason)
 
 
-def thresholds(rule: Rule):
-    """The rule as the kernel tests it: birth pairs (lo, hi + 1), then
-    survive pairs (lo + 1, hi + 2), each a half-open range of the
-    neighbourhood total, which includes the centre."""
-    pairs = [(lo, hi + 1) for lo, hi in rule.birth_intervals]
-    pairs += [(lo + 1, hi + 2) for lo, hi in rule.survive_intervals]
-    return [t for pair in pairs for t in pair]
-
-
-@functools.lru_cache(maxsize=64)
-def _thresholds_on(rule: Rule, device: torch.device) -> torch.Tensor:
-    """The thresholds as int16 on ``device``, made once per rule."""
-    return torch.tensor(thresholds(rule), dtype=torch.int16, device=device)
-
-
 def ltl_step_plain(packed: torch.Tensor, rule: Rule,
                    boundary: str = "periodic", gens: int = 1) -> torch.Tensor:
     """The plain version of K3: ``gens`` applications of ``ltl_step``."""
@@ -113,23 +99,27 @@ def cuda_ltl_step(packed: torch.Tensor, rule: Rule,
         res = ltl_step_plain(packed, rule, boundary, gens)
         return res if out is None else out.copy_(res)
     check_cuda(packed, "K3")
-    from mpi_tpu_torch.ops._build import load_library
+    from mpi_tpu_torch.ops._build import load_ltl_library
 
-    lib = load_library()
     if out is None:
         out = torch.empty_like(packed)
-    H, NW = packed.shape
-    thr = _thresholds_on(rule, packed.device)
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
-        err = lib.gol_ltl_step(
-            packed.data_ptr(), out.data_ptr(), H, NW, rule.radius, gens,
-            int(boundary == "periodic"), thr.data_ptr(),
-            len(rule.birth_intervals), len(rule.survive_intervals), stream,
-        )
-    raise_on_error(lib, err, "K3")
+    launch(load_ltl_library(rule), packed, out, rule, boundary, gens)
     cuda_ltl_step.launches += 1
     return out
+
+
+def launch(lib, packed: torch.Tensor, out: torch.Tensor, rule: Rule,
+           boundary: str, gens: int) -> None:
+    """One pass of the K3 library ``lib`` (built for ``rule``) on the
+    current stream; raises on a CUDA error.  Checks nothing else: callers
+    are :func:`cuda_ltl_step` and timing scripts that compare builds."""
+    H, NW = packed.shape
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream(packed.device).cuda_stream
+        err = lib.gol_ltl_step(packed.data_ptr(), out.data_ptr(), H, NW,
+                               rule.radius, gens, int(boundary == "periodic"),
+                               stream)
+    raise_on_error(lib, err, "K3")
 
 
 cuda_ltl_step.launches = 0

@@ -22,8 +22,9 @@ from mpi_tpu_torch.models.rules import Rule, rule_from_name
 from mpi_tpu_torch.ops import bitlife as tbit
 from mpi_tpu_torch.ops import bitltl as tltl
 from mpi_tpu_torch.ops.cuda_bitltl import (
-    cuda_ltl_step, ltl_step_plain, max_gens, refusal, supports, thresholds,
+    cuda_ltl_step, ltl_step_plain, max_gens, refusal, supports,
 )
+from mpi_tpu_torch.ops.ltl_codegen import evaluate, rule_program
 
 R2 = "R2,B10-13,S8-12"
 R3 = "R3,B20-25,S18-30"
@@ -158,10 +159,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert refusal((0, 64), r2) and "birth-on-0" in refusal((7, 64), b0, 2)
 
 
-def test_thresholds_test_survival_shifted_by_one():
+def test_compiled_rule_tests_survival_shifted_by_one():
+    # the kernel's rule sees the total with the centre; a live cell with
+    # total t has t - 1 neighbours
     rule = rule_from_name("R2,B3-4+9,S0+7-8")
-    assert thresholds(rule) == [3, 5, 9, 10, 1, 2, 8, 10]
-    assert thresholds(rule_from_name("R2,B,S")) == []
+    prog = rule_program(rule)
+    tot = np.arange(26, dtype=np.uint32)
+    planes = [np.where((tot >> k) & 1, np.uint32(0xFFFFFFFF), np.uint32(0))
+              .astype(np.uint32) for k in range(prog.nplanes)]
+    born = evaluate(prog, planes, np.zeros_like(tot))
+    stay = evaluate(prog, planes, np.full_like(tot, 0xFFFFFFFF))
+    assert np.flatnonzero(born).tolist() == [3, 4, 9]
+    assert np.flatnonzero(stay).tolist() == [1, 8, 9]
 
 
 def test_ltl_word_ops_counts_the_compiled_form():
@@ -184,16 +193,15 @@ def test_ltl_word_ops_counts_the_compiled_form():
         tltl.ltl_word_ops(rule_from_name("bosco"))
 
 
-@pytest.mark.parametrize("rule,lower", [(R2, 20), ("bosco", 63)])
+@pytest.mark.parametrize("rule,lower", [(R2, 5), ("bosco", 7)])
 def test_ltl_word_ops_lower_brackets_the_compiled_form(rule, lower):
-    # every vertical-sum plane at every distance 1..r, shifted, and every
-    # row word at the cell's column reach the next state; Bosco's 11 rows
-    # give way to a sliding sum's 4 planes + 3 rows
+    # every vertical-sum plane of both neighbouring words and every row
+    # word at the cell's column reach the next state; Bosco's 11 rows give
+    # way to a sliding sum's 4 planes + 3 rows
     rule = rule_from_name(rule)
     r, planes = rule.radius, {2: 3, 5: 4}[rule.radius]
-    shifts = 2 * r * planes
     own = min(2 * r + 1, planes + 3)
-    assert lower == shifts + -(-(shifts + own - 1) // 2)
+    assert lower == -(-(2 * planes + own - 1) // 2)
     assert tltl.ltl_word_ops_lower(rule) == lower
     assert tltl.ltl_word_ops_lower(rule, seed=7) == lower
     assert lower < tltl.ltl_word_ops(rule)

@@ -6,17 +6,22 @@
 Phases; any failure exits non-zero before the result line:
 
 0. the card: name and power limit from ``nvidia-smi``; no CUDA, no run;
-1. build kernels K1 and K2 (``mpi_tpu_torch/csrc/*.cu``) with nvcc, one
-   process per source, into the common library, and K3 once per rule (one
-   library for each radius 2..7, in parallel nvcc processes); report each
-   kernel's registers and spills (ptxas; none may spill), and count the
+1. build kernel K2 (``mpi_tpu_torch/csrc/stencil.cu``) with nvcc into the
+   common library, and K1 and K3 once per rule, in parallel nvcc processes
+   (K1 for every rule of phase 2, K3 one library for each radius 2..7);
+   report each kernel's registers and spills (ptxas; none may spill), K1's
+   tile and the CTAs that share an SM at each depth, and count the
    instructions of K1's, K2's and K3's row loops in the built SASS
    (``cuobjdump``), per word-generation (K1, K3) and per cell-generation
-   (K2); then time the common build against one nvcc call over its
-   sources, alternating, twice each, and one per-rule build alone;
+   (K2); then time the common build and one per-rule build of each kernel
+   alone, twice each;
 2. each kernel against its plain PyTorch version, exact (``torch.equal``):
-   K1 over gens x boundaries x rules x ragged shapes and random rules, and
-   at 65536² at the main path's depths; K2 over radii 1, 2, 3, 5, 7 x
+   K1 over gens x boundaries x rules x ragged shapes and random rules,
+   every depth 1..16, shapes around its tile's edges (1, 2, 29-33, 61-65
+   and 119-129 words a row; 1-3 and 127-130 rows), grids that cross the
+   torus seam in both axes, dead grids larger than two tiles each way
+   (edge and interior CTAs, aligned and unaligned rows), and at 65536² at
+   the main path's depths; K2 over radii 1, 2, 3, 5, 7 x
    depths with gens x r <= 16 x boundaries x ragged widths (grids below the
    neighbourhood too, a birth-on-0 rule, random rules), and at 16384²
    (Bosco, gens 1 and 3); K3 over radii 2..7 x gens 1..⌊8/r⌋ x boundaries
@@ -26,16 +31,21 @@ Phases; any failure exits non-zero before the result line:
    required above 0 just after, each whole final grid equal to the plain
    version's from the same init: ``run_cuda`` at 65536² for Life (comm_every
    8, K1), for Bosco (comm_every 1, K3) and for R2,B10-13,S8-12 (comm_every
-   4, K3), and at 16384² for Bosco (comm_every 3, K2), each ~90-330 ms of
-   stepping.  Then the CLI at 512²
+   4, K3), and at 16384² for Bosco (comm_every 3, K2), each ~250-280 ms of
+   stepping, so that a stray delay of 2 ms on the machine stays under 1% of
+   the window.  Then the CLI at 512²
    (Life at comm_every 4 and Bosco, both boundaries) and at 500x500 (Life
    and Bosco, on K2), whose ``.gol`` files must equal the serial oracle's
    byte for byte;
 4. times (CUDA events after warm-up) of each kernel at its main paths'
    depths, with cell-updates/s, the plain version's time, the card's bound,
    and a library call where one exists (for K2, ``conv2d`` of the padded
-   grid in float16: the counts only); and K3's two horizontal sums
-   (carry-save adders, doubling) at every radius, in turns;
+   grid in float16: the counts only); K1's kept design against its
+   variants (the rule from run-time masks, which the kernel evaluated
+   before the rule was compiled in; words per lane; ghost words; rows per
+   CTA; the tile load) at gens 8, 4, 2 and 1, in turns, each variant's output
+   equal to the kept one's; and K3's two horizontal sums (carry-save
+   adders, doubling) at every radius, in turns;
 5. a ``torch.profiler`` trace of each main path's steady stepping: kernel
    time by name, the device's idle share of the wall time, and no kernel
    build inside it.
@@ -46,6 +56,7 @@ as its last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import filecmp
 import json
 import os
@@ -80,9 +91,11 @@ from mpi_tpu_torch.ops.bitltl import (  # noqa: E402
 from mpi_tpu_torch.ops.cuda_bitlife import (  # noqa: E402
     bit_step_plain, cuda_bit_step,
 )
+from mpi_tpu_torch.ops.cuda_bitlife import launch as bit_launch  # noqa: E402
 from mpi_tpu_torch.ops.cuda_bitltl import (  # noqa: E402
-    cuda_ltl_step, launch, ltl_step_plain, max_gens,
+    cuda_ltl_step, ltl_step_plain, max_gens,
 )
+from mpi_tpu_torch.ops.cuda_bitltl import launch as ltl_launch  # noqa: E402
 from mpi_tpu_torch.ops.ltl_codegen import (  # noqa: E402
     lop3_count, rule_key, rule_program,
 )
@@ -114,13 +127,13 @@ K2_CELL_OPS = 6 / 4
 SEED = 1
 FLAGSHIP = 65536         # K1 and K3 main paths: 512 MiB packed
 MAIN_GENS = 8            # K1's main path: comm_every 8
-MAIN_STEPS = 500         # 62 passes of 8 and a remainder pass of 4
+MAIN_STEPS = 1500        # 187 passes of 8 and a remainder pass of 4
 MAIN_DEPTHS = (1, MAIN_STEPS % MAIN_GENS, MAIN_GENS)  # warm-up, remainder, K
 R2 = rule_from_name("R2,B10-13,S8-12")
 # (label, rule, comm_every, steps) of K3's main paths at 65536²
-LTL_PATHS = (("bosco", BOSCO, 1, 100), ("r2", R2, 4, 150))
+LTL_PATHS = (("bosco", BOSCO, 1, 200), ("r2", R2, 4, 450))
 DENSE = 16384            # K2's main path: 256 MiB of cells
-DENSE_PATH = ("bosco", BOSCO, 3, 481)
+DENSE_PATH = ("bosco", BOSCO, 3, 1201)
 
 # each kernel's wrapper, whose ``launches`` the main paths read
 KERNELS = {kid: wrapper for kid, wrapper, _ in backend.KERNELS.values()}
@@ -162,60 +175,74 @@ def phase1_build() -> None:
     lib = _build.load_library()
     seconds = time.perf_counter() - t0
     resources = _build.kernel_resources(_build.library_path())
+    k1_rules = list({rule_key(c[1]): c[1] for c in _k1_cases()}.values())
     t0 = time.perf_counter()
-    ltl_libs = _build.build_ltl(list(LTL_RULES.values()))
+    k1_libs = _build.build_rules("bit", k1_rules)
+    k1_seconds = time.perf_counter() - t0
+    k1_resources = {rule_key(r): _build.kernel_resources(p)
+                    for r, p in zip(k1_rules, k1_libs)}
+    t0 = time.perf_counter()
+    ltl_libs = _build.build_rules("ltl", list(LTL_RULES.values()))
     ltl_seconds = time.perf_counter() - t0
     ltl_resources = {r: _build.kernel_resources(p)
                      for r, p in zip(LTL_RULES, ltl_libs)}
+    k1 = _build.load_rule_library("bit", LIFE)
+    words_per_lane, owned_words = ctypes.c_int(), ctypes.c_int()
+    rows = {g: k1.gol_bit_tile(g, ctypes.byref(words_per_lane),
+                               ctypes.byref(owned_words))
+            for g in (1, 4, 8, 16)}
+    words_per_lane, owned_words = words_per_lane.value, owned_words.value
+    registers = sorted({v[0].get("registers") for v in k1_resources.values()
+                        if v})
     emit({"phase": "build", "kernels": ["K1", "K2", "K3"],
           "sources": [p.name for p in _build.sources()], "seconds": seconds,
           "library": os.path.relpath(lib._name, ROOT),
           "ptxas": resources,
+          "k1_rules": len(k1_rules),
+          "k1_parallel_build_seconds": k1_seconds,
+          "k1_tile": {"words_per_lane": words_per_lane,
+                      "owned_words": owned_words, "rows_by_gens": rows},
+          "k1_ctas_per_sm": {g: k1.gol_bit_ctas_per_sm(g)
+                             for g in (1, 4, 8, 16)},
+          "k1_registers": registers,
+          "k1_ptxas_life": k1_resources[rule_key(LIFE)],
           "k3_rules": {r: rule_key(rule) for r, rule in LTL_RULES.items()},
           "k3_parallel_build_seconds": ltl_seconds,
           "k3_hsum": _build.LTL_HSUM,
           "k3_ptxas": ltl_resources})
-    # K1 and K2 at r 1..7 in the common library, K3 once in each of the
-    # six per-rule libraries (r 2..7)
-    if len(resources) != 1 + 7 or any(len(v) != 1
-                                      for v in ltl_resources.values()):
-        fail(f"expected 1 + 7 kernels in the common library and one in each "
-             f"K3 library, got {resources} and {ltl_resources}")
-    spilled = _spills(resources + sum(ltl_resources.values(), []))
+    # K2 at r 1..7 in the common library, one kernel in each library of K1
+    # (one per rule) and of K3 (r 2..7)
+    per_rule = list(k1_resources.values()) + list(ltl_resources.values())
+    if len(resources) != 7 or any(len(v) != 1 for v in per_rule):
+        fail(f"expected 7 kernels in the common library and one in each "
+             f"per-rule library, got {resources}, {k1_resources} and "
+             f"{ltl_resources}")
+    spilled = _spills(resources + sum(per_rule, []))
     if spilled:
         fail(f"kernels spill: {spilled}")
-    _sass_loops(lib._name, str(ltl_libs[list(LTL_RULES).index(5)]))
+    _sass_loops(lib._name, k1._name, words_per_lane,
+                str(ltl_libs[list(LTL_RULES).index(5)]))
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
         emit({"phase": "build_seconds", **_build_seconds(Path(d))})
 
 
 def _build_seconds(d: Path) -> dict:
-    """Seconds to build the library into ``d`` two ways, alternating, twice
-    each: one nvcc call over every source, and the port's build (one nvcc
-    per source, started together, then a link)."""
-    single = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared"]
-    out = {"single_call": [], "per_source": []}
-    for rep in range(2):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            single + ["-o", str(d / f"single{rep}.so"),
-                      *map(str, _build.sources())],
-            capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            fail(f"one-call nvcc build failed: {proc.stderr.strip()}")
-        out["single_call"].append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        _build.build(d / f"per_source{rep}.so")
-        out["per_source"].append(time.perf_counter() - t0)
-    # one K3 library alone (Bosco), into a fresh directory each time
-    out["k3_one_rule"] = []
+    """Seconds to build, into fresh directories under ``d``, twice each:
+    the common library, one K1 library (Life) alone, and one K3 library
+    (Bosco) alone."""
+    out = {"common": [], "k1_one_rule": [], "k3_one_rule": []}
     home = _build.BUILD_DIR
     try:
         for rep in range(2):
-            _build.BUILD_DIR = d / f"ltl{rep}"
             t0 = time.perf_counter()
-            _build.build_ltl([BOSCO])
-            out["k3_one_rule"].append(time.perf_counter() - t0)
+            _build.build(d / f"common{rep}.so")
+            out["common"].append(time.perf_counter() - t0)
+            for key, kind, rule in (("k1_one_rule", "bit", LIFE),
+                                    ("k3_one_rule", "ltl", BOSCO)):
+                _build.BUILD_DIR = d / f"{kind}{rep}"
+                t0 = time.perf_counter()
+                _build.build_rules(kind, [rule])
+                out[key].append(time.perf_counter() - t0)
     finally:
         _build.BUILD_DIR = home
     return out
@@ -273,31 +300,48 @@ def _row_loop(code, mark: str, marker: str) -> dict:
             "by_opcode": dict(Counter(body).most_common(10))}
 
 
-def _sass_loops(library: str, ltl_library: str) -> None:
+def _sass_loops(library: str, k1_library: str, k1_words_per_lane: int,
+                ltl_library: str) -> None:
     """Instructions per unit of work as the card runs them, counted
     statically in the innermost loops of the built SASS (a store that a
     predicate skips still counts).
 
-    K1: a row loop whose body holds 4u shuffles steps u words of one lane
-    per iteration (each word's generation shuffles four column sums); its
-    count over u is K1's code per word per generation.  K2 at r = 5: the
-    row loop steps 16 cells (four words) of one thread per row, one STS
-    each.  K3 for Bosco: the row loop steps one word of one lane per row,
-    one STG each (a predicate picks it or the shared store)."""
-    funcs = _sass_functions(library)
+    K1 for Life: every innermost loop that shuffles is a row loop; each
+    row it steps loads the lane's words once from shared memory (one LDS),
+    so its LDS count is its rows per iteration, whatever the unrolling,
+    the shuffles per row or the words per lane.  The loops that store to
+    shared memory are the in-tile generations, masked and bare; the one
+    that stores to device memory (STG) is the last generation.  K2 at
+    r = 5: the row loop steps 16 cells (four words) of one thread per row,
+    one STS each.  K3 for Bosco: the row loop steps one word of one lane
+    per row, one STG each (a predicate picks it or the shared store)."""
     k1 = []
-    for body in _inner_loops(funcs.get("bit_step_kernel", [])):
-        shuffles = sum(op.startswith("SHFL") for op in body)
-        if shuffles and shuffles % 4 == 0:
-            u = shuffles // 4
-            k1.append({"words_per_iteration": u,
-                       "instructions_per_word": len(body) / u,
-                       "by_opcode": {k: v / u for k, v
-                                     in Counter(body).most_common()}})
-    if not k1:
-        fail("no row loop of K1 found in its SASS")
-    emit({"phase": "sass", "kernel": "K1", "row_loops": k1,
+    k1_code = _sass_functions(k1_library).get("bit_step_kernel", [])
+    for body in _inner_loops(k1_code):
+        rows = body.count("LDS")
+        if body.count("SHFL") and rows:
+            words = rows * k1_words_per_lane
+            k1.append({"rows_per_iteration": rows,
+                       "words_per_iteration": words,
+                       "stores_to_device": "STG" in body,
+                       "instructions_per_word": len(body) / words,
+                       "lop3_shf_per_word":
+                           (body.count("LOP3") + body.count("SHF")) / words,
+                       "by_opcode_per_word": {
+                           k: v / words
+                           for k, v in Counter(body).most_common()}})
+    in_tile = [loop for loop in k1 if not loop["stores_to_device"]]
+    if not in_tile or len(in_tile) == len(k1):
+        fail(f"K1's row loops (in-tile and last generation) not found in "
+             f"its SASS; innermost loops: "
+             f"{[Counter(b).most_common(6) for b in _inner_loops(k1_code)]}")
+    steady = min(in_tile, key=lambda loop: loop["instructions_per_word"])
+    emit({"phase": "sass", "kernel": "K1", "function": "bit_step_kernel",
+          "rule": rule_key(LIFE), "row_loops": k1,
+          "instructions_per_word_generation": steady["instructions_per_word"],
+          "lop3_shf_per_word_generation": steady["lop3_shf_per_word"],
           "compiled_form_word_ops": word_ops(LIFE)})
+    funcs = _sass_functions(library)
     if "dense_step_kernel<5>" not in funcs:
         fail("dense_step_kernel<5> not found in the SASS")
     k2 = _row_loop(funcs["dense_step_kernel<5>"], "PRMT", "STS")
@@ -350,34 +394,79 @@ def _cells(rng, shape):
                                          dtype=np.uint8)).cuda()
 
 
-def _k1_exact(rng) -> tuple:
+def _k1_cases() -> list:
+    """K1's small cases as (shape in rows and words, rule, boundary, gens),
+    the same in every call: phase 1 builds their rules together, phase 2
+    runs them."""
+    rng = np.random.default_rng(SEED + 1)
     b0 = rule_from_name("B0/S8")
-    cases = err = 0
+    both = ("periodic", "dead")
+    cases = []
     for shape in [(1000, 96), (7, 33), (2048, 128), (1, 1), (130, 31)]:
-        x = _words(rng, shape)
         for rule in (LIFE, HIGHLIFE, SEEDS, DAY_AND_NIGHT, b0):
-            for boundary in ("periodic", "dead"):
+            for boundary in both:
                 for gens in ([1] if 0 in rule.birth else [1, 2, 8, 9, 16]):
-                    err = max(err, _compare(cuda_bit_step, bit_step_plain, x,
-                                            rule, boundary, gens))
-                    cases += 1
+                    cases.append((shape, rule, boundary, gens))
     for _ in range(60):  # random rules, shapes, depths and boundaries
         birth, survive = (int(v) for v in rng.integers(0, 512, size=2))
         rule = Rule("fuzz", frozenset(c for c in range(9) if birth >> c & 1),
                     frozenset(c for c in range(9) if survive >> c & 1))
         gens = 1 if 0 in rule.birth else int(rng.integers(1, 17))
         shape = (int(rng.integers(1, 300)), int(rng.integers(1, 70)))
-        boundary = ("periodic", "dead")[int(rng.integers(0, 2))]
+        cases.append((shape, rule, both[int(rng.integers(0, 2))], gens))
+    # every depth, on a grid of two tile rows of CTAs whose last is ragged
+    for gens in range(1, 17):
+        for boundary in both:
+            cases.append(((200, 130), LIFE, boundary, gens))
+    # words a row around the tile's edges (a CTA writes 120 of its 128),
+    # where rows stop being 16-byte aligned, and very narrow grids; rows
+    # around one tile's 128: each wraps the torus seam inside one tile
+    widths = [1, 2, *range(29, 34), *range(61, 66), *range(119, 130), 240, 241]
+    for i, nw in enumerate(widths):
+        rows = (1, 2, 3, 127, 128, 129, 130)[i % 7]
+        for boundary in both:
+            for gens in (1, 5, 16):
+                cases.append(((rows, nw), HIGHLIFE, boundary, gens))
+    for rows in (1, 2, 3, 127, 128, 129, 130):
+        for boundary in both:
+            cases.append(((rows, 7), DAY_AND_NIGHT, boundary, 16))
+    # the shallowest passes write 64 rows a CTA
+    for rows in (63, 64, 65, 66):
+        for boundary in both:
+            for gens in (1, 2):
+                cases.append(((rows, 127), SEEDS, boundary, gens))
+    # larger than two tiles each way: interior CTAs run the bare loop, edge
+    # CTAs of a dead grid the masked one; 400 words a row move in 16-byte
+    # pieces, 401 and 402 word by word
+    for nw in (400, 401, 402):
+        for rule in (LIFE, DAY_AND_NIGHT):
+            for boundary in both:
+                for gens in (1, 3, 8, 16):
+                    cases.append(((400, nw), rule, boundary, gens))
+    return cases
+
+
+def _k1_exact(rng) -> tuple:
+    cases = _k1_cases()
+    err = 0
+    for shape, rule, boundary, gens in cases:
         err = max(err, _compare(cuda_bit_step, bit_step_plain,
                                 _words(rng, shape), rule, boundary, gens))
-        cases += 1
+    # a view whose rows are not 16-byte aligned goes word by word
+    base = _words(rng, (301, 124)).reshape(-1)
+    x = base[3:3 + 300 * 124].view(300, 124)
+    n = len(cases)
+    for boundary in ("periodic", "dead"):
+        err = max(err, _compare(cuda_bit_step, bit_step_plain, x, LIFE,
+                                boundary, 8))
+        n += 1
     x = init_packed(FLAGSHIP, FLAGSHIP, SEED, device="cuda")
     for gens in MAIN_DEPTHS:
         for boundary in ("periodic", "dead"):
             err = max(err, _compare(cuda_bit_step, bit_step_plain, x, LIFE,
                                     boundary, gens))
-            cases += 1
-    return cases, err
+            n += 1
+    return n, err
 
 
 DENSE_RULES = {1: LIFE, 2: R2, 3: rule_from_name("R3,B20-25,S18-30"),
@@ -452,7 +541,7 @@ def _k3_exact(rng) -> tuple:
     # every distinct rule's library, in parallel nvcc processes
     rules = list({rule_key(c[1]): c[1] for c in cases}.values())
     t0 = time.perf_counter()
-    libs = _build.build_ltl(rules)
+    libs = _build.build_rules("ltl", rules)
     extra = {"rules": len(rules), "build_seconds": time.perf_counter() - t0}
     spilled = _spills(sum((_build.kernel_resources(p) for p in libs), []))
     if spilled:
@@ -631,6 +720,73 @@ def _row(card, kid, grid, rule, gens, ms, plain_ms, t_bytes, t_ops, **extra):
     return row
 
 
+# K1's variants by the macros that select them in csrc/bitlife.cu; "kept"
+# is the design every wrapper and main path runs.  "as_before" puts
+# together what the kernel did before its redesign: the rule from run-time
+# masks, one word a lane, the end lanes zeroing their shuffled sums, every
+# CTA masking every word.
+K1_VARIANTS = {
+    "kept": None,
+    "rule_gates": {"K1_RULE_GATES": 1},
+    "rule_masks": {"K1_RULE_MASKS": 1},
+    "as_before": {"K1_RULE_MASKS": 1, "K1_WPL": 1, "K1_ZERO_GHOSTS": 1,
+                  "K1_EDGE_TESTS": 1},
+    "words_per_lane_1": {"K1_WPL": 1},
+    "words_per_lane_2": {"K1_WPL": 2},
+    "ghost_lanes": {"K1_GHOST": 4},
+    "ghost_lanes_through_registers": {"K1_GHOST": 4, "K1_CP_ASYNC": 0},
+    "load_through_registers": {"K1_CP_ASYNC": 0},
+    "zero_ghosts": {"K1_ZERO_GHOSTS": 1},
+    "edge_tests": {"K1_EDGE_TESTS": 1},
+    "ghost_lanes_rows_128": {"K1_GHOST": 4, "K1_ROWS": 128},
+    "rows_64": {"K1_ROWS": 64},
+    "rows_128": {"K1_ROWS": 128},
+    "rows_192": {"K1_ROWS": 192},
+}
+
+
+def _k1_turns(card: str, x: torch.Tensor) -> None:
+    """K1's kept design and its variants on the 65536² grid at gens 8, 4,
+    2 and 1, in turns: every variant once in order and once in reverse, so
+    each is timed early and late (for two, that is old, new, new, old).
+    Each variant's output must equal the kept design's."""
+    names = list(K1_VARIANTS)
+    t0 = time.perf_counter()
+    paths = _build.build_rules("bit", [LIFE] * len(names),
+                               list(K1_VARIANTS.values()))
+    build_s = time.perf_counter() - t0
+    libs = {n: _build.load_rule_library("bit", LIFE, K1_VARIANTS[n])
+            for n in names}
+    for n in names:
+        if (K1_VARIANTS[n] or {}).get("K1_RULE_MASKS"):
+            err = libs[n].gol_bit_set_masks(LIFE.birth_mask,
+                                            LIFE.survive_mask)
+            if err:
+                fail(f"gol_bit_set_masks failed for {n}: CUDA error {err}")
+    emit({"phase": "k1_variants", "card": card, "rule": rule_key(LIFE),
+          "defines": K1_VARIANTS, "build_seconds_all_variants": build_s,
+          "ptxas": {n: _build.kernel_resources(p)
+                    for n, p in zip(names, paths)},
+          "ctas_per_sm": {n: {g: libs[n].gol_bit_ctas_per_sm(g)
+                              for g in (1, 4, 8)} for n in names}})
+    out, want = torch.empty_like(x), torch.empty_like(x)
+    for gens in sorted({2, *MAIN_DEPTHS}, reverse=True):
+        bit_launch(libs["kept"], x, want, "periodic", gens)
+        ms = {n: [] for n in names}
+        for n in names + names[::-1]:
+            def one_pass(lib=libs[n]):
+                bit_launch(lib, x, out, "periodic", gens)
+            for _ in range(3):
+                one_pass()
+            ms[n].append(_events_ms(one_pass, 10))
+            if not torch.equal(out, want):
+                fail(f"K1 variant {n} differs from the kept design at gens "
+                     f"{gens}")
+        emit({"phase": "k1_turns", "card": card, "rule": rule_key(LIFE),
+              "gens": gens, "grid": [FLAGSHIP, FLAGSHIP], "ms": ms,
+              "fastest": min(names, key=lambda n: sum(ms[n]))})
+
+
 def _hsum_turns(card: str, x: torch.Tensor) -> None:
     """K3's two horizontal sums (0: carry-save adders over the 2r+1
     shifted copies; 1: doubling window sums) at every radius's deepest
@@ -642,15 +798,17 @@ def _hsum_turns(card: str, x: torch.Tensor) -> None:
                 if (rule, g) not in configs]
     t0 = time.perf_counter()
     for form in (0, 1):
-        _build.build_ltl([rule for rule, _ in configs], hsum=form)
+        _build.build_rules("ltl", [rule for rule, _ in configs],
+                           {"LTL_HSUM": form})
     build_s = time.perf_counter() - t0
     out = torch.empty_like(x)
     for rule, gens in configs:
-        libs = [_build.load_ltl_library(rule, form) for form in (0, 1)]
+        libs = [_build.load_rule_library("ltl", rule, {"LTL_HSUM": form})
+                for form in (0, 1)]
         ms = {0: [], 1: []}
         for form in (0, 1, 1, 0):
             def one_pass(lib=libs[form]):
-                launch(lib, x, out, rule, "periodic", gens)
+                ltl_launch(lib, x, out, rule, "periodic", gens)
             for _ in range(3):
                 one_pass()
             ms[form].append(_events_ms(one_pass, 10))
@@ -690,6 +848,7 @@ def phase4_times(card: str) -> dict:
                 library_ms=None,
                 library_note="no single PyTorch call computes a "
                              "Larger-than-Life generation")
+    _k1_turns(card, x)
     _hsum_turns(card, x)
     del x
     torch.cuda.empty_cache()

@@ -3,7 +3,7 @@
 // read and one write of device memory.  Built once per rule: the radius
 // (-DLTL_RADIUS) and the rule (a header that ops/ltl_codegen.py generates,
 // named by -DLTL_RULE_HEADER and found on the include path) are fixed at
-// compile time (ops/_build.py: build_ltl).
+// compile time (ops/_build.py: build_rules).
 //
 // Replaces the TPU kernel `pallas_ltl_step` (mpi_tpu/ops/pallas_bitltl.py),
 // which streams whole-row slabs through VMEM with DMA halos and rolls lanes

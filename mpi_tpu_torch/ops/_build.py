@@ -3,23 +3,30 @@
 Two kinds of library, both compiled by ``nvcc`` for Hopper (``sm_90a``)
 with a plain C interface and loaded with ``ctypes``:
 
-* the common library (:func:`load_library`): every ``csrc/*.cu`` but
-  ``bitltl.cu`` (kernels K1 and K2), one nvcc process per source, all
+* the common library (:func:`load_library`): every ``csrc/*.cu`` that is
+  not built per rule, which is ``stencil.cu`` (kernel K2) and
+  ``errors.cu`` (the error text), one nvcc process per source, all
   started together, linked into one shared library;
-* one library per Larger-than-Life rule (:func:`load_ltl_library`):
-  ``csrc/bitltl.cu`` (kernel K3) compiled for the rule's radius alone,
-  with the rule itself as straight-line code that ``ops/ltl_codegen.py``
-  emits into a header, included by the macro ``LTL_RULE_HEADER``.
-  :func:`build_ltl` builds many rules in parallel nvcc processes.
+* one library per rule (:func:`load_rule_library`) for the kernels that
+  have the rule compiled in, :data:`PER_RULE`: ``"bit"`` is
+  ``csrc/bitlife.cu`` (kernel K1, radius 1) and ``"ltl"`` is
+  ``csrc/bitltl.cu`` (kernel K3, radius 2..7).  The rule is straight-line
+  code that ``ops/bit_codegen.py`` or ``ops/ltl_codegen.py`` emits into a
+  header, which the source includes by a macro (``BIT_RULE_HEADER``,
+  ``LTL_RULE_HEADER``); further ``-D`` macros fix the radius and pick a
+  variant of the kernel.  :func:`build_rules` builds many rules, or many
+  variants, in parallel nvcc processes (2-4 s for one rule on the H100's
+  host).
 
 Libraries land in ``build/mpi_tpu_torch/`` at the root of the checkout,
-named by a hash of what went into them (sources, flags, and for a rule
-its canonical text and generated header), so an edited source or a new
-rule is built on the next run and an unchanged one is reused.  Beside
-each, ``<library>.ptxas.txt`` keeps ptxas's report of its kernels'
-registers and spills (:func:`kernel_resources` reads it).  The engine
-builds at warm-up (``backends/cuda.py:Engine.warm_up``), which is setup,
-never inside the stepping.
+named by a hash of what went into them (source, flags, and for a rule its
+canonical text, its generated header and its macros), so an edited source
+or a new rule is built on the next run and an unchanged one is reused;
+rules with equal birth and survive sets share a library whatever their
+names.  Beside each, ``<library>.ptxas.txt`` keeps ptxas's report of its
+kernels' registers and spills (:func:`kernel_resources` reads it).  The
+engine builds at warm-up (``backends/cuda.py:Engine.warm_up``), which is
+setup, never inside the stepping.
 
 There is no fallback: without ``nvcc``, or when a build fails, this
 raises with the compiler's message.
@@ -30,12 +37,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import importlib
 import os
 import re
 import shutil
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional, Sequence, Union
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -45,13 +54,47 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-
-# kernel K3's source, built once per rule, not into the common library
-LTL_SOURCE = CSRC_DIR / "bitltl.cu"
 # K3's horizontal sum by radius: 0 carry-save adders over the 2r+1 shifted
 # copies, 1 doubling window sums; each the faster of the two on the H100
 # (chip_smoke.py phase 4 builds both and times them in turns)
 LTL_HSUM = {2: 0, 3: 1, 4: 1, 5: 1, 6: 1, 7: 1}
+
+
+@dataclass(frozen=True)
+class PerRule:
+    """A kernel that is built once per rule: its source, the macro that
+    names the generated rule header, the module whose ``rule_header(rule)``
+    emits that header (imported when a rule is built), the macros a rule
+    fixes, its C entry point with the count of its int
+    arguments between the two grid pointers and the stream, and the
+    argument types of its other C functions (a variant's library may lack
+    some)."""
+
+    source: Path
+    header_macro: str
+    codegen: str
+    defines: Callable  # rule -> {macro: value}
+    entry: str
+    int_args: int
+    helpers: tuple = ()
+
+
+PER_RULE = {
+    # gol_bit_step(in, out, H, NW, gens, periodic, stream)
+    "bit": PerRule(CSRC_DIR / "bitlife.cu", "BIT_RULE_HEADER",
+                   "mpi_tpu_torch.ops.bit_codegen",
+                   lambda rule: {}, "gol_bit_step", 4, (
+                       ("gol_bit_ctas_per_sm", [ctypes.c_int]),
+                       ("gol_bit_tile", [ctypes.c_int]
+                        + [ctypes.POINTER(ctypes.c_int)] * 2),
+                       ("gol_bit_set_masks", [ctypes.c_uint] * 2))),
+    # gol_ltl_step(in, out, H, NW, radius, gens, periodic, stream)
+    "ltl": PerRule(CSRC_DIR / "bitltl.cu", "LTL_RULE_HEADER",
+                   "mpi_tpu_torch.ops.ltl_codegen",
+                   lambda rule: {"LTL_RADIUS": rule.radius,
+                                 "LTL_HSUM": LTL_HSUM[rule.radius]},
+                   "gol_ltl_step", 5),
+}
 
 
 class BuildError(RuntimeError):
@@ -65,7 +108,8 @@ builds = 0
 
 def sources() -> list:
     """The sources of the common library."""
-    return sorted(p for p in CSRC_DIR.glob("*.cu") if p != LTL_SOURCE)
+    per_rule = {kernel.source for kernel in PER_RULE.values()}
+    return sorted(p for p in CSRC_DIR.glob("*.cu") if p not in per_rule)
 
 
 def find_nvcc() -> str:
@@ -143,40 +187,57 @@ def _nvcc(cmd: list) -> subprocess.Popen:
                             stderr=subprocess.PIPE, text=True)
 
 
-def _ltl_parts(rule, hsum: int):
-    """(library path, header name, header text) of ``rule``'s K3 build."""
-    from mpi_tpu_torch.ops.ltl_codegen import rule_header, rule_key
+Defines = Optional[Union[dict, Sequence[Optional[dict]]]]
 
-    header = rule_header(rule)
+
+def _rule_parts(kind: str, rule, defines: Optional[dict]):
+    """(library path, header name, header text, macros) of ``rule``'s
+    build of the per-rule kernel ``kind``; ``defines`` adds to or
+    replaces the macros the rule fixes."""
+    kernel = PER_RULE[kind]
+    macros = {**kernel.defines(rule), **(defines or {})}
+    header = importlib.import_module(kernel.codegen).rule_header(rule)
+    from mpi_tpu_torch.ops.gates import rule_key
+
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for part in (LTL_SOURCE.read_bytes(), rule_key(rule).encode(),
-                 f"hsum={hsum}".encode(), header.encode()):
+    for part in (kernel.source.read_bytes(), rule_key(rule).encode(),
+                 repr(sorted(macros.items())).encode(), header.encode()):
         h.update(part)
     digest = h.hexdigest()[:16]
-    return (BUILD_DIR / f"libmpi_tpu_torch_ltl_r{rule.radius}_{digest}.so",
-            f"ltl_rule_{digest}.cuh", header)
+    return (BUILD_DIR / f"libmpi_tpu_torch_{kind}_r{rule.radius}_{digest}.so",
+            f"{kind}_rule_{digest}.cuh", header, macros)
 
 
-def _hsum(rule, hsum: Optional[int]) -> int:
-    return LTL_HSUM[rule.radius] if hsum is None else hsum
+def _per_rule_defines(rules, defines: Defines) -> list:
+    if defines is None or isinstance(defines, dict):
+        return [defines] * len(rules)
+    if len(defines) != len(rules):
+        raise ValueError("one set of macros per rule, or one for all")
+    return list(defines)
 
 
-def ltl_library_path(rule, hsum: Optional[int] = None) -> Path:
-    """Where the K3 library of ``rule`` lives: equal for rules with equal
-    counts and radius, whatever their names."""
-    return _ltl_parts(rule, _hsum(rule, hsum))[0]
+def rule_library_path(kind: str, rule, defines: Optional[dict] = None) -> Path:
+    """Where the library of the per-rule kernel ``kind`` (``"bit"`` or
+    ``"ltl"``) for ``rule`` lives: equal for rules with equal counts and
+    radius, whatever their names."""
+    return _rule_parts(kind, rule, defines)[0]
 
 
-def build_ltl(rules, hsum: Optional[int] = None, jobs: int = 0) -> list:
-    """Build the K3 library of every rule in ``rules`` that is not built
-    yet, ``jobs`` nvcc processes at a time (default: one per CPU), and
-    return their paths in order.  ``hsum`` picks the horizontal sum
-    (default ``LTL_HSUM`` for each rule's radius)."""
-    parts = [_ltl_parts(rule, _hsum(rule, hsum)) for rule in rules]
+def build_rules(kind: str, rules, defines: Defines = None,
+                jobs: int = 0) -> list:
+    """Build the library of the per-rule kernel ``kind`` for every rule in
+    ``rules`` that is not built yet, ``jobs`` nvcc processes at a time
+    (default: one per CPU), and return their paths in order.  ``defines``
+    adds ``-D`` macros that pick a variant of the kernel (e.g.
+    ``{"LTL_HSUM": 0}``): one dict for every rule, or a list with one
+    entry per rule, so that several variants of one rule build together."""
+    kernel = PER_RULE[kind]
+    parts = [_rule_parts(kind, rule, d)
+             for rule, d in zip(rules, _per_rule_defines(rules, defines))]
     todo = {}
-    for rule, (lib, name, text) in zip(rules, parts):
+    for rule, (lib, name, text, macros) in zip(rules, parts):
         if not lib.exists():
-            todo[lib] = (rule, name, text)
+            todo[lib] = (rule, name, text, macros)
     if todo:
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -184,27 +245,27 @@ def build_ltl(rules, hsum: Optional[int] = None, jobs: int = 0) -> list:
         queue, running, failed = list(todo.items()), [], []
         while queue or running:
             while queue and len(running) < jobs:
-                lib, (rule, name, text) = queue.pop(0)
+                lib, (rule, name, text, macros) = queue.pop(0)
                 (BUILD_DIR / name).write_text(text)
                 tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-                cmd = [nvcc, *NVCC_FLAGS, f"-DLTL_RADIUS={rule.radius}",
-                       f"-DLTL_RULE_HEADER={name}",
-                       f"-DLTL_HSUM={_hsum(rule, hsum)}",
+                cmd = [nvcc, *NVCC_FLAGS, f"-D{kernel.header_macro}={name}",
+                       *(f"-D{k}={v}" for k, v in sorted(macros.items())),
                        f"-I{BUILD_DIR}", "-shared", "-o", str(tmp),
-                       str(LTL_SOURCE)]
+                       str(kernel.source)]
                 running.append((lib, tmp, rule, _nvcc(cmd)))
             lib, tmp, rule, proc = running.pop(0)
             stdout, stderr = proc.communicate()
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 failed.append(f"nvcc failed ({proc.returncode}) on "
-                              f"{LTL_SOURCE.name} for {rule}:\n{stderr}{stdout}")
+                              f"{kernel.source.name} for {rule}:\n"
+                              f"{stderr}{stdout}")
                 continue
             ptxas_log(lib).write_text(stdout + stderr)
             os.replace(tmp, lib)
         if failed:
             raise BuildError("\n".join(failed))
-    return [lib for lib, _, _ in parts]
+    return [lib for lib, *_ in parts]
 
 
 def kernel_resources(library: Path) -> list:
@@ -234,16 +295,14 @@ def kernel_resources(library: Path) -> list:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """The built library with its C signatures declared (pointers and the
-    stream as ``c_void_p``, so ctypes never truncates them to 32 bits)."""
+    """The built common library with its C signatures declared (pointers
+    and the stream as ``c_void_p``, so ctypes never truncates them to 32
+    bits)."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gol_bit_step.argtypes = [ptr, ptr, i32, i32, i32, i32, ctypes.c_uint,
-                                 ctypes.c_uint, ptr]
     lib.gol_dense_step.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
                                    ctypes.POINTER(ctypes.c_uint), ptr]
-    for fn in (lib.gol_bit_step, lib.gol_dense_step):
-        fn.restype = ctypes.c_int
+    lib.gol_dense_step.restype = ctypes.c_int
     return _error_string(lib)
 
 
@@ -253,19 +312,29 @@ def _error_string(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-_LTL_LIBS: dict = {}  # (canonical rule text, hsum) -> loaded library
+_RULE_LIBS: dict = {}  # (kind, canonical rule text, macros) -> library
 
 
-def load_ltl_library(rule, hsum: Optional[int] = None) -> ctypes.CDLL:
-    """The K3 library of ``rule``, built at first use and loaded once per
-    rule (rules with equal counts and radius share it)."""
-    from mpi_tpu_torch.ops.ltl_codegen import rule_key
+def load_rule_library(kind: str, rule,
+                      defines: Optional[dict] = None) -> ctypes.CDLL:
+    """The library of the per-rule kernel ``kind`` for ``rule``, built at
+    first use and loaded once per rule (rules with equal counts and radius
+    share it)."""
+    from mpi_tpu_torch.ops.gates import rule_key
 
-    key = (rule_key(rule), _hsum(rule, hsum))
-    if key not in _LTL_LIBS:
-        lib = ctypes.CDLL(str(build_ltl([rule], key[1])[0]))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.gol_ltl_step.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr]
-        lib.gol_ltl_step.restype = ctypes.c_int
-        _LTL_LIBS[key] = _error_string(lib)
-    return _LTL_LIBS[key]
+    key = (kind, rule_key(rule), tuple(sorted((defines or {}).items())))
+    if key not in _RULE_LIBS:
+        kernel = PER_RULE[kind]
+        lib = ctypes.CDLL(str(build_rules(kind, [rule], defines)[0]))
+        ptr = ctypes.c_void_p
+        entry = getattr(lib, kernel.entry)
+        entry.argtypes = [ptr, ptr] + [ctypes.c_int] * kernel.int_args + [ptr]
+        entry.restype = ctypes.c_int
+        for name, argtypes in kernel.helpers:
+            try:
+                helper = getattr(lib, name)
+            except AttributeError:  # this variant's library has none
+                continue
+            helper.argtypes, helper.restype = argtypes, ctypes.c_int
+        _RULE_LIBS[key] = _error_string(lib)
+    return _RULE_LIBS[key]

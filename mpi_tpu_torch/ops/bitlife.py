@@ -309,21 +309,34 @@ def low_bits(L0, c0, R0):
 
 class _Node:
     """A traced 32-bit value: an input, a gate over one or two nodes (a
-    constant operand adds no node), or a funnel shift of one node."""
+    constant operand adds no node), or a funnel shift of one node.  A gate
+    keeps its operator and its constant operand, so the function that one
+    LOP3 computes over a cut can be tabulated (:func:`lop3_table`)."""
 
-    def __init__(self, graph, kids=(), shift=False):
+    def __init__(self, graph, kids=(), shift=False, op=None, const=None):
         self.graph, self.kids, self.shift = graph, kids, shift
+        self.op, self.const = op, const
         self.id = len(graph)
         graph.append(self)
 
-    def _gate(self, other):
-        kids = (self,) if isinstance(other, int) else (self, other)
-        return _Node(self.graph, kids)
+    def _gate(self, op, other):
+        if isinstance(other, int):
+            return _Node(self.graph, (self,), op=op, const=other)
+        return _Node(self.graph, (self, other), op=op)
 
-    __and__ = __or__ = __xor__ = __rand__ = __ror__ = __rxor__ = _gate
+    def __and__(self, other):
+        return self._gate("&", other)
+
+    def __or__(self, other):
+        return self._gate("|", other)
+
+    def __xor__(self, other):
+        return self._gate("^", other)
+
+    __rand__, __ror__, __rxor__ = __and__, __or__, __xor__
 
     def __invert__(self):
-        return _Node(self.graph, (self,))
+        return _Node(self.graph, (self,), op="~")
 
 
 def _cuts(node, memo):
@@ -342,30 +355,68 @@ def _cuts(node, memo):
     return memo[node.id]
 
 
-def _cover(root) -> int:
-    """The fewest instructions that compute ``root``: each gate that is
-    kept is one LOP3 over one of its cuts, each shift one SHF.  Exact: the
-    nodes still owed are settled highest first, and only a higher node can
-    owe a lower one."""
+def cover_plan(root) -> list:
+    """The fewest instructions that compute ``root``, as ``(node, cut)``
+    pairs in an order that computes operands first: each gate that is kept
+    is one LOP3 over the nodes of its cut, each shift one SHF of its
+    operand.  Exact: the nodes still owed are settled highest first, and
+    only a higher node can owe a lower one."""
+    if not isinstance(root, _Node):
+        return []
     cut_memo, best = {}, {}
 
     def owed(nodes):
         return frozenset(n for n in nodes if n.kids)
 
-    def cost(todo):
+    def cost(todo):  # (instructions, the cut of the highest node owed)
         if not todo:
-            return 0
+            return 0, None
         if todo not in best:
             n = max(todo, key=lambda x: x.id)
             rest = todo - {n}
             if n.shift:
-                best[todo] = 1 + cost(rest | owed(n.kids))
+                cuts = [frozenset(n.kids)]
             else:
-                best[todo] = 1 + min(cost(rest | owed(c))
-                                     for c in _cuts(n, cut_memo) if n not in c)
+                # in a fixed order, so ties break the same way in every run
+                cuts = sorted((c for c in _cuts(n, cut_memo) if n not in c),
+                              key=lambda c: sorted(x.id for x in c))
+            best[todo] = min(((1 + cost(rest | owed(c))[0], c) for c in cuts),
+                             key=lambda t: t[0])
         return best[todo]
 
-    return cost(owed([root])) if isinstance(root, _Node) else 0
+    plan, todo = [], owed([root])
+    while todo:
+        n = max(todo, key=lambda x: x.id)
+        cut = cost(todo)[1]
+        plan.append((n, sorted(cut, key=lambda x: x.id)))
+        todo = (todo - {n}) | owed(cut)
+    return plan[::-1]
+
+
+def _cover(root) -> int:
+    """The fewest LOP3 and SHF instructions that compute ``root``
+    (:func:`cover_plan`)."""
+    return len(cover_plan(root))
+
+
+def lop3_table(node, cut) -> int:
+    """The 8-bit truth table of the gate ``node`` as a function of the (at
+    most three) nodes of ``cut``, in LOP3's convention: bit
+    ``4a + 2b + c`` is the output for operand bits a, b, c."""
+    value = dict(zip(cut, (0xF0, 0xCC, 0xAA)))
+
+    def table(n):
+        if n not in value:
+            x = table(n.kids[0])
+            if n.op == "~":
+                value[n] = ~x & 0xFF
+            else:
+                y = table(n.kids[1]) if len(n.kids) == 2 else n.const & 0xFF
+                value[n] = x & y if n.op == "&" else (
+                    x | y if n.op == "|" else x ^ y)
+        return value[n]
+
+    return table(node)
 
 
 def _map_cover(root, passes: int = 3) -> int:

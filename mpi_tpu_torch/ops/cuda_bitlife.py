@@ -3,7 +3,11 @@
 Replaces ``mpi_tpu.ops.pallas_bitlife.pallas_bit_step``: ``gens`` (1..16)
 generations of a radius-1 rule on a packed (H, W/32) grid in one read and
 one write of device memory.  The kernel is ``csrc/bitlife.cu`` (its header
-says what bounds it and how it is tiled); ``ops/_build.py`` builds it.
+says what bounds it and how it is tiled), built once per rule with the
+rule compiled in: ``ops/bit_codegen.py`` emits the rule as straight-line
+LOP3s, ``ops/_build.py:load_rule_library`` builds and loads the rule's
+library at first use (``Engine.warm_up`` on the engine's path), and rules
+with equal birth and survive sets share one.
 
 :func:`cuda_bit_step` launches the kernel for a CUDA tensor.  For a tensor
 on the CPU it runs :func:`bit_step_plain`, the plain PyTorch version, and
@@ -88,22 +92,26 @@ def cuda_bit_step(packed: torch.Tensor, rule: Rule = LIFE,
         res = bit_step_plain(packed, rule, boundary, gens)
         return res if out is None else out.copy_(res)
     check_cuda(packed, "K1")
-    from mpi_tpu_torch.ops._build import load_library
+    from mpi_tpu_torch.ops._build import load_rule_library
 
-    lib = load_library()
     if out is None:
         out = torch.empty_like(packed)
+    launch(load_rule_library("bit", rule), packed, out, boundary, gens)
+    cuda_bit_step.launches += 1
+    return out
+
+
+def launch(lib, packed: torch.Tensor, out: torch.Tensor, boundary: str,
+           gens: int) -> None:
+    """One pass of the K1 library ``lib`` (built for the rule) on the
+    current stream; raises on a CUDA error.  Checks nothing else: callers
+    are :func:`cuda_bit_step` and timing scripts that compare builds."""
     H, NW = packed.shape
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
-        err = lib.gol_bit_step(
-            packed.data_ptr(), out.data_ptr(), H, NW, gens,
-            int(boundary == "periodic"), rule.birth_mask, rule.survive_mask,
-            stream,
-        )
+        err = lib.gol_bit_step(packed.data_ptr(), out.data_ptr(), H, NW, gens,
+                               int(boundary == "periodic"), stream)
     raise_on_error(lib, err, "K1")
-    cuda_bit_step.launches += 1
-    return out
 
 
 cuda_bit_step.launches = 0

@@ -6,7 +6,7 @@ Replaces ``mpi_tpu.ops.pallas_bitltl.pallas_ltl_step``: ``gens``
 grid in one read and one write of device memory.  The kernel is
 ``csrc/bitltl.cu`` (its header says what bounds it and how it is tiled),
 built once per rule with the rule compiled in (``ops/ltl_codegen.py``
-emits it, ``ops/_build.py:load_ltl_library`` builds and loads it at first
+emits it, ``ops/_build.py:load_rule_library`` builds and loads it at first
 use).  Unlike the TPU kernel it takes any H >= 1 and any whole number of
 words per row.
 
@@ -99,11 +99,11 @@ def cuda_ltl_step(packed: torch.Tensor, rule: Rule,
         res = ltl_step_plain(packed, rule, boundary, gens)
         return res if out is None else out.copy_(res)
     check_cuda(packed, "K3")
-    from mpi_tpu_torch.ops._build import load_ltl_library
+    from mpi_tpu_torch.ops._build import load_rule_library
 
     if out is None:
         out = torch.empty_like(packed)
-    launch(load_ltl_library(rule), packed, out, rule, boundary, gens)
+    launch(load_rule_library("ltl", rule), packed, out, rule, boundary, gens)
     cuda_ltl_step.launches += 1
     return out
 

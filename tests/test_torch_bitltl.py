@@ -166,7 +166,7 @@ def test_compiled_rule_tests_survival_shifted_by_one():
     prog = rule_program(rule)
     tot = np.arange(26, dtype=np.uint32)
     planes = [np.where((tot >> k) & 1, np.uint32(0xFFFFFFFF), np.uint32(0))
-              .astype(np.uint32) for k in range(prog.nplanes)]
+              .astype(np.uint32) for k in range(len(prog.inputs) - 1)]
     born = evaluate(prog, planes, np.zeros_like(tot))
     stay = evaluate(prog, planes, np.full_like(tot, 0xFFFFFFFF))
     assert np.flatnonzero(born).tolist() == [3, 4, 9]

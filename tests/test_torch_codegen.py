@@ -148,15 +148,18 @@ def test_printed_rule_compiles_and_agrees(tmp_path, seed):
 
 def test_per_rule_library_path_follows_the_rule_not_its_name():
     same = Rule("other-name", BOSCO.birth, BOSCO.survive, 5)
-    assert _build.ltl_library_path(same) == _build.ltl_library_path(BOSCO)
-    assert _build.ltl_library_path(BOSCO).name.startswith(
-        "libmpi_tpu_torch_ltl_r5_")
-    paths = {_build.ltl_library_path(r) for r in RULES}
+    path = _build.rule_library_path
+    assert path("ltl", same) == path("ltl", BOSCO)
+    assert path("ltl", BOSCO).name.startswith("libmpi_tpu_torch_ltl_r5_")
+    paths = {path("ltl", r) for r in RULES}
     assert len(paths) == len({cg.rule_key(r) for r in RULES})
-    assert _build.ltl_library_path(BOSCO, hsum=1) != \
-        _build.ltl_library_path(BOSCO, hsum=0)
-    assert _build.ltl_library_path(BOSCO).parent == _build.BUILD_DIR
-    assert [p.name for p in _build.sources()] == ["bitlife.cu", "stencil.cu"]
+    assert path("ltl", BOSCO, {"LTL_HSUM": 1}) != \
+        path("ltl", BOSCO, {"LTL_HSUM": 0})
+    # the radius's own choice of horizontal sum is the default
+    assert path("ltl", BOSCO) == \
+        path("ltl", BOSCO, {"LTL_HSUM": _build.LTL_HSUM[5]})
+    assert path("ltl", BOSCO).parent == _build.BUILD_DIR
+    assert [p.name for p in _build.sources()] == ["errors.cu", "stencil.cu"]
 
 
 def test_per_rule_build_raises_naming_nvcc_when_absent(monkeypatch, tmp_path):
@@ -164,9 +167,9 @@ def test_per_rule_build_raises_naming_nvcc_when_absent(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(_build.BuildError, match="nvcc"):
-        _build.build_ltl([BOSCO])
+        _build.build_rules("ltl", [BOSCO])
     with pytest.raises(_build.BuildError, match="nvcc"):
-        _build.load_ltl_library(rule_from_name("R3,B20-25,S18-30"))
+        _build.load_rule_library("ltl", rule_from_name("R3,B20-25,S18-30"))
 
 
 _FAKE_NVCC = """#!/bin/sh
@@ -201,14 +204,14 @@ def test_per_rule_build_runs_in_parallel_and_reports_failures(
              rule_from_name("R3,B20-25,S18-30")]
     before = _build.builds
     with pytest.raises(_build.BuildError, match="R3|broken radius"):
-        _build.build_ltl(rules, jobs=2)
+        _build.build_rules("ltl", rules, jobs=2)
     assert _build.builds - before == 3
     built = sorted(p.name for p in (tmp_path / "build").glob("*.so"))
     assert len(built) == 2  # the two rules that compiled are kept
     monkeypatch.setenv("FAIL_ON", "")
-    libs = _build.build_ltl(rules + [BOSCO], jobs=2)
+    libs = _build.build_rules("ltl", rules + [BOSCO], jobs=2)
     assert _build.builds - before == 4  # only the failed rule again
-    assert libs[0] == libs[3] == _build.ltl_library_path(BOSCO)
+    assert libs[0] == libs[3] == _build.rule_library_path("ltl", BOSCO)
     radius, header, src = libs[2].read_text().split()
     assert (radius, src) == ("3", "bitltl.cu")
     assert (tmp_path / "build" / header).read_text() == \

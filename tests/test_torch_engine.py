@@ -165,8 +165,10 @@ def test_build_raises_naming_nvcc_when_absent(monkeypatch, tmp_path):
     with pytest.raises(_build.BuildError, match="nvcc"):
         _build.build()
     assert _build.library_path().name.startswith("libmpi_tpu_torch_")
-    assert [p.name for p in _build.sources()] == ["bitlife.cu", "stencil.cu"]
-    assert _build.LTL_SOURCE.name == "bitltl.cu"  # built once per rule
+    # K1 and K3 are built once per rule, not into the common library
+    assert [p.name for p in _build.sources()] == ["errors.cu", "stencil.cu"]
+    assert {k: v.source.name for k, v in _build.PER_RULE.items()} == {
+        "bit": "bitlife.cu", "ltl": "bitltl.cu"}
 
 
 _FAKE_NVCC = """#!/bin/sh
@@ -204,7 +206,7 @@ def test_build_compiles_each_source_and_keeps_the_ptxas_report(
     assert _build.kernel_resources(lib) == [
         {"kernel": f"{name}_kernel<5>", "stack_bytes": 16, "spill_stores": 8,
          "spill_loads": 4, "registers": 40}
-        for name in ("bitlife", "stencil")]
+        for name in ("errors", "stencil")]
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
         [lib.name, _build.ptxas_log(lib).name])
     other = _build.build(tmp_path / "other" / "lib.so")  # an explicit path

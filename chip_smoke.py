@@ -26,29 +26,47 @@ Phases; any failure exits non-zero before the result line:
    neighbourhood too, a birth-on-0 rule, random rules), and at 16384²
    (Bosco, gens 1 and 3); K3 over radii 2..7 x gens 1..⌊8/r⌋ x boundaries
    x ragged shapes (one word per row, small H, random rules), and at 65536²
-   (Bosco gens 1, R2 gens 4), its distinct rules built first, together;
+   (Bosco gens 1, R2 gens 4), its distinct rules built first, together.
+   The modes this slice added: K1 and K3 with ``col_limit`` (pads of 1, 24
+   and 31 bits at 1, 2, 31 or 127-130 words a row, a ghost word over the
+   pad, every depth, both boundaries, and 65000² at the padded paths'
+   depths), K1-K3 on a board axis (1, 2, 7 and 32 boards, ragged rows and
+   words, rows that do and do not move in 16-byte pieces, padded boards;
+   each batch one launch), and K2 stepping the seam band, whose middle
+   columns must equal ``evolve_band``'s;
 3. the main paths, each kernel's launch counter reset just before and
    required above 0 just after, each whole final grid equal to the plain
    version's from the same init: ``run_cuda`` at 65536² for Life (comm_every
    8, K1), for Bosco (comm_every 1, K3) and for R2,B10-13,S8-12 (comm_every
-   4, K3), and at 16384² for Bosco (comm_every 3, K2), each ~250-280 ms of
-   stepping, so that a stray delay of 2 ms on the machine stays under 1% of
-   the window.  Then the CLI at 512²
-   (Life at comm_every 4 and Bosco, both boundaries) and at 500x500 (Life
-   and Bosco, on K2), whose ``.gol`` files must equal the serial oracle's
-   byte for byte;
+   4, K3), at 16384² for Bosco (comm_every 3, K2), at 65000² (a width of
+   2031.25 words) for Life (periodic, comm_every 8: K1 with ``col_limit``
+   and the seam band) and Bosco (dead, comm_every 1: K3 with
+   ``col_limit``), and ``step_batched`` on 32 boards of 4096² (Life,
+   comm_every 8, one K1 launch a pass, then depth-1 ``step_batched_units``),
+   each ~250-280 ms of stepping, so that a stray delay of 2 ms on the
+   machine stays under 1% of the window.  Then the CLI at 512² (Life at
+   comm_every 4 and Bosco, both boundaries) and at 500x500 (Life at
+   comm_every 3 and Bosco at 1 on the padded K1 and K3, with the seam band
+   when periodic; Bosco at 2 on K2), whose ``.gol`` files must equal the
+   serial oracle's byte for byte;
 4. times (CUDA events after warm-up) of each kernel at its main paths'
    depths, with cell-updates/s, the plain version's time, the card's bound,
    and a library call where one exists (for K2, ``conv2d`` of the padded
    grid in float16: the counts only); K1's kept design against its
    variants (the rule from run-time masks, which the kernel evaluated
    before the rule was compiled in; words per lane; ghost words; rows per
-   CTA; the tile load) at gens 8, 4, 2 and 1, in turns, each variant's output
-   equal to the kept one's; and K3's two horizontal sums (carry-save
-   adders, doubling) at every radius, in turns;
+   CTA; the tile load; the kernel without the padded-grid code) at gens 8,
+   4, 2 and 1, in turns, each variant's output equal to the kept one's;
+   K3's two horizontal sums (carry-save adders, doubling) at every radius,
+   in turns; the padded paths' passes (K1 or K3 with ``col_limit``, the
+   whole seam pass with the band on K2 and on ``evolve_band``, the band
+   alone, and the same grids forced onto K2), in turns; and a pass over a
+   batch in one launch against its boards in one launch each (K1, K3,
+   K2), in turns, in ms per board-generation;
 5. a ``torch.profiler`` trace of each main path's steady stepping: kernel
-   time by name, the device's idle share of the wall time, and no kernel
-   build inside it.
+   time by name, launches equal to the trace's kernels of the path's
+   kernel, the other kernels' time (the seam band), the device's idle
+   share of the wall time, and no kernel build inside it.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -76,7 +94,7 @@ import torch  # noqa: E402
 
 from mpi_tpu_torch.backends import cuda as backend  # noqa: E402
 from mpi_tpu_torch.cli import main as cli_main  # noqa: E402
-from mpi_tpu_torch.config import GolConfig  # noqa: E402
+from mpi_tpu_torch.config import WORD, GolConfig  # noqa: E402
 from mpi_tpu_torch.interop import grid_from_numpy  # noqa: E402
 from mpi_tpu_torch.models.rules import (  # noqa: E402
     BOSCO, DAY_AND_NIGHT, HIGHLIFE, LIFE, SEEDS, Rule, rule_from_name,
@@ -105,7 +123,9 @@ from mpi_tpu_torch.ops.cuda_stencil import (  # noqa: E402
 from mpi_tpu_torch.ops.stencil import (  # noqa: E402
     counts_from_padded, pad_grid,
 )
+from mpi_tpu_torch.parallel import seam  # noqa: E402
 from mpi_tpu_torch.utils.hashinit import init_dense  # noqa: E402
+from mpi_tpu_torch.utils.segmenting import segmented_evolve  # noqa: E402
 from mpi_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of
@@ -126,6 +146,8 @@ K2_CELL_OPS = 6 / 4
 
 SEED = 1
 FLAGSHIP = 65536         # K1 and K3 main paths: 512 MiB packed
+PADDED = 65000           # the padded paths: 2032 words a row, 24 bits pad
+PADDED_WORDS = -(-PADDED // 32)
 MAIN_GENS = 8            # K1's main path: comm_every 8
 MAIN_STEPS = 1500        # 187 passes of 8 and a remainder pass of 4
 MAIN_DEPTHS = (1, MAIN_STEPS % MAIN_GENS, MAIN_GENS)  # warm-up, remainder, K
@@ -134,6 +156,17 @@ R2 = rule_from_name("R2,B10-13,S8-12")
 LTL_PATHS = (("bosco", BOSCO, 1, 200), ("r2", R2, 4, 450))
 DENSE = 16384            # K2's main path: 256 MiB of cells
 DENSE_PATH = ("bosco", BOSCO, 3, 1201)
+# (label, kernel, engine, rule, comm_every, steps, boundary) at PADDED²:
+# K1 with the seam band, K3 padded on a dead grid
+PADDED_PATHS = (("padded_life", "K1", "bit", LIFE, 8, 1500, "periodic"),
+                ("padded_bosco", "K3", "ltl", BOSCO, 1, 200, "dead"))
+# (rows, steps) of a strip of the padded Life path at its full width, held
+# against the plain dense step on the real width (no seam code): 12 passes
+# of 8 and one of 4, as the path's last
+SEAM_STRIP = (1024, 100)
+# (label, boards, size, rule, comm_every, steps, depth-1 units after):
+# 2 MiB a board, 64 MiB a batch buffer, above the H100's 50 MB of L2
+BATCH_PATH = ("batched_life", 32, 4096, LIFE, 8, 6000, 100)
 
 # each kernel's wrapper, whose ``launches`` the main paths read
 KERNELS = {kid: wrapper for kid, wrapper, _ in backend.KERNELS.values()}
@@ -210,11 +243,12 @@ def phase1_build() -> None:
           "k3_parallel_build_seconds": ltl_seconds,
           "k3_hsum": _build.LTL_HSUM,
           "k3_ptxas": ltl_resources})
-    # K2 at r 1..7 in the common library, one kernel in each library of K1
-    # (one per rule) and of K3 (r 2..7)
+    # K2 at r 1..7 in the common library (for full grids and for grids
+    # narrower than a tile), one kernel in each library of K1 (one per rule)
+    # and of K3 (r 2..7)
     per_rule = list(k1_resources.values()) + list(ltl_resources.values())
-    if len(resources) != 7 or any(len(v) != 1 for v in per_rule):
-        fail(f"expected 7 kernels in the common library and one in each "
+    if len(resources) != 14 or any(len(v) != 1 for v in per_rule):
+        fail(f"expected 14 kernels in the common library and one in each "
              f"per-rule library, got {resources}, {k1_resources} and "
              f"{ltl_resources}")
     spilled = _spills(resources + sum(per_rule, []))
@@ -362,16 +396,17 @@ def _sass_loops(library: str, k1_library: str, k1_words_per_lane: int,
 
 # -- phase 2: each kernel against its plain version -------------------------
 
-def _compare(kernel, plain, x, rule, boundary, gens) -> int:
+def _compare(kernel, plain, x, rule, boundary, gens, **kw) -> int:
     """The largest |kernel - plain| over the cells, which are 0 or 1: 0
-    when ``torch.equal`` holds, else 1 (and the case is named)."""
-    got = kernel(x, rule, boundary, gens)
-    want = plain(x, rule, boundary, gens)
+    when ``torch.equal`` holds, else 1 (and the case is named).  ``kw``:
+    ``col_limit`` for K1 and K3."""
+    got = kernel(x, rule, boundary, gens, **kw)
+    want = plain(x, rule, boundary, gens, **kw)
     if torch.equal(got, want):
         return 0
     bad = int((got != want).sum().item())
     print(f"chip_smoke: {kernel.__name__} != plain: {tuple(x.shape)} "
-          f"{rule.name} r={rule.radius} {boundary} gens={gens}: {bad} "
+          f"{rule.name} r={rule.radius} {boundary} gens={gens} {kw}: {bad} "
           f"elements differ", file=sys.stderr, flush=True)
     return 1
 
@@ -466,7 +501,82 @@ def _k1_exact(rng) -> tuple:
             err = max(err, _compare(cuda_bit_step, bit_step_plain, x, LIFE,
                                     boundary, gens))
             n += 1
-    return n, err
+    del x
+    padded = _padded_exact(rng, cuda_bit_step, bit_step_plain,
+                           _k1_pad_cases())
+    batched = _batched_exact(rng, "K1", cuda_bit_step, bit_step_plain,
+                             _k1_batch_cases())
+    return n, err, {"padded": padded, "batched": batched}
+
+
+PAD_BITS = (1, 24, 31)   # pad bits of the last word of a padded row
+BATCH = (1, 2, 7, 32)    # boards in one launch
+
+
+def _k1_pad_cases() -> list:
+    """K1 with ``col_limit``: (rows, words, rule, boundary, gens,
+    col_limit).  Pads of 1, 24 and 31 bits at 1, 2 and 127-130 words a row
+    (at 127 the first CTA's right ghost word is the padded word; on a
+    periodic grid every CTA's left ghost of word 0 is), every depth at 1,
+    127 and 129 words, and the padded flagship (65000 cells, 2032 words) at
+    the main path's depths."""
+    rules = (LIFE, SEEDS, DAY_AND_NIGHT, HIGHLIFE)
+    cases = []
+    for i, nw in enumerate((1, 2, 127, 128, 129, 130)):
+        depths = range(1, 17) if nw in (1, 127, 129) else (1, 2, 8, 16)
+        for pad in PAD_BITS:
+            for boundary in ("periodic", "dead"):
+                for gens in depths:
+                    rule = rules[(i + gens) % len(rules)]
+                    if gens > 1 and 0 in rule.birth:
+                        rule = LIFE
+                    cases.append((130, nw, rule, boundary, gens,
+                                  WORD * nw - pad))
+    for gens in MAIN_DEPTHS:
+        for boundary in ("periodic", "dead"):
+            cases.append((PADDED, PADDED_WORDS, LIFE, boundary, gens, PADDED))
+    return cases
+
+
+def _k1_batch_cases() -> list:
+    """K1 on a board axis: (B, rows, words, rule, boundary, gens,
+    col_limit).  Rows a multiple of 4 words move in 16-byte pieces (every
+    board's base stays aligned), others word by word; ragged rows and
+    words, one word a row, padded boards."""
+    cases = []
+    for B in BATCH:
+        for rows, nw in ((70, 128), (129, 131), (33, 4), (5, 1)):
+            for boundary in ("periodic", "dead"):
+                for gens in (1, 3, 8):
+                    cases.append((B, rows, nw, LIFE, boundary, gens, None))
+                cases.append((B, rows, nw, HIGHLIFE, boundary, 5,
+                              WORD * nw - 24))
+    return cases
+
+
+def _padded_exact(rng, kernel, plain, cases) -> dict:
+    err = 0
+    for rows, nw, rule, boundary, gens, col_limit in cases:
+        x = _words(rng, (rows, nw))
+        err = max(err, _compare(kernel, plain, x, rule, boundary, gens,
+                                col_limit=col_limit))
+    torch.cuda.empty_cache()
+    return {"cases": len(cases), "max_abs_err": err}
+
+
+def _batched_exact(rng, kid, kernel, plain, cases) -> dict:
+    """Each batch against the plain version; one launch for the batch."""
+    err = 0
+    for B, rows, n, rule, boundary, gens, col_limit in cases:
+        x = (_words(rng, (B, rows, n)) if kernel is not cuda_dense_step
+             else _cells(rng, (B, rows, n)))
+        kw = {} if col_limit is None else {"col_limit": col_limit}
+        before = kernel.launches
+        err = max(err, _compare(kernel, plain, x, rule, boundary, gens, **kw))
+        if kernel.launches != before + 1:
+            fail(f"{kid} took {kernel.launches - before} launches for a "
+                 f"batch of {B}")
+    return {"cases": len(cases), "max_abs_err": err}
 
 
 DENSE_RULES = {1: LIFE, 2: R2, 3: rule_from_name("R3,B20-25,S18-30"),
@@ -509,7 +619,41 @@ def _k2_exact(rng) -> tuple:
             err = max(err, _compare(cuda_dense_step, dense_step_plain, x,
                                     BOSCO, boundary, gens))
             cases += 1
-    return cases, err
+    del x
+    batch = [(B, rows, cols, rule, boundary, gens, None)
+             for B in BATCH
+             for rows, cols in ((70, 333), (129, 256), (3, 2))
+             for boundary in ("periodic", "dead")
+             for rule, gens in ((LIFE, 1), (LIFE, 8), (BOSCO, 1), (BOSCO, 3))]
+    batched = _batched_exact(rng, "K2", cuda_dense_step, dense_step_plain,
+                             batch)
+    return cases, err, {"batched": batched, "seam_band": _band_exact(rng)}
+
+
+def _band_exact(rng) -> dict:
+    """K2 stepping a seam band (periodic strip of 4d columns, d = k r)
+    against ``evolve_band``: their middle 2d columns, one board and three,
+    at every pass depth of K1 and K3 the seam serves, and at the full
+    height of the padded Life path's passes (its depth and its last)."""
+    rules = ([(LIFE, k) for k in range(1, 17)]
+             + [(rule, k) for r, rule in LTL_RULES.items()
+                for k in range(1, max_gens(r) + 1)])
+    cases = [(rule, k, (130, 4 * k * rule.radius)) for rule, k in rules]
+    cases += [(rule, k, (3, 130, 4 * k * rule.radius)) for rule, k in rules]
+    _, _, _, rule, k, steps, _ = PADDED_PATHS[0]
+    cases += [(rule, g, (PADDED, 4 * g * rule.radius))
+              for g in sorted({k, steps % k} - {0})]
+    err = 0
+    for rule, k, shape in cases:
+        d = k * rule.radius
+        band = _cells(rng, shape)
+        got = seam.step_band(band, rule, k)[..., d:3 * d]
+        want = seam.evolve_band(band, rule, k)[..., d:3 * d]
+        if not torch.equal(got, want):
+            err = 1
+            print(f"chip_smoke: K2 band != evolve_band: {shape} "
+                  f"{rule.name} k={k}", file=sys.stderr, flush=True)
+    return {"cases": len(cases), "max_abs_err": err}
 
 
 LTL_RULES = {2: R2, 3: DENSE_RULES[3], 4: rule_from_name("R4,B30-40,S25-50"),
@@ -550,7 +694,25 @@ def _k3_exact(rng) -> tuple:
     for x, rule, boundary, gens in cases:
         err = max(err, _compare(cuda_ltl_step, ltl_step_plain, x, rule,
                                 boundary, gens))
-    return len(cases), err, extra
+    n = len(cases)
+    del x, cases
+    pad = [(70, nw, rule, boundary, gens, WORD * nw - p)
+           for nw in (1, 2, 31, 127, 130) for p in PAD_BITS
+           for r, rule in LTL_RULES.items()
+           for boundary in ("periodic", "dead")
+           for gens in range(1, max_gens(r) + 1)]
+    pad += [(PADDED, PADDED_WORDS, BOSCO, boundary, 1, PADDED)
+            for boundary in ("periodic", "dead")]
+    extra["padded"] = _padded_exact(rng, cuda_ltl_step, ltl_step_plain, pad)
+    batch = [(B, rows, nw, rule, boundary, gens, col_limit)
+             for B in BATCH
+             for rows, nw in ((70, 31), (129, 33), (5, 1))
+             for boundary in ("periodic", "dead")
+             for rule, gens in ((R2, 1), (R2, 4), (BOSCO, 1))
+             for col_limit in (None, WORD * nw - 24)]
+    extra["batched"] = _batched_exact(rng, "K3", cuda_ltl_step,
+                                      ltl_step_plain, batch)
+    return n, err, extra
 
 
 def phase2_exact() -> dict:
@@ -559,13 +721,15 @@ def phase2_exact() -> dict:
     for kid, check in (("K1", _k1_exact), ("K2", _k2_exact),
                        ("K3", _k3_exact)):
         t0 = time.perf_counter()
-        cases, err, *extra = check(rng)
+        cases, err, extra = check(rng)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         emit({"phase": "kernel_vs_plain", "kernel": kid, "cases": cases,
               "max_abs_err": err, "seconds": time.perf_counter() - t0,
-              **(extra[0] if extra else {})})
-        errs[kid] = err
+              **extra})
+        # the new modes' cases count in the kernel's error
+        errs[kid] = max([err] + [v["max_abs_err"] for v in extra.values()
+                                 if isinstance(v, dict)])
     if any(errs.values()):
         fail(f"a kernel disagrees with its plain version (tolerance: exact): "
              f"{errs}")
@@ -574,37 +738,60 @@ def phase2_exact() -> dict:
 
 # -- phase 3: the main paths -------------------------------------------------
 
-def _plain_final(kind, rows, cols, rule, steps):
+def _plain_final(kind, rows, cols, rule, steps, boundary="periodic",
+                 comm_every=1):
     """The plain version's grid after ``steps`` generations from the same
-    hash init, on the card (periodic)."""
+    hash init, on the card: the kernel's plain version generation by
+    generation, at the padded width with the pad zeroed after each one
+    and, on a periodic padded grid, the seam band stepped by
+    ``evolve_band`` and stitched after each pass of ``comm_every``."""
     if kind == "dense":
         g = init_dense(rows, cols, SEED, device="cuda")
         for _ in range(steps):
-            g = dense_step_plain(g, rule, "periodic")
+            g = dense_step_plain(g, rule, boundary)
         return g
-    g = init_packed(rows, cols, SEED, device="cuda")
-    plain = bit_step if kind == "bit" else ltl_step
-    for _ in range(steps):
-        g = plain(g, rule, "periodic")
-    return g
+    cols_eff = -(-cols // WORD) * WORD
+    col_limit = cols if cols_eff != cols else None
+    g = init_packed(rows, cols_eff, SEED, col_limit=col_limit, device="cuda")
+    plain = bit_step_plain if kind == "bit" else ltl_step_plain
+
+    def one_pass(src, k, dst):
+        for _ in range(k):
+            src = plain(src, rule, boundary, 1, col_limit=col_limit)
+        return src
+
+    if col_limit and boundary == "periodic":
+        evolve = seam.make_seam_stepper(one_pass, rule, cols, comm_every,
+                                        band=seam.evolve_band)
+    else:
+        evolve = segmented_evolve(one_pass, comm_every)
+    return evolve(g, steps, None)[0]
 
 
 def _blocks_differ(final: np.ndarray, g: torch.Tensor, packed: bool) -> int:
     """Blocks of 2048 rows where the host grid ``final`` differs from the
-    device grid ``g`` (packed again on the card when ``g`` is packed)."""
+    device grid ``g`` (packed again on the card, at ``g``'s padded width,
+    when ``g`` is packed)."""
     block, differ = 2048, 0
+    pad = g.shape[-1] * WORD - final.shape[-1] if packed else 0
     for r0 in range(0, final.shape[0], block):
         cells = torch.from_numpy(final[r0:r0 + block]).cuda()
-        differ += not torch.equal(pack(cells) if packed else cells,
-                                  g[r0:r0 + block])
+        if packed:
+            cells = pack(torch.nn.functional.pad(cells, (0, pad)))
+        differ += not torch.equal(cells, g[..., r0:r0 + block, :])
     return differ
 
 
-def _drive(label, kid, kind, size, rule, comm_every, steps) -> int:
-    """``run_cuda`` on one main path with the kernel's launch counter reset
+def _drive(label, kid, kind, shape, rule, comm_every, steps,
+           boundary="periodic") -> int:
+    """``run_cuda`` on one main path with the kernels' launch counters reset
     just before; its whole final grid must equal the plain version's."""
-    cfg = GolConfig(rows=size, cols=size, steps=steps, seed=SEED, rule=rule,
-                    comm_every=comm_every)
+    rows, cols = shape
+    cfg = GolConfig(rows=rows, cols=cols, steps=steps, seed=SEED, rule=rule,
+                    comm_every=comm_every, boundary=boundary)
+    plan = backend.plan_engine(cfg)
+    if plan[0] != kind:
+        fail(f"the {label} path routes to {plan[0]}, not {kind}")
     timer = PhaseTimer()
     for k in KERNELS.values():
         k.launches = 0
@@ -612,10 +799,10 @@ def _drive(label, kid, kind, size, rule, comm_every, steps) -> int:
     launches = {k: w.launches for k, w in KERNELS.items()}
     if launches[kid] == 0:
         fail(f"the {label} main path launched {kid} no time: {launches}")
-    if final.shape != (size, size) or final.dtype != np.uint8:
+    if final.shape != (rows, cols) or final.dtype != np.uint8:
         fail(f"run_cuda returned {final.shape} {final.dtype}")
     pop = int(final.sum(dtype=np.int64))
-    g = _plain_final(kind, size, size, rule, steps)
+    g = _plain_final(kind, rows, cols, rule, steps, boundary, comm_every)
     plain_pop = (int(g.sum(dtype=torch.int64).item()) if kind == "dense"
                  else population(g))
     differ = _blocks_differ(final, g, kind != "dense")
@@ -625,20 +812,113 @@ def _drive(label, kid, kind, size, rule, comm_every, steps) -> int:
         fail(f"{label} main path population {pop} vs plain {plain_pop}; "
              f"{differ} blocks of 2048 rows differ from the plain grid")
     emit({"phase": "main_path", "path": label, "kernel": kid,
-          "grid": [size, size], "rule": str(rule), "steps": steps,
+          "grid": [rows, cols], "cols_eff": plan[1], "pad_bits": plan[2],
+          "seam": plan[2] > 0 and boundary == "periodic",
+          "boundary": boundary, "rule": str(rule), "steps": steps,
           "comm_every": comm_every, "launches": launches,
           "grid_equal_to_plain": True, "population": pop,
           "plain_population": plain_pop,
           "setup_s": timer.setup_us / 1e6, "steady_s": timer.nosetup_us / 1e6,
-          "cell_updates_per_s": timer.cells_per_sec(size, size, steps)})
+          "cell_updates_per_s": timer.cells_per_sec(rows, cols, steps)})
     return launches[kid]
+
+
+def _drive_strip() -> None:
+    """``run_cuda`` on ``SEAM_STRIP``: the padded periodic Life path's
+    route (K1 with ``col_limit``, the seam band on K2) at its full width
+    and fewer rows, against ``dense_step_plain`` generation by generation
+    on the real width, a plain version that uses none of the pad or seam
+    code that ``_plain_final`` shares with the engine."""
+    rows, steps = SEAM_STRIP
+    label, _, kind, rule, k, _, boundary = PADDED_PATHS[0]
+    cfg = GolConfig(rows=rows, cols=PADDED, steps=steps, seed=SEED,
+                    rule=rule, comm_every=k, boundary=boundary)
+    plan = backend.plan_engine(cfg)
+    if plan[0] != kind or not plan[2]:
+        fail(f"the {label} strip routes to {plan}, not padded {kind}")
+    for w in KERNELS.values():
+        w.launches = 0
+    final = backend.run_cuda(cfg)
+    launches = {kid: w.launches for kid, w in KERNELS.items()}
+    if not (launches["K1"] and launches["K2"]):
+        fail(f"the {label} strip launched {launches}: K1 and the band's K2 "
+             f"expected")
+    g = init_dense(rows, PADDED, SEED, device="cuda")
+    for _ in range(steps):
+        g = dense_step_plain(g, rule, boundary)
+    equal = torch.equal(torch.from_numpy(final).cuda(), g)
+    del g
+    torch.cuda.empty_cache()
+    if not equal:
+        fail(f"the {label} strip ({rows} x {PADDED}, {steps} gens) differs "
+             f"from dense_step_plain's")
+    emit({"phase": "seam_strip", "path": label, "grid": [rows, PADDED],
+          "cols_eff": plan[1], "pad_bits": plan[2], "rule": str(rule),
+          "steps": steps, "comm_every": k, "launches": launches,
+          "equal_to_dense_step_plain": True})
+
+
+def _drive_batched() -> int:
+    """The batched path: ``BATCH_PATH``'s boards stepped by
+    ``step_batched`` (passes of comm_every), then a ``step_batched_units``
+    stretch at depth 1, K1's launch counter reset just before; one launch
+    per pass for the whole batch, and every board equal to the plain
+    version's."""
+    label, B, size, rule, k, steps, units = BATCH_PATH
+    cfg = GolConfig(rows=size, cols=size, steps=0, seed=SEED, rule=rule,
+                    comm_every=k)
+    engine = backend.build_engine(cfg)
+    seeds = [SEED + b for b in range(B)]
+    grids = engine.init_grids(seeds=seeds)
+    engine.warm_up(boards=B)
+    engine.sync()
+    for w in KERNELS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    grids = engine.step_batched(grids, steps)
+    engine.sync()
+    t1 = time.perf_counter()
+    grids = engine.step_batched_units(grids, units)
+    engine.sync()
+    t2 = time.perf_counter()
+    launches = {kid: w.launches for kid, w in KERNELS.items()}
+    passes = -(-steps // k) + units
+    if launches != {"K1": passes, "K2": 0, "K3": 0}:
+        fail(f"the batched path launched {launches}, expected {passes} K1 "
+             f"launches (one a pass for {B} boards)")
+    pops = engine.population_batched(grids)
+    want = torch.stack([init_packed(size, size, s, device="cuda")
+                        for s in seeds])
+    for _ in range(steps + units):
+        want = bit_step_plain(want, rule, "periodic", 1)
+    want_pops = [population(w) for w in want]
+    if not torch.equal(grids, want) or pops != want_pops:
+        fail(f"the batched path's boards differ from the plain version's "
+             f"(populations {pops[:4]}... vs {want_pops[:4]}...)")
+    del want, grids
+    torch.cuda.empty_cache()
+    cells = B * size * size
+    emit({"phase": "main_path", "path": label, "kernel": "K1",
+          "boards": B, "grid": [size, size], "rule": str(rule),
+          "steps": steps, "comm_every": k, "units_after": units,
+          "launches": launches, "grid_equal_to_plain": True,
+          "populations_first_4": pops[:4],
+          "step_batched_s": t1 - t0,
+          "cell_updates_per_s": cells * steps / (t1 - t0),
+          "step_batched_units_s": t2 - t1,
+          "units_cell_updates_per_s": cells * units / (t2 - t1)})
+    return launches["K1"]
 
 
 def _cli_cases(d: str) -> None:
     """The CLI against the serial oracle: every ``.gol`` file byte for
     byte, and the kernel the run should take launched."""
+    # 500 is not a whole number of words: Life at comm_every 3 and Bosco
+    # at 1 take K1 and K3 padded (dead) and with the seam band (periodic);
+    # Bosco at 2 stays on K2
     cases = [(512, "life", "4", "K1"), (512, "bosco", "1", "K3"),
-             (500, "life", "3", "K2"), (500, "bosco", "2", "K2")]
+             (500, "life", "3", "K1"), (500, "bosco", "1", "K3"),
+             (500, "bosco", "2", "K2")]
     for size, rule, comm, kid in cases:
         for boundary in ("periodic", "dead"):
             common = [str(size), str(size), "10", "30", "--save", "--seed",
@@ -665,12 +945,18 @@ def _cli_cases(d: str) -> None:
 
 
 def phase3_main_paths() -> dict:
-    launches = {"K1": _drive("life", "K1", "bit", FLAGSHIP, LIFE, MAIN_GENS,
+    square = (FLAGSHIP, FLAGSHIP)
+    launches = {"K1": _drive("life", "K1", "bit", square, LIFE, MAIN_GENS,
                              MAIN_STEPS)}
-    launches["K3"] = {label: _drive(label, "K3", "ltl", FLAGSHIP, rule, k, n)
+    launches["K3"] = {label: _drive(label, "K3", "ltl", square, rule, k, n)
                       for label, rule, k, n in LTL_PATHS}
     label, rule, k, n = DENSE_PATH
-    launches["K2"] = _drive(label, "K2", "dense", DENSE, rule, k, n)
+    launches["K2"] = _drive(label, "K2", "dense", (DENSE, DENSE), rule, k, n)
+    for label, kid, kind, rule, k, n, boundary in PADDED_PATHS:
+        launches[label] = _drive(label, kid, kind, (PADDED, PADDED), rule, k,
+                                 n, boundary)
+    _drive_strip()
+    launches[BATCH_PATH[0]] = _drive_batched()
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
         _cli_cases(d)
     return launches
@@ -689,23 +975,30 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _ping_pong(fn, x):
+    """A callable that runs ``fn(src, dst)`` once, alternating two buffers
+    as the engine does, starting from a copy of ``x``."""
+    bufs = [x.clone(), torch.empty_like(x)]
+
+    def one():
+        fn(bufs[0], bufs[1])
+        bufs.reverse()
+    return one
+
+
 def _pass_ms(kernel, x, rule, gens, reps=20) -> float:
     """ms per pass, ping-ponging as the engine does: each pass reads the
     last output."""
-    bufs = [x.clone(), torch.empty_like(x)]
-
-    def one_pass():
-        kernel(bufs[0], rule, "periodic", gens, out=bufs[1])
-        bufs.reverse()
-
+    one_pass = _ping_pong(
+        lambda a, b: kernel(a, rule, "periodic", gens, out=b), x)
     for _ in range(3):
         one_pass()
     return _events_ms(one_pass, reps)
 
 
-def _plain_ms(plain, x, rule, gens) -> float:
-    plain(x, rule, "periodic", gens)  # warm the allocator
-    return _events_ms(lambda: plain(x, rule, "periodic", gens), 2)
+def _plain_ms(plain, x, rule, gens, boundary="periodic", **kw) -> float:
+    plain(x, rule, boundary, gens, **kw)  # warm the allocator
+    return _events_ms(lambda: plain(x, rule, boundary, gens, **kw), 2)
 
 
 def _row(card, kid, grid, rule, gens, ms, plain_ms, t_bytes, t_ops, **extra):
@@ -721,7 +1014,9 @@ def _row(card, kid, grid, rule, gens, ms, plain_ms, t_bytes, t_ops, **extra):
 
 
 # K1's variants by the macros that select them in csrc/bitlife.cu; "kept"
-# is the design every wrapper and main path runs.  "as_before" puts
+# is the design every wrapper and main path runs ("no_col_limit" is it
+# without the code for padded grids, which an unpadded pass must not pay
+# for).  "as_before" puts
 # together what the kernel did before its redesign: the rule from run-time
 # masks, one word a lane, the end lanes zeroing their shuffled sums, every
 # CTA masking every word.
@@ -742,6 +1037,7 @@ K1_VARIANTS = {
     "rows_64": {"K1_ROWS": 64},
     "rows_128": {"K1_ROWS": 128},
     "rows_192": {"K1_ROWS": 192},
+    "no_col_limit": {"K1_COL_LIMIT": 0},
 }
 
 
@@ -820,6 +1116,164 @@ def _hsum_turns(card: str, x: torch.Tensor) -> None:
               "build_seconds_both_forms_all_rules": build_s})
 
 
+def _turns(fns: dict, reps: int = 10) -> dict:
+    """ms per call of each of ``fns`` (name -> callable), in turns: every
+    one in order, then in reverse, each warmed up three times first."""
+    ms = {n: [] for n in fns}
+    for n in list(fns) + list(fns)[::-1]:
+        for _ in range(3):
+            fns[n]()
+        ms[n].append(_events_ms(fns[n], reps))
+    return ms
+
+
+def _seam_pass(rule, C, k, band):
+    """A callable (src, dst) running one pass of the padded periodic engine
+    (K1 with ``col_limit``, the band stepped by ``band`` and stitched)."""
+    evolve = seam.make_seam_stepper(
+        lambda src, g, dst: cuda_bit_step(src, rule, "periodic", g, out=dst,
+                                          col_limit=C),
+        rule, C, k, band=band)
+    return lambda src, dst: evolve(src, k, dst)
+
+
+def _padded_times(card: str, rows: dict) -> None:
+    """The padded paths at PADDED², in turns: Life's gens-8 pass as K1 with
+    ``col_limit`` alone, as the engine runs it (with the seam band on K2),
+    with the band on ``evolve_band`` instead, and forced onto K2 (the route
+    before this PR, uint8 cells, periodic); the band alone on K2 and on
+    ``evolve_band``; the dead Bosco pass on K3 with ``col_limit`` against
+    K2."""
+    C, k = PADDED, PADDED_PATHS[0][4]
+    x = init_packed(PADDED, PADDED_WORDS * WORD, SEED, col_limit=C,
+                    device="cuda")
+    words = x.numel()
+    dense = init_dense(PADDED, PADDED, SEED, device="cuda")
+    d = k * LIFE.radius
+    band = _cells(np.random.default_rng(SEED), (PADDED, 4 * d))
+    life = _turns({
+        "k1_col_limit": _ping_pong(
+            lambda a, b: cuda_bit_step(a, LIFE, "periodic", k, out=b,
+                                       col_limit=C), x),
+        "engine_pass_k2_band": _ping_pong(
+            _seam_pass(LIFE, C, k, seam.step_band), x),
+        "engine_pass_evolve_band": _ping_pong(
+            _seam_pass(LIFE, C, k, seam.evolve_band), x),
+        "band_k2": lambda: seam.step_band(band, LIFE, k),
+        "band_evolve_band": lambda: seam.evolve_band(band, LIFE, k),
+        "k2_forced": _ping_pong(
+            lambda a, b: cuda_dense_step(a, LIFE, "periodic", k, out=b),
+            dense),
+    })
+    mean = {n: sum(v) / len(v) for n, v in life.items()}
+    emit({"phase": "padded_times", "card": card, "path": "padded_life",
+          "grid": [PADDED, PADDED], "cols_eff": PADDED_WORDS * WORD,
+          "gens": k, "ms": life,
+          "seam_share_of_engine_pass":
+              1 - mean["k1_col_limit"] / mean["engine_pass_k2_band"],
+          "band_kept": "k2" if mean["band_k2"] <= mean["band_evolve_band"]
+          else "evolve_band",
+          "k2_forced_over_engine_pass":
+              mean["k2_forced"] / mean["engine_pass_k2_band"]})
+    if mean["band_k2"] > mean["band_evolve_band"]:
+        fail("K2 steps the seam band slower than evolve_band: keep the "
+             "faster (parallel/seam.py:step_band)")
+    rows["K1", "padded"] = _row(
+        card, "K1", [PADDED, PADDED], LIFE, k, mean["k1_col_limit"],
+        _plain_ms(bit_step_plain, x, LIFE, k, col_limit=C),
+        8 * words / HBM_BYTES_PER_S * 1e3,
+        k * words * word_ops(LIFE) / INT32_OPS_PER_S * 1e3,
+        mode="col_limit", col_limit=C, library_ms=None)
+    # the band on K2: 2 B per cell of the strip per pass, K2's operations
+    cells = band.numel()
+    rows["K2", "band"] = _row(
+        card, "K2", list(band.shape), LIFE, k, mean["band_k2"],
+        mean["band_evolve_band"], 2 * cells / HBM_BYTES_PER_S * 1e3,
+        k * cells * K2_CELL_OPS / INT32_OPS_PER_S * 1e3, mode="seam_band",
+        ops_per_cell=K2_CELL_OPS, library_ms=None,
+        plain_note="evolve_band, timed in the turns above")
+    bosco = _turns({
+        "k3_col_limit": _ping_pong(
+            lambda a, b: cuda_ltl_step(a, BOSCO, "dead", 1, out=b,
+                                       col_limit=C), x),
+        "k2_forced": _ping_pong(
+            lambda a, b: cuda_dense_step(a, BOSCO, "dead", 1, out=b), dense),
+    })
+    mean = {n: sum(v) / len(v) for n, v in bosco.items()}
+    emit({"phase": "padded_times", "card": card, "path": "padded_bosco",
+          "grid": [PADDED, PADDED], "boundary": "dead", "gens": 1,
+          "ms": bosco,
+          "k2_forced_over_k3": mean["k2_forced"] / mean["k3_col_limit"]})
+    rows["K3", "padded"] = _row(
+        card, "K3", [PADDED, PADDED], BOSCO, 1, mean["k3_col_limit"],
+        _plain_ms(ltl_step_plain, x, BOSCO, 1, boundary="dead",
+                  col_limit=C),
+        8 * words / HBM_BYTES_PER_S * 1e3,
+        words * ltl_word_ops_lower(BOSCO) / INT32_OPS_PER_S * 1e3,
+        mode="col_limit", col_limit=C, boundary="dead", library_ms=None)
+    del x, dense, band
+    torch.cuda.empty_cache()
+
+
+def _batched_times(card: str, rows: dict) -> None:
+    """A pass over a batch in one launch against the same boards in one
+    launch each (BATCH_PATH's 32 boards of 4096²), in turns: K1 at gens 8
+    and 1, K3 (Bosco, gens 1), and K2 on 16 boards (Bosco, gens 3: the
+    cells of its 16384² path)."""
+    _, B, size, _, k, _, _ = BATCH_PATH
+    x = torch.stack([init_packed(size, size, SEED + b, device="cuda")
+                     for b in range(B)])
+    cells = torch.stack([init_dense(size, size, SEED + b, device="cuda")
+                         for b in range(B // 2)])
+    out = {}
+    for kid, wrapper, grids, rule, gens in (
+            ("K1", cuda_bit_step, x, LIFE, k),
+            ("K1", cuda_bit_step, x, LIFE, 1),
+            ("K3", cuda_ltl_step, x, BOSCO, 1),
+            ("K2", cuda_dense_step, cells, BOSCO, DENSE_PATH[2])):
+        o = torch.empty_like(grids)
+
+        def batched(w=wrapper, g=grids, r=rule, n=gens):
+            w(g, r, "periodic", n, out=o)
+
+        def solo(w=wrapper, g=grids, r=rule, n=gens):
+            for b in range(g.shape[0]):
+                w(g[b], r, "periodic", n, out=o[b])
+
+        before = wrapper.launches
+        batched()
+        if wrapper.launches != before + 1:
+            fail(f"a batched {kid} pass took {wrapper.launches - before} "
+                 f"launches")
+        ms = _turns({"batched": batched, "solo": solo}, reps=10)
+        mean = {n: sum(v) / len(v) for n, v in ms.items()}
+        n_boards = grids.shape[0]
+        emit({"phase": "batched_times", "card": card, "kernel": kid,
+              "boards": n_boards, "grid": [size, size], "rule": str(rule),
+              "gens": gens, "ms_per_pass": ms,
+              "ms_per_board_generation": {
+                  n: v / (n_boards * gens) for n, v in mean.items()},
+              "solo_over_batched": mean["solo"] / mean["batched"]})
+        out[kid, gens] = mean["batched"]
+        n = grids.numel()
+        if kid == "K2":
+            t_bytes = 2 * n / HBM_BYTES_PER_S * 1e3
+            t_ops = gens * n * K2_CELL_OPS / INT32_OPS_PER_S * 1e3
+            plain = dense_step_plain
+        else:
+            t_bytes = 8 * n / HBM_BYTES_PER_S * 1e3
+            ops = word_ops(LIFE) if kid == "K1" else ltl_word_ops_lower(rule)
+            t_ops = gens * n * ops / INT32_OPS_PER_S * 1e3
+            plain = bit_step_plain if kid == "K1" else ltl_step_plain
+        if (kid, gens) != ("K1", 1):
+            rows[kid, "batched"] = _row(
+                card, kid, [n_boards, size, size], rule, gens,
+                mean["batched"], _plain_ms(plain, grids, rule, gens),
+                t_bytes, t_ops, mode="boards", library_ms=None)
+    del x, cells
+    torch.cuda.empty_cache()
+
+
 def phase4_times(card: str) -> dict:
     rows = {}
     x = init_packed(FLAGSHIP, FLAGSHIP, SEED, device="cuda")
@@ -884,49 +1338,103 @@ def phase4_times(card: str) -> dict:
                          "no rule")
     del x
     torch.cuda.empty_cache()
+    _padded_times(card, rows)
+    _batched_times(card, rows)
     return rows
 
 
 # -- phase 5: traces ---------------------------------------------------------
 
-def _trace(card, label, size, rule, comm_every, steps) -> None:
-    """The steady stepping of ``run_cuda``'s engine on one main path under
-    ``torch.profiler``, inside a ``steady`` host range opened once the
-    profiler has seen one kernel: the device is busy for the union of its
-    kernel intervals in that range, and idle for the rest of it.  Host
-    operations that run before the first kernel say what delays it."""
+# the CUDA kernels of each wrapper, as their names appear in a trace
+KERNEL_NAMES = {"K1": ("bit_step_kernel",),
+                "K2": ("dense_step_kernel", "dense_narrow_kernel"),
+                "K3": ("ltl_step_kernel",)}
+
+
+def _trace(card, label, size, rule, comm_every, steps,
+           boundary="periodic", boards=0) -> None:
+    """The steady stepping of ``run_cuda``'s engine on one main path (or of
+    ``step_batched`` on a batch of ``boards``) under ``torch.profiler``,
+    inside a ``steady`` host range opened once the profiler has seen one
+    kernel: the device is busy for the union of its kernel intervals in
+    that range, and idle for the rest of it.  Host operations that run
+    before the first kernel say what delays it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cfg = GolConfig(rows=size, cols=size, steps=steps, seed=SEED, rule=rule,
-                    comm_every=comm_every)
+                    comm_every=comm_every, boundary=boundary)
     engine = backend.build_engine(cfg)
-    grid = engine.init_grid()
-    engine.warm_up()
+    grid = (engine.init_grids(seeds=range(SEED, SEED + boards)) if boards
+            else engine.init_grid())
+    engine.warm_up(boards=boards)
     engine.sync()
-    wrapper = KERNELS[engine.kernel_id]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.ones(1, device="cuda").add_(1)  # the profiler's first kernel
-        torch.cuda.synchronize()
-        before, builds = wrapper.launches, _build.builds
-        with record_function("steady"):
-            grid = engine.step(grid, steps)
-            engine.sync()
-    launches = wrapper.launches - before
-    if _build.builds != builds:
-        fail(f"the {label} path built a kernel while it stepped")
+    # one launch a pass of the path's kernel, and of K2 for the seam band
+    passes = -(-steps // comm_every)
+    expected = {kid: 0 for kid in KERNELS}
+    expected[engine.kernel_id] = passes
+    if engine.seam:
+        expected["K2"] = passes
+    lost = []  # kernels the profiler lost on an attempt it was retried for
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # the profiler's first kernel
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            before = {kid: w.launches for kid, w in KERNELS.items()}
+            builds = _build.builds
+            with record_function("steady"):
+                if boards:
+                    grid = engine.step_batched(grid, steps)
+                else:
+                    grid = engine.step(grid, steps)
+                engine.sync()
+        counted = {kid: w.launches - before[kid]
+                   for kid, w in KERNELS.items()}
+        if counted != expected:
+            fail(f"the {label} path launched {counted}, expected {expected} "
+                 f"(one a pass)")
+        if _build.builds != builds:
+            fail(f"the {label} path built a kernel while it stepped")
+        events = prof.events()
+        # every counted launch is a kernel in the trace, and no kernel of
+        # K1-K3 ran uncounted: the whole profile holds none outside the
+        # range, so it is counted whole, free of the clocks' offset
+        in_trace = {kid: sum(1 for e in events
+                             if e.device_type == DeviceType.CUDA
+                             and any(n in e.name for n in names))
+                    for kid, names in KERNEL_NAMES.items()}
+        if any(in_trace[kid] > counted[kid] for kid in counted):
+            fail(f"the {label} trace holds {in_trace} kernels for "
+                 f"{counted} counted launches: a kernel ran uncounted")
+        if in_trace == counted:
+            break
+        # fewer in the trace: the profiler drops a kernel's record now and
+        # then (one of 200 on one path of a whole run); a launch that the
+        # code counts and does not make would be missing again
+        lost.append({kid: counted[kid] - in_trace[kid] for kid in counted})
+        print(f"chip_smoke: the {label} trace lost {lost[-1]} kernel "
+              f"records; tracing again", file=sys.stderr, flush=True)
+    else:
+        fail(f"the {label} trace holds {in_trace} kernels for {counted} "
+             f"counted launches, twice")
+    launches = counted[engine.kernel_id]
     del grid
     torch.cuda.empty_cache()
-    events = prof.events()
     # the host's range: the profiler also puts a copy of it on the device's
     # timeline, spanning only the kernels
     steady = next(e.time_range for e in events if e.name == "steady"
                   and e.device_type == DeviceType.CPU)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+    # every kernel that ends inside the range (the profiler's device clock
+    # is aligned to the host's to within about a millisecond, so the first
+    # kernel launched in the range may seem to start before it), clipped
+    # to the range
+    spans = sorted((max(e.time_range.start, steady.start), e.time_range.end,
+                    e.name)
                    for e in events if e.device_type == DeviceType.CUDA
                    and e.name != "steady"
-                   and e.time_range.start >= steady.start)
+                   and e.time_range.end > steady.start)
     wall_us = steady.end - steady.start
     busy_us, end, by_name, gaps = 0.0, float("-inf"), {}, []
     for start, stop, name in spans:
@@ -942,9 +1450,22 @@ def _trace(card, label, size, rule, comm_every, steps) -> None:
                     and e.name != "steady"
                     and steady.start <= e.time_range.start < first),
                    reverse=True)[:5]
+    own = KERNEL_NAMES[engine.kernel_id][0]
+    traced = sum(c for n, (c, _) in by_name.items() if own in n)
     emit({"phase": "trace", "card": card, "path": label,
-          "kernel": engine.kernel_id, "grid": [size, size],
+          "kernel": engine.kernel_id, "grid": [size, size], "boards": boards,
+          "boundary": boundary, "pad_bits": engine.pad_bits,
+          "seam": engine.seam,
+          # device time of every other kernel (the seam band's on K2 and
+          # its extract and stitch), by the same union
+          "other_kernels_ms": sum(us for n, (_, us) in by_name.items()
+                                  if own not in n) / 1e3,
           "steps": steps, "comm_every": comm_every, "launches": launches,
+          # the path kernel's launches the trace holds in its window, and
+          # every kernel's launches, counted and in the whole trace
+          "traced_launches": traced,
+          "launches_by_kernel": counted, "kernels_in_trace": in_trace,
+          "records_lost_on_retried_attempts": lost,
           "builds_in_window": 0,
           "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
           # None when the profiler recorded no device activity
@@ -967,15 +1488,32 @@ def phase5_traces(card: str) -> None:
         _trace(card, label, FLAGSHIP, rule, k, n)
     label, rule, k, n = DENSE_PATH
     _trace(card, label, DENSE, rule, k, n)
+    for label, _, _, rule, k, n, boundary in PADDED_PATHS:
+        _trace(card, label, PADDED, rule, k, n, boundary)
+    label, B, size, rule, k, n, _ = BATCH_PATH
+    _trace(card, label, size, rule, k, n, boards=B)
 
 
 def main() -> int:
     card = phase0_card()
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     phase1_build()
+    lap("build")
     errs = phase2_exact()
+    lap("kernel_vs_plain")
     launches = phase3_main_paths()
+    lap("main_paths")
     times = phase4_times(card)
+    lap("times")
     phase5_traces(card)
+    lap("traces")
+    emit({"phase": "seconds", **seconds})
     k1 = times["K1", MAIN_GENS]
     k2 = times["K2", DENSE_PATH[2]]
     k3 = times["K3", LTL_PATHS[0][0], LTL_PATHS[0][2]]

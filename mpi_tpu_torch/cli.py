@@ -10,11 +10,14 @@ Examples::
     python -m mpi_tpu_torch.cli 64 64 10 50 --device cpu --resume NAME@50
 
 ``--backend cuda`` (the default) runs on the GPU through one of three
-kernels (``backends/cuda.py:select_engine``): K1 for radius-1 rules at a
-width of whole 32-cell words, K3 for Larger-than-Life rules (radius 2..7)
-at such a width with ``--comm-every`` <= ⌊8/r⌋, K2 for every other width
-or depth with comm-every x radius <= 16; ``--device cpu`` runs the
-kernel's plain PyTorch version instead.  ``serial`` runs the numpy oracle.
+kernels (``backends/cuda.py:select_engine``): K1 for radius-1 rules, K3
+for Larger-than-Life rules (radius 2..7) with ``--comm-every`` <= ⌊8/r⌋,
+on a width of whole 32-cell words or padded to one (a periodic padded
+width has its seam columns recomputed on a thin band, where the band
+serves), and K2 for every other width or depth with comm-every x radius
+<= 16; ``--comm-every auto`` picks the depth (``parallel/policy.py``);
+``--device cpu`` runs the kernel's plain PyTorch version instead.
+``serial`` runs the numpy oracle.
 Every backend writes the same ``.gol`` files and the same two timing
 reports.
 """
@@ -68,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--comm-every", default="1", metavar="K",
                    help="cuda backend: generations per kernel pass (1..16, "
                    "and comm-every x radius <= 16 off the packed engines), "
-                   "the kernel's temporal-blocking depth")
+                   "the kernel's temporal-blocking depth, or 'auto' to pick "
+                   "it from the kernel the run lands on")
     p.add_argument("--name", default=None, help="run name (default: timestamp)")
     p.add_argument("--strict", action="store_true",
                    help="enforce the reference's validation rules "
@@ -97,12 +101,15 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def _run(args) -> int:
     rule = rule_from_name(args.rule)
+    auto_comm = args.comm_every == "auto"
+    if auto_comm and args.backend != "cuda":
+        raise ConfigError("--comm-every auto applies to the cuda backend only")
     try:
-        comm_every = int(args.comm_every)
+        comm_every = 1 if auto_comm else int(args.comm_every)
     except ValueError:
         raise ConfigError(
-            f"--comm-every must be an integer, got {args.comm_every!r} "
-            f"('auto' is ROADMAP queue 1 item 8)"
+            f"--comm-every must be an integer or 'auto', got "
+            f"{args.comm_every!r}"
         )
     config = GolConfig(
         rows=args.rows,
@@ -115,6 +122,13 @@ def _run(args) -> int:
         backend=args.backend,
         comm_every=comm_every,
     )
+    if auto_comm:
+        import dataclasses
+
+        from mpi_tpu_torch.parallel.policy import resolve_auto
+
+        config = dataclasses.replace(config, comm_every=resolve_auto(config))
+        _log(args.quiet, f"comm policy auto: comm_every={config.comm_every}")
     if args.strict:
         config.validate_strict()
     if config.backend == "cuda":

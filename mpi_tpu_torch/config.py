@@ -7,9 +7,10 @@ the ROADMAP item which brings it, rather than run on a slower path: device
 meshes, ``overlap``, ``sparse_tile``, and on the ``cuda`` backend a
 ``comm_every`` deeper than kernel K2's halo (comm_every x radius >
 ``cuda_stencil.MAX_DEPTH``), which the packed kernels, shallower still,
-cannot take either.  Every other rule and width runs on one of kernels K1,
-K2 and K3 (``backends/cuda.py:select_engine``); the ``serial`` oracle
-serves any rule and width.
+cannot take either, and which the reference serves with its 1x1-mesh
+stepper (ROADMAP queue 1 item 13).  Every other rule and width runs on
+one of kernels K1, K2 and K3 (``backends/cuda.py:select_engine``, padded
+widths included); the ``serial`` oracle serves any rule and width.
 """
 
 from __future__ import annotations
@@ -98,8 +99,7 @@ class GolConfig:
                     f"{self.rule.radius} = {depth} > {MAX_DENSE_DEPTH}: the "
                     f"dense kernel K2 blocks at most {MAX_DENSE_DEPTH} cells "
                     f"of halo and the packed kernels fewer; the 1x1-mesh "
-                    f"stepper that would serve it is ROADMAP queue 1 item 8 "
-                    f"(routing) and item 13 (meshes)"
+                    f"stepper that would serve it is ROADMAP queue 1 item 13"
                 )
             validate_size(self.rows, self.cols,
                           self.rule.radius * self.comm_every)

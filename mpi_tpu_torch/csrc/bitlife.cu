@@ -62,6 +62,21 @@
 // (a per-lane constant); every other CTA, and every CTA of a periodic grid,
 // runs the bare loop.  Ragged last tiles are cut on the store.
 //
+// A padded grid (col_limit > 0: the real width ends inside word NW - 1, and
+// the bits of that word at or past it are pad) has those bits zeroed after
+// every generation, the stored one included, in every copy of word NW - 1
+// that a tile holds: the owned word, a ghost word (whose pad bits an owned
+// word would read two generations on), and on a periodic grid the left ghost
+// of word 0, which is word NW - 1 of the unrolled torus.  So the mask is a
+// per-lane constant from the word's index modulo NW, and only the CTAs whose
+// tile holds such a copy take the masked loop (the input's pad bits are read
+// as they are, as the plain version reads them).  Built with K1_COL_LIMIT 0
+// the kernel has no such code (chip_smoke.py times the two in turns).
+//
+// Boards: `in` and `out` hold B grids of (H, NW) words one after another;
+// blockIdx.z picks the board, so B boards of one rule, depth, boundary and
+// width take one launch.
+//
 // Variants, for chip_smoke.py's timing in turns and nothing else (no wrapper
 // and no main path picks one): K1_WPL 1 or 2 words per lane; K1_GHOST 4 (a
 // whole ghost lane per side: 120 of 128 words owned, and the lane's four
@@ -70,7 +85,8 @@
 // CTA at every depth; K1_CP_ASYNC 0 (generation 0 goes through registers);
 // K1_RULE_GATES 1 (the rule as `& | ^` text, its cover left to nvcc);
 // K1_ZERO_GHOSTS 1 (the end lanes zero the sums they shuffle in);
-// K1_EDGE_TESTS 1 (every CTA masks its words); and K1_RULE_MASKS 1: the rule
+// K1_EDGE_TESTS 1 (every CTA masks its words); K1_COL_LIMIT 0 (no pad
+// columns: the kernel without that code); and K1_RULE_MASKS 1: the rule
 // evaluated from run-time birth and survive masks (set with
 // gol_bit_set_masks) through indicators of k == v, the form this kernel had
 // before the rule was compiled in.
@@ -121,6 +137,9 @@ __device__ __forceinline__ uint32_t lop3(uint32_t a, uint32_t b, uint32_t c) {
 #endif
 #ifndef K1_RULE_MASKS
 #define K1_RULE_MASKS 0
+#endif
+#ifndef K1_COL_LIMIT
+#define K1_COL_LIMIT 1
 #endif
 
 namespace {
@@ -417,12 +436,13 @@ __device__ __forceinline__ void step_rows(uint32_t* mine, int a, int b,
 // The last generation of tile rows [a, b), a < b, to device memory: tile
 // row i is row `row0 + i` of `out`, whose words of this lane start at `dst`
 // (row 0).  VEC: the lane stores its W words as one piece if `keep[0]`;
-// else word k if `keep[k]`.
-template <bool VEC>
+// else word k if `keep[k]`.  MASKED: word k is stored ANDed with cm[k].
+template <bool VEC, bool MASKED>
 __device__ __forceinline__ void store_rows(const uint32_t* mine, int a, int b,
                                            uint32_t* __restrict__ dst,
                                            int row0, int NW,
                                            const bool (&keep)[W],
+                                           const uint32_t (&cm)[W],
                                            const RuleState& rule, int lane) {
   const uint32_t* p = mine + a * kTileW;
   Words up = load_words(p - kTileW), mid = load_words(p);
@@ -430,7 +450,11 @@ __device__ __forceinline__ void store_rows(const uint32_t* mine, int a, int b,
 #pragma unroll 3
   for (int i = a; i < b; ++i, p += kTileW, q += NW) {
     const Words down = load_words(p + kTileW);
-    const Words next = next_words(up, mid, down, rule, lane);
+    Words next = next_words(up, mid, down, rule, lane);
+    if constexpr (MASKED) {
+#pragma unroll
+      for (int k = 0; k < W; ++k) next.w[k] &= cm[k];
+    }
     if constexpr (VEC) {
       if (keep[0]) store_words(q, next);
     } else {
@@ -445,10 +469,14 @@ __device__ __forceinline__ void store_rows(const uint32_t* mine, int a, int b,
 
 __global__ void __launch_bounds__(kLanes * kWarps, kMinCtas)
 bit_step_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                int H, int NW, int gens, int periodic, int vec) {
+                int H, int NW, int gens, int periodic, int col_limit,
+                int vec) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int rows = rows_for(gens);            // rows this CTA writes
   const int span = rows + 2 * gens;           // tile rows, halos included
+  const size_t board = (size_t)blockIdx.z * H * NW;
+  in += board;
+  out += board;
 
   const int lane = threadIdx.x;
   const int warp = threadIdx.y;
@@ -483,6 +511,22 @@ bit_step_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
       cm[k] = gw0 + k >= 0 && gw0 + k < NW ? kAll : 0u;
     masked = masked || w0 - kGhost < 0 || w0 - kGhost + kTileW > NW;
   }
+#if K1_COL_LIMIT
+  if (col_limit > 0) {
+    // bits [tail, 32) of word NW - 1 are pad, in each copy the tile holds
+    const uint32_t keep_bits = (1u << (col_limit - 32 * (NW - 1))) - 1u;
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      if ((periodic ? wrap(gw0 + k, NW) : gw0 + k) == NW - 1)
+        cm[k] &= keep_bits;
+    // the first copy of word NW - 1 at or after the tile's first word
+    const int u0 = w0 - kGhost;
+    const int first = periodic ? u0 + wrap(NW - 1 - u0, NW) : NW - 1;
+    masked = masked || (first >= u0 && first < u0 + kTileW);
+  }
+#else
+  (void)col_limit;
+#endif
 
   // generation g < gens steps rows [g, span - g) in place, each warp a run
   for (int g = 1; g < gens; ++g) {
@@ -522,10 +566,19 @@ bit_step_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
       keep[k] = j >= kGhost && j < kTileW - kGhost && gw0 + k < NW;
     }
     uint32_t* dst = out + gw0;
+    const int row0 = r0 - gens;
     if (vec) {
-      store_rows<true>(mine, a, b, dst, r0 - gens, NW, keep, rule, lane);
+      if (masked) {
+        store_rows<true, true>(mine, a, b, dst, row0, NW, keep, cm, rule, lane);
+      } else {
+        store_rows<true, false>(mine, a, b, dst, row0, NW, keep, cm, rule,
+                                lane);
+      }
+    } else if (masked) {
+      store_rows<false, true>(mine, a, b, dst, row0, NW, keep, cm, rule, lane);
     } else {
-      store_rows<false>(mine, a, b, dst, r0 - gens, NW, keep, rule, lane);
+      store_rows<false, false>(mine, a, b, dst, row0, NW, keep, cm, rule,
+                               lane);
     }
   }
 }
@@ -554,19 +607,27 @@ cudaError_t allow_shared_memory() {
 
 extern "C" {
 
-// Launches one pass on `stream`; returns a CUDA error code (0 on success).
-// `in` and `out` must not overlap: neighbouring CTAs read each other's rows.
-int gol_bit_step(const void* in, void* out, int H, int NW, int gens,
-                 int periodic, void* stream) {
-  if (H < 1 || NW < 1 || gens < 1 || gens > kMaxGens)
+// Launches one pass over B boards on `stream`; returns a CUDA error code (0
+// on success).  `col_limit`: 0, or the real width in cells of a padded grid,
+// in (32 (NW - 1), 32 NW].  `in` and `out` must not overlap: neighbouring
+// CTAs read each other's rows.
+int gol_bit_step(const void* in, void* out, int B, int H, int NW, int gens,
+                 int periodic, int col_limit, void* stream) {
+  if (B < 1 || H < 1 || NW < 1 || gens < 1 || gens > kMaxGens)
+    return (int)cudaErrorInvalidValue;
+  if (col_limit == 32LL * NW) col_limit = 0;  // no pad
+  if (col_limit != 0 &&
+      (!K1_COL_LIMIT || col_limit <= 32LL * (NW - 1) || col_limit > 32LL * NW))
     return (int)cudaErrorInvalidValue;
   const dim3 block(kLanes, kWarps);
   const int rows = rows_for(gens);
-  const dim3 grid((NW + kOwned - 1) / kOwned, (H + rows - 1) / rows);
-  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((NW + kOwned - 1) / kOwned, (H + rows - 1) / rows, B);
+  if (grid.y > 65535u || grid.z > 65535u)
+    return (int)cudaErrorInvalidConfiguration;
   const cudaError_t err = allow_shared_memory();
   if (err != cudaSuccess) return (int)err;
-  // a lane's W words move as one piece when every row keeps them aligned
+  // a lane's W words move as one piece when every row of every board keeps
+  // them aligned
   const uintptr_t align = sizeof(uint32_t) * W;
   const int vec = W == 4 && kGhost % W == 0 && NW % W == 0 &&
                   reinterpret_cast<uintptr_t>(in) % align == 0 &&
@@ -574,7 +635,7 @@ int gol_bit_step(const void* in, void* out, int H, int NW, int gens,
   bit_step_kernel<<<grid, block, tile_bytes(gens),
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), H, NW,
-      gens, periodic, vec);
+      gens, periodic, col_limit, vec);
   return (int)cudaGetLastError();
 }
 

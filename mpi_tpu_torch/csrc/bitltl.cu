@@ -56,6 +56,16 @@
 // is a window of the unrolled torus).  Dead rows and words outside the grid
 // load as zero and are re-zeroed each generation.  Ragged last tiles are
 // masked on the store.
+//
+// A padded grid (col_limit > 0: the real width ends inside word NW - 1) has
+// the pad bits of word NW - 1 zeroed after every generation in every lane
+// that holds a copy of that word, ghost lanes included (on a periodic grid
+// the left ghost of word 0 is one): a per-lane mask from the word's index
+// modulo NW.  Only CTAs of a dead grid and CTAs whose tile holds such a copy
+// apply masks; the others store what the rule gives.
+//
+// Boards: `in` and `out` hold B grids of (H, NW) words one after another;
+// blockIdx.z picks the board, so B boards take one launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -277,8 +287,11 @@ __device__ __forceinline__ int wrap(int i, int n) {
 
 __global__ void __launch_bounds__(kLanes * kWarps)
 ltl_step_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                int H, int NW, int gens, int periodic) {
+                int H, int NW, int gens, int periodic, int col_limit) {
   extern __shared__ uint32_t smem[];
+  const size_t board = (size_t)blockIdx.z * H * NW;
+  in += board;
+  out += board;
   const int halo = gens * R;
   const int span = kRows + 2 * halo;          // tile rows, halos included
   // words per ping-pong buffer: the tile rows and one spare row, which the
@@ -295,6 +308,17 @@ ltl_step_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   const bool col_in = periodic || (gw >= 0 && gw < NW);
   const int col = col_in ? wrap(gw, NW) : 0;
   const bool col_out = lane >= 1 && lane <= kOwned && gw < NW;
+  // the bits of this lane's word that a generation keeps: none outside a
+  // dead grid, the real ones of word NW - 1, else all; `masked` (uniform
+  // across the CTA) says whether any lane or row needs masking
+  uint32_t cm = col_in ? kAll : 0u;
+  bool masked = !periodic;
+  if (col_limit > 0) {
+    if (col_in && col == NW - 1) cm = (1u << (col_limit - 32 * (NW - 1))) - 1u;
+    const int u0 = w0 - 1;
+    const int first = periodic ? u0 + wrap(NW - 1 - u0, NW) : NW - 1;
+    masked = masked || (first >= u0 && first < u0 + kLanes);
+  }
 
   // generation 0: the tile plus `halo` rows above and below, in batches of
   // loads in flight before their stores
@@ -338,7 +362,7 @@ ltl_step_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
         const Num<NT> total = horizontal_sum(v);
         uint32_t nw = ltl_rule(total.p, src[i * kLanes + lane]);
         const int gr = r0 - halo + i;
-        if (!periodic && !(col_in && gr >= 0 && gr < H)) nw = 0u;
+        if (masked) nw &= periodic || (gr >= 0 && gr < H) ? cm : 0u;
         if (last) {
           if (col_out && gr < H) out[(size_t)gr * NW + gw] = nw;
         } else {
@@ -357,22 +381,28 @@ ltl_step_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
 
 extern "C" {
 
-// Launches one pass on `stream`; returns a CUDA error code (0 on success).
-// `radius` must be the radius this library was built for.  `in` and `out`
-// must not overlap.
-int gol_ltl_step(const void* in, void* out, int H, int NW, int radius,
-                 int gens, int periodic, void* stream) {
-  if (H < 1 || NW < 1 || radius != R || gens < 1 ||
+// Launches one pass over B boards on `stream`; returns a CUDA error code (0
+// on success).  `radius` must be the radius this library was built for.
+// `col_limit`: 0, or the real width in cells of a padded grid, in
+// (32 (NW - 1), 32 NW].  `in` and `out` must not overlap.
+int gol_ltl_step(const void* in, void* out, int B, int H, int NW, int radius,
+                 int gens, int periodic, int col_limit, void* stream) {
+  if (B < 1 || H < 1 || NW < 1 || radius != R || gens < 1 ||
       gens > (8 / R > 1 ? 8 / R : 1))
     return (int)cudaErrorInvalidValue;
+  if (col_limit == 32LL * NW) col_limit = 0;  // no pad
+  if (col_limit != 0 &&
+      (col_limit <= 32LL * (NW - 1) || col_limit > 32LL * NW))
+    return (int)cudaErrorInvalidValue;
   const dim3 block(kLanes, kWarps);
-  const dim3 grid((NW + kOwned - 1) / kOwned, (H + kRows - 1) / kRows);
-  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((NW + kOwned - 1) / kOwned, (H + kRows - 1) / kRows, B);
+  if (grid.y > 65535u || grid.z > 65535u)
+    return (int)cudaErrorInvalidConfiguration;
   const size_t smem =
       2u * (kRows + 2 * gens * R + 1) * kLanes * sizeof(uint32_t);
   ltl_step_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), H, NW,
-      gens, periodic);
+      gens, periodic, col_limit);
   return (int)cudaGetLastError();
 }
 

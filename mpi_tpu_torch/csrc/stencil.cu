@@ -35,13 +35,19 @@
 // Tiling: a CTA owns 128 rows x 256 columns and loads a halo of gens * r
 // rows and of 16 columns (the deepest halo) on either side, so generation g
 // computes a window that shrinks by r cells per side, and the last one
-// covers the owned tile.  Cells stay bytes in two shared buffers.  A tile
+// covers the owned tile.  A grid narrower than a tile (the seam band of a
+// padded periodic grid is 4d columns) runs its own instance, which loads
+// and steps only the W owned columns and their halo.  Cells stay bytes in two shared buffers.  A tile
 // that lies inside the grid, where the width is a multiple of 16, moves in
 // 16-byte chunks with several loads in flight per thread; tiles at an edge
 // load byte by byte (wrapping, or zero beyond a dead edge).  Every byte a
 // generation reads is 0 or 1 (the margins and the second buffer start at
 // zero, and the rule writes only 0 and 1), so no sum of garbage can carry
 // into a neighbouring cell.
+//
+// Boards: `in` and `out` hold B grids of (H, W) cells one after another;
+// blockIdx.z picks the board (every index above is within it), so B boards
+// take one launch and no halo reads across boards.
 //
 // Boundaries.  Periodic rows and columns wrap modulo H and W (any H, W >= 1:
 // the tile is a window of the unrolled torus, so a grid smaller than its
@@ -120,15 +126,24 @@ __device__ __forceinline__ void load_window(const uint32_t* row, int w,
   }
 }
 
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-dense_step_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-                  int H, int W, int gens, int periodic, DenseRule rule) {
+// One pass of a CTA.  NARROW (a grid narrower than one tile, W < 256,
+// such as the seam band of a padded periodic grid, 4d columns): only the
+// chunks and word groups that the W owned columns need are loaded and
+// stepped, where a full tile would compute all 256.  It is a kernel of its
+// own (dense_narrow_kernel) so that every other grid runs this body with
+// the tile width a constant.
+template <int R, bool NARROW>
+__device__ __forceinline__ void dense_step_body(
+    const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int H, int W,
+    int gens, int periodic, const DenseRule& rule) {
   constexpr int M = (R + 3) / 4;             // neighbour words per side
   constexpr int KV = kGroup + 2 * M;
   extern __shared__ uint4 smem4[];
   uint32_t* smem = reinterpret_cast<uint32_t*>(smem4);  // [2][rows][kStride]
   __shared__ uint8_t table[512];             // [alive * 256 + total]
+  const size_t board = (size_t)blockIdx.z * H * W;
+  in += board;
+  out += board;
 
   const int h = gens * R;                    // rows of halo per side
   const int rows = kTileRows + 2 * h;        // tile rows, halos included
@@ -148,9 +163,11 @@ dense_step_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   // generation 0: the tile and its halo into buffer 0, zero margins; buffer
   // 1 all zero.  Each thread keeps one 16-byte chunk column of a few rows
   // at a time.
+  const int owned = NARROW ? W : kTileCols;  // columns the tile computes
   const int q = tid % kChunks - kPad / 4;    // this thread's chunk of cells
   const int qc = c0 + 16 * q;                // its grid column
-  const bool cells = q >= 0 && q < kCellWords / 4;
+  const bool cells = q >= 0 && q < kCellWords / 4 &&
+                     (!NARROW || 16 * q < 2 * kHaloCols + owned);
   constexpr int kRowsAtOnce = kThreads / kChunks;
   const bool loader = tid < kRowsAtOnce * kChunks;
   uint4* buf = smem4;
@@ -207,14 +224,14 @@ dense_step_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   __syncthreads();
 
   // generation g computes rows [g R, rows - g R) and the groups of words
-  // covering columns [16 - (gens - g) R, 16 + 256 + (gens - g) R)
+  // covering columns [16 - (gens - g) R, 16 + owned + (gens - g) R)
   for (int g = 1; g <= gens; ++g) {
     const uint32_t* src = smem + ((g - 1) & 1) * plane;
     uint32_t* dst = smem + (g & 1) * plane;
     const int lo = g * R, hi = rows - g * R;
     const int reach = (gens - g) * R;
     const int g0 = (kHaloCols - reach) / (4 * kGroup);
-    const int groups = (kHaloCols + kTileCols + reach + 4 * kGroup - 1) /
+    const int groups = (kHaloCols + owned + reach + 4 * kGroup - 1) /
                            (4 * kGroup) - g0;
     const int chunks = kThreads / groups;
     const int chunk = (hi - lo + chunks - 1) / chunks;
@@ -281,9 +298,9 @@ dense_step_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
   // the owned tile, from the last generation's buffer to device memory, a
   // 16-byte chunk at a time
   const uint4* fin = buf + (gens & 1) * plane4;
-  constexpr int owned = kTileCols / 16;      // chunks per owned row
-  for (int k = tid; k < kTileRows * owned; k += kThreads) {
-    const int i = k / owned, x = k % owned;
+  constexpr int chunks_owned = kTileCols / 16;  // chunks per owned row
+  for (int k = tid; k < kTileRows * chunks_owned; k += kThreads) {
+    const int i = k / chunks_owned, x = k % chunks_owned;
     const int gr = blockIdx.y * kTileRows + i;
     const int gc = blockIdx.x * kTileCols + 16 * x;
     if (gr >= H || gc >= W) continue;
@@ -300,47 +317,72 @@ dense_step_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
 }
 
 template <int R>
-int launch(const void* in, void* out, int H, int W, int gens, int periodic,
-           const DenseRule& rule, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+dense_step_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                  int H, int W, int gens, int periodic, DenseRule rule) {
+  dense_step_body<R, false>(in, out, H, W, gens, periodic, rule);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+dense_narrow_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                    int H, int W, int gens, int periodic, DenseRule rule) {
+  dense_step_body<R, true>(in, out, H, W, gens, periodic, rule);
+}
+
+template <typename Kernel>
+int launch_kernel(Kernel kernel, const void* in, void* out, int B, int H,
+                  int W, int gens, int periodic, int R, const DenseRule& rule,
+                  cudaStream_t stream) {
   const size_t smem =
       2u * (kTileRows + 2 * gens * R) * kStride * sizeof(uint32_t);
   cudaError_t e = cudaFuncSetAttribute(
-      dense_step_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((W + kTileCols - 1) / kTileCols,
-                  (H + kTileRows - 1) / kTileRows);
-  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
-  dense_step_kernel<R><<<grid, kThreads, smem, stream>>>(
+                  (H + kTileRows - 1) / kTileRows, B);
+  if (grid.y > 65535u || grid.z > 65535u)
+    return (int)cudaErrorInvalidConfiguration;
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), H, W,
       gens, periodic, rule);
   return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch(const void* in, void* out, int B, int H, int W, int gens,
+           int periodic, const DenseRule& rule, cudaStream_t stream) {
+  if (W < kTileCols)
+    return launch_kernel(dense_narrow_kernel<R>, in, out, B, H, W, gens,
+                         periodic, R, rule, stream);
+  return launch_kernel(dense_step_kernel<R>, in, out, B, H, W, gens, periodic,
+                       R, rule, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one pass on `stream`; returns a CUDA error code (0 on success).
-// `table` points to 16 host words: the rule's birth bits (0..7) and
-// survive bits (8..15).  `in` and `out` must not overlap.
-int gol_dense_step(const void* in, void* out, int H, int W, int radius,
+// Launches one pass over B boards on `stream`; returns a CUDA error code (0
+// on success).  `table` points to 16 host words: the rule's birth bits
+// (0..7) and survive bits (8..15).  `in` and `out` must not overlap.
+int gol_dense_step(const void* in, void* out, int B, int H, int W, int radius,
                    int gens, int periodic, const unsigned* table,
                    void* stream) {
-  if (H < 1 || W < 1 || gens < 1 || radius < 1 || radius > 7 ||
+  if (B < 1 || H < 1 || W < 1 || gens < 1 || radius < 1 || radius > 7 ||
       gens * radius > kMaxDepth)
     return (int)cudaErrorInvalidValue;
   DenseRule rule;
   for (int k = 0; k < 16; ++k) rule.w[k] = table[k];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (radius) {
-    case 1: return launch<1>(in, out, H, W, gens, periodic, rule, s);
-    case 2: return launch<2>(in, out, H, W, gens, periodic, rule, s);
-    case 3: return launch<3>(in, out, H, W, gens, periodic, rule, s);
-    case 4: return launch<4>(in, out, H, W, gens, periodic, rule, s);
-    case 5: return launch<5>(in, out, H, W, gens, periodic, rule, s);
-    case 6: return launch<6>(in, out, H, W, gens, periodic, rule, s);
-    default: return launch<7>(in, out, H, W, gens, periodic, rule, s);
+    case 1: return launch<1>(in, out, B, H, W, gens, periodic, rule, s);
+    case 2: return launch<2>(in, out, B, H, W, gens, periodic, rule, s);
+    case 3: return launch<3>(in, out, B, H, W, gens, periodic, rule, s);
+    case 4: return launch<4>(in, out, B, H, W, gens, periodic, rule, s);
+    case 5: return launch<5>(in, out, B, H, W, gens, periodic, rule, s);
+    case 6: return launch<6>(in, out, B, H, W, gens, periodic, rule, s);
+    default: return launch<7>(in, out, B, H, W, gens, periodic, rule, s);
   }
 }
 

@@ -80,20 +80,21 @@ class PerRule:
 
 
 PER_RULE = {
-    # gol_bit_step(in, out, H, NW, gens, periodic, stream)
+    # gol_bit_step(in, out, B, H, NW, gens, periodic, col_limit, stream)
     "bit": PerRule(CSRC_DIR / "bitlife.cu", "BIT_RULE_HEADER",
                    "mpi_tpu_torch.ops.bit_codegen",
-                   lambda rule: {}, "gol_bit_step", 4, (
+                   lambda rule: {}, "gol_bit_step", 6, (
                        ("gol_bit_ctas_per_sm", [ctypes.c_int]),
                        ("gol_bit_tile", [ctypes.c_int]
                         + [ctypes.POINTER(ctypes.c_int)] * 2),
                        ("gol_bit_set_masks", [ctypes.c_uint] * 2))),
-    # gol_ltl_step(in, out, H, NW, radius, gens, periodic, stream)
+    # gol_ltl_step(in, out, B, H, NW, radius, gens, periodic, col_limit,
+    #              stream)
     "ltl": PerRule(CSRC_DIR / "bitltl.cu", "LTL_RULE_HEADER",
                    "mpi_tpu_torch.ops.ltl_codegen",
                    lambda rule: {"LTL_RADIUS": rule.radius,
                                  "LTL_HSUM": LTL_HSUM[rule.radius]},
-                   "gol_ltl_step", 5),
+                   "gol_ltl_step", 7),
 }
 
 
@@ -300,7 +301,7 @@ def load_library() -> ctypes.CDLL:
     bits)."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gol_dense_step.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
+    lib.gol_dense_step.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32,
                                    ctypes.POINTER(ctypes.c_uint), ptr]
     lib.gol_dense_step.restype = ctypes.c_int
     return _error_string(lib)

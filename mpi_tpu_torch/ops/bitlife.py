@@ -61,6 +61,24 @@ def unpack(packed: torch.Tensor) -> torch.Tensor:
     return bits.reshape(H, nw * WORD).to(torch.uint8)
 
 
+def pad_mask(nw: int, col_limit, device) -> torch.Tensor:
+    """(nw,) int32 words whose bits are set below cell column ``col_limit``
+    (all of them when it is None): the real cells of a padded row."""
+    w = torch.arange(nw, dtype=torch.int64, device=device)
+    limit = nw * WORD if col_limit is None else col_limit
+    v = torch.clamp(limit - w * WORD, 0, WORD)
+    return i32_bits((torch.ones_like(v) << v) - 1)
+
+
+def mask_pad(packed: torch.Tensor, col_limit) -> torch.Tensor:
+    """``packed`` (..., NW) with every bit at or past cell column
+    ``col_limit`` zeroed (the reference's ``_mask_pad_cols``); unchanged
+    when it is None."""
+    if col_limit is None:
+        return packed
+    return packed & pad_mask(packed.shape[-1], col_limit, packed.device)
+
+
 def init_packed(
     rows: int,
     cols: int,
@@ -81,10 +99,7 @@ def init_packed(
     nw = cols // WORD
     mask = None
     if col_limit is not None:
-        # valid bits per word: clamp(col_limit - col_offset - 32w, 0, 32)
-        w = torch.arange(nw, dtype=torch.int64, device=device)
-        v = torch.clamp(col_limit - col_offset - w * WORD, 0, WORD)
-        mask = i32_bits((torch.ones_like(v) << v) - 1)
+        mask = pad_mask(nw, col_limit - col_offset, device)
     out = torch.empty((rows, nw), dtype=torch.int32, device=device)
     step = max(1, min(block_rows, rows))
     for r0 in range(0, rows, step):
@@ -529,29 +544,30 @@ def bit_next(f0, f1, c0, c1, f0p, f1p, f0n, f1n, mid, rule: Rule):
 
 def bit_step(packed: torch.Tensor, rule: Rule = LIFE,
              boundary: str = "periodic") -> torch.Tensor:
-    """One generation on a packed (H, W/32) int32 grid."""
+    """One generation on a packed (H, W/32) int32 grid, or on each board of
+    a (B, H, W/32) batch."""
     if rule.radius != 1:
         raise ValueError("bitpacked engine supports radius-1 rules only")
     if boundary not in ("periodic", "dead"):
         raise ValueError(f"unknown boundary {boundary!r}")
     periodic = boundary == "periodic"
-    zero_row = torch.zeros_like(packed[:1])
-    zero_col = torch.zeros_like(packed[:, :1])
+    zero_row = torch.zeros_like(packed[..., :1, :])
+    zero_col = torch.zeros_like(packed[..., :1])
 
     if periodic:
-        up = torch.roll(packed, 1, dims=0)
-        down = torch.roll(packed, -1, dims=0)
+        up = torch.roll(packed, 1, dims=-2)
+        down = torch.roll(packed, -1, dims=-2)
     else:
-        up = torch.cat([zero_row, packed[:-1]], dim=0)
-        down = torch.cat([packed[1:], zero_row], dim=0)
+        up = torch.cat([zero_row, packed[..., :-1, :]], dim=-2)
+        down = torch.cat([packed[..., 1:, :], zero_row], dim=-2)
 
     def word_shift(x, direction):
         # previous/next word along the row for cross-word bit carries
         if periodic:
-            return torch.roll(x, direction, dims=1)
+            return torch.roll(x, direction, dims=-1)
         if direction == 1:
-            return torch.cat([zero_col, x[:, :-1]], dim=1)
-        return torch.cat([x[:, 1:], zero_col], dim=1)
+            return torch.cat([zero_col, x[..., :-1]], dim=-1)
+        return torch.cat([x[..., 1:], zero_col], dim=-1)
 
     # vertical sums once, then shift the 2-bit sums: the sums of a shifted
     # word are the shifted sums

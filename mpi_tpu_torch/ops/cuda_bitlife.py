@@ -2,7 +2,11 @@
 
 Replaces ``mpi_tpu.ops.pallas_bitlife.pallas_bit_step``: ``gens`` (1..16)
 generations of a radius-1 rule on a packed (H, W/32) grid in one read and
-one write of device memory.  The kernel is ``csrc/bitlife.cu`` (its header
+one write of device memory.  Two modes the TPU kernel leaves to its
+callers: ``col_limit``, the real width of a padded grid, whose pad bits
+the kernel zeroes after every generation (the reference's
+``parallel/step.py:_mask_pad_cols``), and a board axis, B grids of one
+shape stepped alike in one launch (the reference's ``jax.vmap``).  The kernel is ``csrc/bitlife.cu`` (its header
 says what bounds it and how it is tiled), built once per rule with the
 rule compiled in: ``ops/bit_codegen.py`` emits the rule as straight-line
 LOP3s, ``ops/_build.py:load_rule_library`` builds and loads the rule's
@@ -21,8 +25,10 @@ from typing import Optional
 import torch
 
 from mpi_tpu_torch.models.rules import LIFE, Rule
-from mpi_tpu_torch.ops._launch import check_cuda, check_out, raise_on_error
-from mpi_tpu_torch.ops.bitlife import WORD, bit_step, packable
+from mpi_tpu_torch.ops._launch import (
+    boards, check_col_limit, check_cuda, check_out, raise_on_error,
+)
+from mpi_tpu_torch.ops.bitlife import WORD, bit_step, mask_pad, packable
 
 MAX_GENS = 16
 
@@ -54,63 +60,71 @@ def supports(shape, rule: Rule, gens: int = 1) -> bool:
     return refusal(shape, rule, gens) is None
 
 
-def _check(packed: torch.Tensor, rule: Rule, boundary: str, gens: int) -> None:
+def _check(packed: torch.Tensor, rule: Rule, boundary: str, gens: int,
+           col_limit) -> None:
     if packed.dtype != torch.int32:
         raise TypeError(f"packed grid must be int32 words, got {packed.dtype}")
-    if packed.dim() != 2:
-        raise ValueError(f"packed grid must be (H, W/32), got "
-                         f"{tuple(packed.shape)}")
-    H, NW = packed.shape
+    _, H, NW = boards(packed)
     reason = refusal((H, NW * WORD), rule, gens, boundary)
     if reason:
         raise ValueError(reason)
+    check_col_limit(col_limit, NW)
 
 
 def bit_step_plain(packed: torch.Tensor, rule: Rule = LIFE,
-                   boundary: str = "periodic", gens: int = 1) -> torch.Tensor:
-    """The plain version of K1: ``gens`` applications of ``bit_step``."""
-    _check(packed, rule, boundary, gens)
+                   boundary: str = "periodic", gens: int = 1,
+                   col_limit: Optional[int] = None) -> torch.Tensor:
+    """The plain version of K1: ``gens`` applications of ``bit_step`` (to
+    every board of a (B, H, NW) batch at once), each followed by zeroing
+    the pad at or past ``col_limit``."""
+    _check(packed, rule, boundary, gens, col_limit)
     for _ in range(gens):
-        packed = bit_step(packed, rule, boundary)
+        packed = mask_pad(bit_step(packed, rule, boundary), col_limit)
     return packed
 
 
 def cuda_bit_step(packed: torch.Tensor, rule: Rule = LIFE,
                   boundary: str = "periodic", gens: int = 1,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``gens`` generations of ``rule`` on the packed int32 grid ``packed``.
+                  out: Optional[torch.Tensor] = None,
+                  col_limit: Optional[int] = None) -> torch.Tensor:
+    """``gens`` generations of ``rule`` on the packed int32 grid ``packed``,
+    (H, NW), or on each board of a (B, H, NW) batch in one launch.
 
-    ``out``, when given, receives the result (same shape, dtype and device,
-    not overlapping ``packed``: the kernel cannot run in place, because
-    neighbouring blocks read each other's rows); otherwise it is allocated.
-    The launch goes to the current stream and does not synchronise.
-    ``cuda_bit_step.launches`` counts kernel launches."""
-    _check(packed, rule, boundary, gens)
+    ``col_limit``: the real width in cells of a padded grid (in
+    (32 (NW - 1), 32 NW]); every bit at or past it is zero after every
+    generation.  ``out``, when given, receives the result (same shape,
+    dtype and device, not overlapping ``packed``: the kernel cannot run in
+    place, because neighbouring blocks read each other's rows); otherwise it
+    is allocated.  The launch goes to the current stream and does not
+    synchronise.  ``cuda_bit_step.launches`` counts kernel launches."""
+    _check(packed, rule, boundary, gens, col_limit)
     if out is not None:
         check_out(out, packed, "K1")
     if packed.device.type == "cpu":
-        res = bit_step_plain(packed, rule, boundary, gens)
+        res = bit_step_plain(packed, rule, boundary, gens, col_limit)
         return res if out is None else out.copy_(res)
     check_cuda(packed, "K1")
     from mpi_tpu_torch.ops._build import load_rule_library
 
     if out is None:
         out = torch.empty_like(packed)
-    launch(load_rule_library("bit", rule), packed, out, boundary, gens)
+    launch(load_rule_library("bit", rule), packed, out, boundary, gens,
+           col_limit)
     cuda_bit_step.launches += 1
     return out
 
 
 def launch(lib, packed: torch.Tensor, out: torch.Tensor, boundary: str,
-           gens: int) -> None:
+           gens: int, col_limit: Optional[int] = None) -> None:
     """One pass of the K1 library ``lib`` (built for the rule) on the
     current stream; raises on a CUDA error.  Checks nothing else: callers
     are :func:`cuda_bit_step` and timing scripts that compare builds."""
-    H, NW = packed.shape
+    B, H, NW = boards(packed)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
-        err = lib.gol_bit_step(packed.data_ptr(), out.data_ptr(), H, NW, gens,
-                               int(boundary == "periodic"), stream)
+        err = lib.gol_bit_step(packed.data_ptr(), out.data_ptr(), B, H, NW,
+                               gens, int(boundary == "periodic"),
+                               col_limit or 0, stream)
     raise_on_error(lib, err, "K1")
 
 

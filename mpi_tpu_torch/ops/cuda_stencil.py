@@ -2,7 +2,8 @@
 
 Replaces ``mpi_tpu.ops.pallas_stencil.pallas_step``: ``gens`` generations
 (gens·r ≤ 16) of any radius-r rule (1..7) on a (H, W) uint8 0/1 grid in
-one read and one write of device memory.  The kernel is
+one read and one write of device memory, on one grid or on each board of
+a (B, H, W) batch in one launch.  The kernel is
 ``csrc/stencil.cu`` (its header says what bounds it and how it is tiled);
 ``ops/_build.py`` builds it.  Unlike the TPU kernel it takes any H, W >= 1.
 
@@ -19,7 +20,9 @@ from typing import Optional
 import torch
 
 from mpi_tpu_torch.models.rules import LIFE, Rule
-from mpi_tpu_torch.ops._launch import check_cuda, check_out, raise_on_error
+from mpi_tpu_torch.ops._launch import (
+    boards, check_cuda, check_out, raise_on_error,
+)
 from mpi_tpu_torch.ops.stencil import step
 
 MAX_DEPTH = 16  # gens x radius: the deepest halo a tile carries
@@ -52,9 +55,8 @@ def supports(shape, rule: Rule, gens: int = 1) -> bool:
 def _check(grid: torch.Tensor, rule: Rule, boundary: str, gens: int) -> None:
     if grid.dtype != torch.uint8:
         raise TypeError(f"dense grid must be uint8 cells, got {grid.dtype}")
-    if grid.dim() != 2:
-        raise ValueError(f"dense grid must be (H, W), got {tuple(grid.shape)}")
-    reason = refusal(tuple(grid.shape), rule, gens, boundary)
+    _, H, W = boards(grid)
+    reason = refusal((H, W), rule, gens, boundary)
     if reason:
         raise ValueError(reason)
 
@@ -72,8 +74,12 @@ def rule_table(rule: Rule):
 
 def dense_step_plain(grid: torch.Tensor, rule: Rule = LIFE,
                      boundary: str = "periodic", gens: int = 1) -> torch.Tensor:
-    """The plain version of K2: ``gens`` applications of ``stencil.step``."""
+    """The plain version of K2: ``gens`` applications of ``stencil.step``;
+    board by board for a (B, H, W) batch."""
     _check(grid, rule, boundary, gens)
+    if grid.dim() == 3:
+        return torch.stack([dense_step_plain(b, rule, boundary, gens)
+                            for b in grid])
     for _ in range(gens):
         grid = step(grid, rule, boundary)
     return grid
@@ -82,7 +88,8 @@ def dense_step_plain(grid: torch.Tensor, rule: Rule = LIFE,
 def cuda_dense_step(grid: torch.Tensor, rule: Rule = LIFE,
                     boundary: str = "periodic", gens: int = 1,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``gens`` generations of ``rule`` on the uint8 0/1 grid ``grid``.
+    """``gens`` generations of ``rule`` on the uint8 0/1 grid ``grid``,
+    (H, W), or on each board of a (B, H, W) batch in one launch.
 
     ``out``, when given, receives the result (same shape, dtype and device,
     not overlapping ``grid``); otherwise it is allocated.  The launch goes
@@ -100,11 +107,11 @@ def cuda_dense_step(grid: torch.Tensor, rule: Rule = LIFE,
     lib = load_library()
     if out is None:
         out = torch.empty_like(grid)
-    H, W = grid.shape
+    B, H, W = boards(grid)
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream(grid.device).cuda_stream
         err = lib.gol_dense_step(
-            grid.data_ptr(), out.data_ptr(), H, W, rule.radius, gens,
+            grid.data_ptr(), out.data_ptr(), B, H, W, rule.radius, gens,
             int(boundary == "periodic"), rule_table(rule), stream,
         )
     raise_on_error(lib, err, "K2")

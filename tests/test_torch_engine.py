@@ -111,14 +111,17 @@ def test_cli_resume_continues_the_run(tmp_path):
 
 def test_cli_refuses_what_this_slice_does_not_run(tmp_path, capsys):
     d = ["--out-dir", str(tmp_path), "--device", "cpu", "--quiet"]
-    # 4 x 5 = 20 cells of halo: K2 blocks 16, and K3 one generation at r 5
+    # 4 x 5 = 20 cells of halo: K2 blocks 16, and K3 one generation at r 5;
+    # the reference's 1x1-mesh stepper for it comes with meshes
     assert port_main(["32", "48", "0", "4", "--rule", "bosco",
                       "--comm-every", "4"] + d) == 2
-    assert "ROADMAP queue 1 item 8" in capsys.readouterr().err
+    assert "ROADMAP queue 1 item 13" in capsys.readouterr().err
     assert port_main(["32", "64", "0", "4", "--rule", "R3,B20-25,S18-30",
                       "--comm-every", "6"] + d) == 2
-    assert "item 8" in capsys.readouterr().err
-    assert port_main(["32", "64", "0", "4", "--comm-every", "auto"] + d) == 2
+    assert "item 13" in capsys.readouterr().err
+    assert port_main(["32", "64", "0", "4", "--comm-every", "auto",
+                      "--backend", "serial"] + d) == 2
+    assert port_main(["32", "64", "0", "4", "--comm-every", "nope"] + d) == 2
     assert port_main(["32", "64", "0", "4", "--comm-every", "17"] + d) == 2
     assert port_main(["32", "64", "0", "4", "--backend", "serial",
                       "--comm-every", "2"] + d) == 2
@@ -130,8 +133,8 @@ def test_config_refuses_other_slices():
     for kw, item in [(dict(mesh_shape=(2, 1)), "item 13"),
                      (dict(overlap=True), "item 13"),
                      (dict(sparse_tile=32), "item 10"),
-                     (dict(rule=BOSCO, comm_every=4), "item 8"),
-                     (dict(cols=80, rule=BOSCO, comm_every=4), "item 8")]:
+                     (dict(rule=BOSCO, comm_every=4), "item 13"),
+                     (dict(cols=80, rule=BOSCO, comm_every=4), "item 13")]:
         with pytest.raises(ConfigError, match=item):
             GolConfig(**{**dict(rows=64, cols=64, steps=1), **kw})
     GolConfig(rows=64, cols=64, steps=1, mesh_shape=(1, 1))
@@ -264,7 +267,7 @@ R3 = rule_from_name("R3,B20-25,S18-30")
     (dict(cols=64, rule=R3, comm_every=2), "ltl"),
     (dict(cols=64, rule=BOSCO, comm_every=3), "dense"),      # K2, k > 8/r
     (dict(cols=64, rule=R2, comm_every=8), "dense"),
-    (dict(cols=80, rule=R2), "dense"),                       # K2, cols % 32
+    (dict(cols=80, rule=R2), "ltl"),                         # K3, padded
     (dict(cols=50, comm_every=16), "dense"),
     (dict(cols=50, rule=BOSCO, comm_every=3), "dense"),
 ], ids=lambda v: v if isinstance(v, str) else None)
@@ -274,7 +277,7 @@ def test_select_engine_follows_the_reference_policy(kw, engine):
     eng = port.build_engine(cfg, device="cpu")
     assert (eng.kind, eng.bitpacked) == (engine, engine != "dense")
     assert eng.kernel_id == {"bit": "K1", "ltl": "K3", "dense": "K2"}[engine]
-    with pytest.raises(ConfigError, match="item 8"):  # the table's last row
+    with pytest.raises(ConfigError, match="item 13"):  # the table's last row
         GolConfig(**{**dict(rows=64, steps=1), **kw,
                      "rule": R3, "comm_every": 6})
 

@@ -33,7 +33,10 @@ Phases; any failure exits non-zero before the result line:
    depths), K1-K3 on a board axis (1, 2, 7 and 32 boards, ragged rows and
    words, rows that do and do not move in 16-byte pieces, padded boards;
    each batch one launch), and K2 stepping the seam band, whose middle
-   columns must equal ``evolve_band``'s;
+   columns must equal ``evolve_band``'s; and K1, K3 and K2 at a dead
+   boundary and gens 1 on the stripes of sparse stepping (the tiles of a
+   rung side by side with their halos: the plans of the sparse paths and
+   CLI cases below, and narrow ones);
 3. the main paths, each kernel's launch counter reset just before and
    required above 0 just after, each whole final grid equal to the plain
    version's from the same init: ``run_cuda`` at 65536² for Life (comm_every
@@ -44,11 +47,18 @@ Phases; any failure exits non-zero before the result line:
    ``col_limit``), and ``step_batched`` on 32 boards of 4096² (Life,
    comm_every 8, one K1 launch a pass, then depth-1 ``step_batched_units``),
    each ~250-280 ms of stepping, so that a stray delay of 2 ms on the
-   machine stays under 1% of the window.  Then the CLI at 512² (Life at
-   comm_every 4 and Bosco, both boundaries) and at 500x500 (Life at
-   comm_every 3 and Bosco at 1 on the padded K1 and K3, with the seam band
-   when periodic; Bosco at 2 on K2), whose ``.gol`` files must equal the
-   serial oracle's byte for byte;
+   machine stays under 1% of the window; 16384² Bosco at comm_every 4 (20
+   cells of halo: K2 in passes of 3), whose final grid must equal the
+   comm_every-3 path's; and the sparse Life engine (``sparse_tile`` 128)
+   at 65536² on the reference's quiescent board with 64 gliders, 2001
+   generations, held against the dense K1 engine and the plain version,
+   and on the reference's 35% soup, 200 generations, held against the
+   dense K1 engine.  Then the CLI at 512² (Life at comm_every 4 and
+   Bosco, both boundaries; Bosco at comm_every 4 on K2; Life with
+   ``--sparse 32``), at 500x500 (Life at comm_every 3 and Bosco at 1 on
+   the padded K1 and K3, with the seam band when periodic; Bosco at 2 on
+   K2) and at 480x500 (Bosco with ``--sparse 20`` on K2), whose ``.gol``
+   files must equal the serial oracle's byte for byte;
 4. times (CUDA events after warm-up) of each kernel at its main paths'
    depths, with cell-updates/s, the plain version's time, the card's bound,
    and a library call where one exists (for K2, ``conv2d`` of the padded
@@ -62,11 +72,15 @@ Phases; any failure exits non-zero before the result line:
    whole seam pass with the band on K2 and on ``evolve_band``, the band
    alone, and the same grids forced onto K2), in turns; and a pass over a
    batch in one launch against its boards in one launch each (K1, K3,
-   K2), in turns, in ms per board-generation;
+   K2), in turns, in ms per board-generation; the sparse engine against
+   the dense K1 engine at comm_every 1 and 8 on the sparse paths' boards,
+   in turns, in ms a generation, and K1's stripe step against its bound;
 5. a ``torch.profiler`` trace of each main path's steady stepping: kernel
    time by name, launches equal to the trace's kernels of the path's
-   kernel, the other kernels' time (the seam band), the device's idle
-   share of the wall time, and no kernel build inside it.
+   kernel (the sparse path's follow its phases), the other kernels' time
+   (the seam band; the sparse path's gathers, compares and write-backs),
+   the device's idle share of the wall time, and no kernel build inside
+   it.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -99,7 +113,7 @@ from mpi_tpu_torch.interop import grid_from_numpy  # noqa: E402
 from mpi_tpu_torch.models.rules import (  # noqa: E402
     BOSCO, DAY_AND_NIGHT, HIGHLIFE, LIFE, SEEDS, Rule, rule_from_name,
 )
-from mpi_tpu_torch.ops import _build  # noqa: E402
+from mpi_tpu_torch.ops import _build, activity  # noqa: E402
 from mpi_tpu_torch.ops.bitlife import (  # noqa: E402
     bit_step, init_packed, pack, population, word_ops,
 )
@@ -167,6 +181,24 @@ SEAM_STRIP = (1024, 100)
 # (label, boards, size, rule, comm_every, steps, depth-1 units after):
 # 2 MiB a board, 64 MiB a batch buffer, above the H100's 50 MB of L2
 BATCH_PATH = ("batched_life", 32, 4096, LIFE, 8, 6000, 100)
+
+# the sparse Life path at FLAGSHIP² on SPARSE_T² tiles (512 x 512): the
+# reference's quiescent board (bench.py:2018-2034: one blinker in each of
+# 1% of the tiles, packed into a square block) plus SPARSE_GLIDERS gliders,
+# some of which cross the periodic seam; an odd number of generations (one
+# that settles the all-ones start, then the rest in one dispatch), so that a
+# stepper that did nothing fails against the period-2 blinkers
+SPARSE_T = 128
+SPARSE_ACTIVE = 0.01
+SPARSE_GLIDERS = 64
+SPARSE_STEPS = 2001
+# the reference's soup (bench.py:2040): 35% live, every tile busy
+SOUP = (0.35, 200)
+SPARSE_TIMED = 400     # generations a timed dispatch (50 gathers of 8)
+# 16384² Bosco at comm_every 4: 20 cells of halo, K2 in passes of 3, whose
+# final grid must equal DENSE_PATH's (comm_every 3)
+DEEP_PATH = ("deep_bosco", BOSCO, 4, 1201)
+GLIDER = ((0, 1, 0), (0, 0, 1), (1, 1, 1))  # moves down and right
 
 # each kernel's wrapper, whose ``launches`` the main paths read
 KERNELS = {kid: wrapper for kid, wrapper, _ in backend.KERNELS.values()}
@@ -715,9 +747,58 @@ def _k3_exact(rng) -> tuple:
     return n, err, extra
 
 
+def _stripe_plans() -> list:
+    """(kernel, rule, plan) of the sparse stripes: the plans of the sparse
+    paths and CLI cases of phase 3 (Life at FLAGSHIP² and 512² on K1,
+    Bosco at 480 x 500 on K2) and narrow ones (Highlife's one owned word
+    and two halo words a tile; Bosco at T 128 with a two-word halo and at
+    T 32 with one; R2; K2 at T 16 and 8)."""
+    def plan(kid, rule, rows, cols, T, periodic=True):
+        packed = kid != "K2"
+        return (kid, rule, activity.make_plan(
+            rows=rows, cols_units=cols // WORD if packed else cols,
+            tile_px=T, radius=rule.radius, periodic=periodic, packed=packed))
+    return [plan("K1", LIFE, FLAGSHIP, FLAGSHIP, SPARSE_T),
+            plan("K1", LIFE, 512, 512, 32),
+            plan("K1", HIGHLIFE, 64, 128, 32),
+            plan("K3", BOSCO, 1024, 1024, 128),
+            plan("K3", BOSCO, 256, 256, 32, periodic=False),
+            plan("K3", R2, 256, 256, 32),
+            plan("K2", BOSCO, 480, 500, 20, periodic=False),
+            plan("K2", BOSCO, 48, 48, 16),
+            plan("K2", LIFE, 128, 128, 8)]
+
+
+def _stripe_exact(rng) -> dict:
+    """Each kernel at a dead boundary and gens 1 on the stripes of
+    ``_stripe_plans``, at every rung and at 1-3, 5 and 7 tiles (stripes of
+    K1 and K3 whose rows do and do not move in 16-byte pieces), against its
+    plain version."""
+    wrappers = {"K1": (cuda_bit_step, bit_step_plain),
+                "K2": (cuda_dense_step, dense_step_plain),
+                "K3": (cuda_ltl_step, ltl_step_plain)}
+    out = {kid: {"cases": 0, "max_abs_err": 0, "shapes": []}
+           for kid in wrappers}
+    for kid, rule, plan in _stripe_plans():
+        kernel, plain = wrappers[kid]
+        for K in sorted(set(plan.capacities) | {1, 2, 3, 5, 7}):
+            shape = plan.stripe_shape(K)
+            x = _cells(rng, shape) if kid == "K2" else _words(rng, shape)
+            o = out[kid]
+            o["max_abs_err"] = max(o["max_abs_err"], _compare(
+                kernel, plain, x, rule, "dead", 1))
+            o["cases"] += 1
+            o["shapes"].append(list(shape))
+    return out
+
+
 def phase2_exact() -> dict:
     rng = np.random.default_rng(SEED)
     errs = {}
+    t0 = time.perf_counter()
+    stripes = _stripe_exact(rng)
+    emit({"phase": "stripe_vs_plain", "boundary": "dead", "gens": 1,
+          "seconds": time.perf_counter() - t0, **stripes})
     for kid, check in (("K1", _k1_exact), ("K2", _k2_exact),
                        ("K3", _k3_exact)):
         t0 = time.perf_counter()
@@ -728,8 +809,9 @@ def phase2_exact() -> dict:
               "max_abs_err": err, "seconds": time.perf_counter() - t0,
               **extra})
         # the new modes' cases count in the kernel's error
-        errs[kid] = max([err] + [v["max_abs_err"] for v in extra.values()
-                                 if isinstance(v, dict)])
+        errs[kid] = max([err, stripes[kid]["max_abs_err"]]
+                        + [v["max_abs_err"] for v in extra.values()
+                           if isinstance(v, dict)])
     if any(errs.values()):
         fail(f"a kernel disagrees with its plain version (tolerance: exact): "
              f"{errs}")
@@ -783,9 +865,10 @@ def _blocks_differ(final: np.ndarray, g: torch.Tensor, packed: bool) -> int:
 
 
 def _drive(label, kid, kind, shape, rule, comm_every, steps,
-           boundary="periodic") -> int:
+           boundary="periodic") -> tuple:
     """``run_cuda`` on one main path with the kernels' launch counters reset
-    just before; its whole final grid must equal the plain version's."""
+    just before; its whole final grid must equal the plain version's.
+    Returns the path kernel's launches and the final grid."""
     rows, cols = shape
     cfg = GolConfig(rows=rows, cols=cols, steps=steps, seed=SEED, rule=rule,
                     comm_every=comm_every, boundary=boundary)
@@ -820,7 +903,7 @@ def _drive(label, kid, kind, shape, rule, comm_every, steps,
           "plain_population": plain_pop,
           "setup_s": timer.setup_us / 1e6, "steady_s": timer.nosetup_us / 1e6,
           "cell_updates_per_s": timer.cells_per_sec(rows, cols, steps)})
-    return launches[kid]
+    return launches[kid], final
 
 
 def _drive_strip() -> None:
@@ -910,24 +993,183 @@ def _drive_batched() -> int:
     return launches["K1"]
 
 
+def _sparse_board() -> torch.Tensor:
+    """The sparse Life path's board at FLAGSHIP², packed on the card: the
+    reference's ``quiescent_board(SPARSE_ACTIVE)`` on SPARSE_T² tiles (a
+    horizontal blinker at the middle of each of the first k tiles of a
+    square block, row by row) and an 8 x 8 lattice of gliders, each 300
+    cells short of a lattice corner, so that they cross tile edges and the
+    last row and column of them the periodic seam (SPARSE_GLIDERS)."""
+    N, T = FLAGSHIP, SPARSE_T
+    k = int(round(SPARSE_ACTIVE * (N // T) ** 2))
+    side = int(np.ceil(np.sqrt(max(k, 1))))
+    grid = torch.zeros((N, N // WORD), dtype=torch.int32, device="cuda")
+    p = torch.arange(k, device="cuda")
+    rows, first = (p // side) * T + T // 2, (p % side) * T + T // 2 - 1
+    for dc in range(3):  # cells first .. first + 2 of each row
+        c = first + dc
+        grid.view(-1).index_put_(
+            (rows * (N // WORD) + c // WORD,),
+            torch.ones_like(c, dtype=torch.int32) << (c % WORD).int(),
+            accumulate=True)
+    lattice = N // 8
+    for a in range(8):
+        for b in range(8):
+            r0, c0 = (a + 1) * lattice - 300, (b + 1) * lattice - 300
+            if a == b == 7:  # else it wraps both seams into the blinkers
+                c0 -= lattice // 2
+            for dr, row in enumerate(GLIDER):
+                for dc, cell in enumerate(row):
+                    if cell:
+                        c = c0 + dc
+                        grid[r0 + dr, c // WORD] |= 1 << (c % WORD)
+    return grid
+
+
+def _soup_board() -> torch.Tensor:
+    """The reference's soup at FLAGSHIP²: each cell live with probability
+    SOUP[0], drawn on the card from SEED and packed 4096 rows at a time."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grid = torch.empty((FLAGSHIP, FLAGSHIP // WORD), dtype=torch.int32,
+                       device="cuda")
+    for r0 in range(0, FLAGSHIP, 4096):
+        cells = torch.rand((4096, FLAGSHIP), generator=gen, device="cuda")
+        grid[r0:r0 + 4096] = pack((cells < SOUP[0]).to(torch.uint8))
+    return grid
+
+
+def _sparse_engine():
+    cfg = GolConfig(rows=FLAGSHIP, cols=FLAGSHIP, steps=0, seed=SEED,
+                    sparse_tile=SPARSE_T)
+    engine = backend.build_engine(cfg)
+    if engine.kind != "bit" or engine.sparse_plan is None:
+        fail(f"the sparse Life path planned {engine.kind}, "
+             f"{engine.sparse_plan}")
+    return engine
+
+
+def _dense_engine(comm_every: int):
+    return backend.build_engine(GolConfig(rows=FLAGSHIP, cols=FLAGSHIP,
+                                          steps=0, seed=SEED,
+                                          comm_every=comm_every))
+
+
+def _drive_sparse(label: str, board: torch.Tensor, steps: int,
+                  plain: bool) -> int:
+    """The sparse Life engine from ``board``: one generation (the probe that
+    settles the all-ones start), then ``steps - 1`` in one dispatch, K1's
+    counter reset just before.  The whole final grid must equal the dense
+    K1 engine's (comm_every 8) and, when ``plain``, the plain version's,
+    generation by generation."""
+    engine = _sparse_engine()
+    state = activity.initial_state(board.clone(), engine.sparse_plan)
+    engine.warm_up()
+    engine.sync()
+    evolve = engine._evolve
+    for w in KERNELS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    state = engine.step(state, 1)
+    settled = engine.sparse_stats(state)
+    phases0, reads0 = Counter(evolve.phases), evolve.reads
+    t1 = time.perf_counter()
+    state = engine.step(state, steps - 1)
+    engine.sync()
+    t2 = time.perf_counter()
+    launches = {kid: w.launches for kid, w in KERNELS.items()}
+    if launches["K1"] == 0 or launches["K2"] or launches["K3"]:
+        fail(f"the {label} path launched {launches}: K1 alone expected")
+    stats = engine.sparse_stats(state)
+    pop = engine.population(state)
+    dense = _dense_engine(MAIN_GENS)
+    dense.warm_up()
+    g = dense.step(board.clone(), steps)
+    equal_dense = torch.equal(g, state.grid)
+    del g, dense
+    equal_plain = None
+    if plain:
+        g = board
+        for _ in range(steps):
+            g = bit_step_plain(g, LIFE, "periodic", 1)
+        equal_plain = torch.equal(g, state.grid)
+        del g
+    del state
+    torch.cuda.empty_cache()
+    if not equal_dense or equal_plain is False:
+        fail(f"the {label} path's final grid differs from the dense K1 "
+             f"engine's ({equal_dense}) or the plain version's "
+             f"({equal_plain})")
+    emit({"phase": "main_path", "path": label, "kernel": "K1",
+          "grid": [FLAGSHIP, FLAGSHIP], "sparse_tile": SPARSE_T,
+          "plan": engine.sparse_plan.__dict__, "steps": steps,
+          "launches": launches, "equal_to_dense_k1": equal_dense,
+          "equal_to_plain": equal_plain, "population": pop,
+          "stats_after_settle": settled, "stats_final": stats,
+          "phases": {" ".join(map(str, k)): v for k, v in
+                     (evolve.phases - phases0).items()},
+          "host_reads": evolve.reads - reads0,
+          "settle_s": t1 - t0, "steady_s": t2 - t1,
+          "ms_per_generation": (t2 - t1) * 1e3 / (steps - 1),
+          "cell_updates_per_s": FLAGSHIP ** 2 * (steps - 1) / (t2 - t1)})
+    return launches["K1"]
+
+
+def _drive_deep(final_k3: np.ndarray) -> int:
+    """``run_cuda`` on DEEP_PATH: comm_every 4 at r 5 runs K2 passes of 3,
+    so its final grid must equal DENSE_PATH's (comm_every 3)."""
+    label, rule, k, steps = DEEP_PATH
+    cfg = GolConfig(rows=DENSE, cols=DENSE, steps=steps, seed=SEED,
+                    rule=rule, comm_every=k)
+    if (backend.select_engine(cfg), backend.pass_depth(cfg)) != ("dense", 3):
+        fail(f"the {label} path plans {backend.select_engine(cfg)} at "
+             f"depth {backend.pass_depth(cfg)}")
+    for w in KERNELS.values():
+        w.launches = 0
+    timer = PhaseTimer()
+    final = backend.run_cuda(cfg, timer=timer)
+    launches = {kid: w.launches for kid, w in KERNELS.items()}
+    # a pass of 3 (and a remainder of 1) for 1201 generations, and the
+    # warm-up's one launch at each depth
+    want = -(-steps // 3) + 2
+    if launches != {"K1": 0, "K2": want, "K3": 0}:
+        fail(f"the {label} path launched {launches}, expected {want} K2")
+    if not np.array_equal(final, final_k3):
+        fail(f"the {label} path's final grid differs from the comm_every-3 "
+             f"path's")
+    emit({"phase": "main_path", "path": label, "kernel": "K2",
+          "grid": [DENSE, DENSE], "rule": str(rule), "steps": steps,
+          "comm_every": k, "pass_depth": 3, "launches": launches,
+          "equal_to_comm_every_3": True,
+          "population": int(final.sum(dtype=np.int64)),
+          "setup_s": timer.setup_us / 1e6, "steady_s": timer.nosetup_us / 1e6,
+          "cell_updates_per_s": timer.cells_per_sec(DENSE, DENSE, steps)})
+    return launches["K2"]
+
+
 def _cli_cases(d: str) -> None:
     """The CLI against the serial oracle: every ``.gol`` file byte for
     byte, and the kernel the run should take launched."""
     # 500 is not a whole number of words: Life at comm_every 3 and Bosco
     # at 1 take K1 and K3 padded (dead) and with the seam band (periodic);
-    # Bosco at 2 stays on K2
-    cases = [(512, "life", "4", "K1"), (512, "bosco", "1", "K3"),
-             (500, "life", "3", "K1"), (500, "bosco", "1", "K3"),
-             (500, "bosco", "2", "K2")]
-    for size, rule, comm, kid in cases:
+    # Bosco at 2 stays on K2, at 4 (20 cells of halo) in K2 passes of 3;
+    # sparse runs on K1 (Life) and, at a width that is not whole words, K2
+    cases = [(512, 512, "life", ["--comm-every", "4"], "K1"),
+             (512, 512, "bosco", ["--comm-every", "1"], "K3"),
+             (500, 500, "life", ["--comm-every", "3"], "K1"),
+             (500, 500, "bosco", ["--comm-every", "1"], "K3"),
+             (500, 500, "bosco", ["--comm-every", "2"], "K2"),
+             (512, 512, "bosco", ["--comm-every", "4"], "K2"),
+             (512, 512, "life", ["--sparse", "32"], "K1"),
+             (480, 500, "bosco", ["--sparse", "20"], "K2")]
+    for rows, cols, rule, extra, kid in cases:
         for boundary in ("periodic", "dead"):
-            common = [str(size), str(size), "10", "30", "--save", "--seed",
+            common = [str(rows), str(cols), "10", "30", "--save", "--seed",
                       "5", "--rule", rule, "--boundary", boundary, "--quiet",
                       "--name", "n"]
-            tag = f"{size}-{rule}-{boundary}"
+            tag = f"{rows}x{cols}-{rule}-{'-'.join(extra)}-{boundary}"
             cu, ser = os.path.join(d, f"cu-{tag}"), os.path.join(d, f"se-{tag}")
             KERNELS[kid].launches = 0
-            rc = (cli_main(common + ["--out-dir", cu, "--comm-every", comm]),
+            rc = (cli_main(common + ["--out-dir", cu] + extra),
                   cli_main(common + ["--out-dir", ser, "--backend", "serial"]))
             if rc != (0, 0):
                 fail(f"CLI exit codes {rc} ({tag})")
@@ -938,8 +1180,8 @@ def _cli_cases(d: str) -> None:
             if len(names) != 5 or mismatch or errors:
                 fail(f"CLI .gol files differ from the serial oracle ({tag}): "
                      f"{mismatch + errors}")
-    emit({"phase": "cli", "cases": [f"{s}x{s} {r} comm_every {c} ({k})"
-                                    for s, r, c, k in cases],
+    emit({"phase": "cli", "cases": [f"{h}x{w} {r} {' '.join(e)} ({k})"
+                                    for h, w, r, e, k in cases],
           "boundaries": ["periodic", "dead"],
           "gol_files_identical_to_serial": True})
 
@@ -947,16 +1189,23 @@ def _cli_cases(d: str) -> None:
 def phase3_main_paths() -> dict:
     square = (FLAGSHIP, FLAGSHIP)
     launches = {"K1": _drive("life", "K1", "bit", square, LIFE, MAIN_GENS,
-                             MAIN_STEPS)}
-    launches["K3"] = {label: _drive(label, "K3", "ltl", square, rule, k, n)
+                             MAIN_STEPS)[0]}
+    launches["K3"] = {label: _drive(label, "K3", "ltl", square, rule, k, n)[0]
                       for label, rule, k, n in LTL_PATHS}
     label, rule, k, n = DENSE_PATH
-    launches["K2"] = _drive(label, "K2", "dense", (DENSE, DENSE), rule, k, n)
+    launches["K2"], final_k3 = _drive(label, "K2", "dense", (DENSE, DENSE),
+                                      rule, k, n)
+    launches[DEEP_PATH[0]] = _drive_deep(final_k3)
+    del final_k3
     for label, kid, kind, rule, k, n, boundary in PADDED_PATHS:
         launches[label] = _drive(label, kid, kind, (PADDED, PADDED), rule, k,
-                                 n, boundary)
+                                 n, boundary)[0]
     _drive_strip()
     launches[BATCH_PATH[0]] = _drive_batched()
+    launches["sparse_life"] = _drive_sparse("sparse_life", _sparse_board(),
+                                            SPARSE_STEPS, plain=True)
+    launches["sparse_soup"] = _drive_sparse("sparse_soup", _soup_board(),
+                                            SOUP[1], plain=False)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
         _cli_cases(d)
     return launches
@@ -1274,6 +1523,69 @@ def _batched_times(card: str, rows: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def _sparse_times(card: str, rows: dict) -> None:
+    """The sparse Life engine against the dense K1 engine at comm_every 1
+    and 8 on the same boards (the sparse path's and the soup), SPARSE_TIMED
+    generations a dispatch, in turns, in ms a generation (CUDA events
+    around each dispatch: with the host's reads inside, the device's whole
+    span, idle time included); and the stripe step (K1, dead, gens 1, at
+    the top rung of the sparse path's plan and at its lower) against its
+    bound."""
+    n = SPARSE_TIMED
+    for label, make in (("sparse_life", _sparse_board),
+                        ("sparse_soup", _soup_board)):
+        board = make()
+        sparse = _sparse_engine()
+        engines = {"sparse": sparse, "dense_1": _dense_engine(1),
+                   "dense_8": _dense_engine(MAIN_GENS)}
+        states = {"sparse": sparse.step(
+            activity.initial_state(board.clone(), sparse.sparse_plan), 1)}
+        for name in ("dense_1", "dense_8"):
+            states[name] = board.clone()
+        del board
+        for e in engines.values():
+            e.warm_up()
+
+        def runner(name):
+            def run():
+                states[name] = engines[name].step(states[name], n)
+            return run
+
+        reads = sparse._evolve.reads
+        ms = _turns({name: runner(name) for name in engines}, reps=1)
+        per_gen = {name: sum(v) / len(v) / n for name, v in ms.items()}
+        emit({"phase": "sparse_times", "card": card, "path": label,
+              "grid": [FLAGSHIP, FLAGSHIP], "sparse_tile": SPARSE_T,
+              "generations_a_dispatch": n, "ms_per_dispatch": ms,
+              "ms_per_generation": per_gen,
+              "dense_1_over_sparse": per_gen["dense_1"] / per_gen["sparse"],
+              "dense_8_over_sparse": per_gen["dense_8"] / per_gen["sparse"],
+              "stats": sparse.sparse_stats(states["sparse"]),
+              "host_reads_per_dispatch":
+                  (sparse._evolve.reads - reads) / len(ms["sparse"]) / 4})
+        rows[label] = per_gen
+        del states, engines, sparse
+        torch.cuda.empty_cache()
+    plan = _stripe_plans()[0][2]
+    for K in plan.capacities:
+        shape = plan.stripe_shape(K)
+        x = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, 2**32, size=shape, dtype=np.uint32).view(np.int32)).cuda()
+        one = _ping_pong(lambda a, b: cuda_bit_step(a, LIFE, "dead", 1, out=b),
+                         x)
+        for _ in range(3):
+            one()
+        words = x.numel()
+        rows["K1", "stripe", K] = _row(
+            card, "K1", [shape[0], shape[1] * WORD], LIFE, 1,
+            _events_ms(one, 50),
+            _plain_ms(bit_step_plain, x, LIFE, 1, boundary="dead"),
+            8 * words / HBM_BYTES_PER_S * 1e3,
+            words * word_ops(LIFE) / INT32_OPS_PER_S * 1e3,
+            mode=f"sparse stripe, {K} tiles, dead", library_ms=None)
+        del x
+
+
 def phase4_times(card: str) -> dict:
     rows = {}
     x = init_packed(FLAGSHIP, FLAGSHIP, SEED, device="cuda")
@@ -1340,6 +1652,7 @@ def phase4_times(card: str) -> dict:
     torch.cuda.empty_cache()
     _padded_times(card, rows)
     _batched_times(card, rows)
+    _sparse_times(card, rows)
     return rows
 
 
@@ -1352,29 +1665,45 @@ KERNEL_NAMES = {"K1": ("bit_step_kernel",),
 
 
 def _trace(card, label, size, rule, comm_every, steps,
-           boundary="periodic", boards=0) -> None:
+           boundary="periodic", boards=0, board=None) -> None:
     """The steady stepping of ``run_cuda``'s engine on one main path (or of
-    ``step_batched`` on a batch of ``boards``) under ``torch.profiler``,
-    inside a ``steady`` host range opened once the profiler has seen one
-    kernel: the device is busy for the union of its kernel intervals in
-    that range, and idle for the rest of it.  Host operations that run
-    before the first kernel say what delays it."""
+    ``step_batched`` on a batch of ``boards``, or of the sparse Life engine
+    from ``board()`` once its first generation has settled the map) under
+    ``torch.profiler``, inside a ``steady`` host range opened once the
+    profiler has seen one kernel: the device is busy for the union of its
+    kernel intervals in that range, and idle for the rest of it.  Host
+    operations that run before the first kernel say what delays it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    cfg = GolConfig(rows=size, cols=size, steps=steps, seed=SEED, rule=rule,
-                    comm_every=comm_every, boundary=boundary)
-    engine = backend.build_engine(cfg)
-    grid = (engine.init_grids(seeds=range(SEED, SEED + boards)) if boards
-            else engine.init_grid())
+    if board is not None:
+        engine = _sparse_engine()
+        grid = engine.step(activity.initial_state(board(), engine.sparse_plan),
+                           1)
+    else:
+        cfg = GolConfig(rows=size, cols=size, steps=steps, seed=SEED,
+                        rule=rule, comm_every=comm_every, boundary=boundary)
+        engine = backend.build_engine(cfg)
+        grid = (engine.init_grids(seeds=range(SEED, SEED + boards)) if boards
+                else engine.init_grid())
     engine.warm_up(boards=boards)
     engine.sync()
-    # one launch a pass of the path's kernel, and of K2 for the seam band
-    passes = -(-steps // comm_every)
+    # one launch a pass of the path's kernel, and of K2 for the seam band;
+    # the sparse path's launches follow its phases: its kernel's alone
+    passes = -(-steps // engine.depth)
     expected = {kid: 0 for kid in KERNELS}
     expected[engine.kernel_id] = passes
     if engine.seam:
         expected["K2"] = passes
+    reads = engine._evolve.reads if board is not None else 0
+    unprofiled_ms = None
+    if board is not None:
+        # the profiler's own host cost per operation lengthens a host-bound
+        # window: time one window without it too
+        t0 = time.perf_counter()
+        grid = engine.step(grid, steps)
+        engine.sync()
+        unprofiled_ms = (time.perf_counter() - t0) * 1e3
     lost = []  # kernels the profiler lost on an attempt it was retried for
     for attempt in (1, 2):
         with profile(activities=[ProfilerActivity.CPU,
@@ -1392,6 +1721,8 @@ def _trace(card, label, size, rule, comm_every, steps,
                 engine.sync()
         counted = {kid: w.launches - before[kid]
                    for kid, w in KERNELS.items()}
+        if board is not None:
+            expected[engine.kernel_id] = max(1, counted[engine.kernel_id])
         if counted != expected:
             fail(f"the {label} path launched {counted}, expected {expected} "
                  f"(one a pass)")
@@ -1460,7 +1791,12 @@ def _trace(card, label, size, rule, comm_every, steps,
           # its extract and stitch), by the same union
           "other_kernels_ms": sum(us for n, (_, us) in by_name.items()
                                   if own not in n) / 1e3,
-          "steps": steps, "comm_every": comm_every, "launches": launches,
+          "steps": steps, "comm_every": comm_every,
+          "pass_depth": engine.depth, "launches": launches,
+          "sparse_tile": board is not None and SPARSE_T,
+          # host reads of the active count over both attempts (sparse path)
+          "host_reads": (engine._evolve.reads - reads
+                         if board is not None else 0),
           # the path kernel's launches the trace holds in its window, and
           # every kernel's launches, counted and in the whole trace
           "traced_launches": traced,
@@ -1470,6 +1806,11 @@ def _trace(card, label, size, rule, comm_every, steps,
           "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
           # None when the profiler recorded no device activity
           "idle_share": 1 - busy_us / wall_us if spans else None,
+          # the sparse path: a window of the same steps without the
+          # profiler, and the idle share its device time implies there
+          "unprofiled_wall_ms": unprofiled_ms,
+          "idle_share_unprofiled": (1 - busy_us / 1e3 / unprofiled_ms
+                                    if unprofiled_ms else None),
           # where the idle time lies: before the first kernel, between
           # kernels (and the largest such gap), after the last
           "first_kernel_after_ms": (first - steady.start) / 1e3,
@@ -1492,6 +1833,10 @@ def phase5_traces(card: str) -> None:
         _trace(card, label, PADDED, rule, k, n, boundary)
     label, B, size, rule, k, n, _ = BATCH_PATH
     _trace(card, label, size, rule, k, n, boards=B)
+    label, rule, k, n = DEEP_PATH
+    _trace(card, label, DENSE, rule, k, n)
+    _trace(card, "sparse_life", FLAGSHIP, LIFE, 1, SPARSE_STEPS - 1,
+           board=_sparse_board)
 
 
 def main() -> int:

@@ -10,9 +10,11 @@ checks the plan and prints its notes, ``Engine`` holds the stepper,
   (``ops/cuda_bitlife.py``);
 * ``"ltl"``: radius 2..7 with comm_every <= ⌊8/r⌋, packed words on bit
   planes, kernel K3 (``ops/cuda_bitltl.py``);
-* ``"dense"``: any other rule and depth with comm_every x r <= 16, and the
-  widths the pad plan leaves alone, uint8 cells, kernel K2
-  (``ops/cuda_stencil.py``).
+* ``"dense"``: any other rule and depth, and the widths the pad plan
+  leaves alone, uint8 cells, kernel K2 (``ops/cuda_stencil.py``).  Where
+  comm_every x r exceeds K2's 16-cell halo it runs passes of ⌊16/r⌋
+  generations (``pass_depth``): on one device every comm_every gives the
+  same grid.
 
 A width that is not a whole number of 32-cell words rides the packed
 engines at the padded width (``plan_pad_width``, the reference's
@@ -26,6 +28,16 @@ on K2 with the reference's note.
 Batches: ``Engine.step_batched`` steps a stacked (B, ...) batch of boards
 of one configuration with one kernel launch per pass for the whole batch
 (the kernels' board axis), padded and seam engines included.
+
+Sparse stepping (``sparse_tile``): the engine steps a
+``ops/activity.py:SparseState`` (the grid and its tile map), gathering
+the active tiles into a stripe stepped by the engine's own kernel at a
+dead boundary, and falling back to the engine's dense pass when the board
+is busy.  The host decides each phase from the active count, one read per
+gather and per probe, and ``step_batched`` steps each board's phases in
+turn.  A radius > 1 rule at a width that is not whole words takes K2 at
+the real width there, as the reference does off the TPU: the packed
+engines would pad it, and no sparse engine runs on a padded width.
 
 Kernel build and warm-up count as setup, as compilation does in the
 reference; the segment loop is the timed steady state.
@@ -45,7 +57,10 @@ import torch
 
 from mpi_tpu_torch.config import WORD, ConfigError, GolConfig, plan_segments
 from mpi_tpu_torch.interop import dense_from_numpy
-from mpi_tpu_torch.ops import bitlife, cuda_bitlife, cuda_bitltl, cuda_stencil
+from mpi_tpu_torch.ops import (
+    activity, bitlife, cuda_bitlife, cuda_bitltl, cuda_stencil,
+)
+from mpi_tpu_torch.ops.activity import SparseState
 from mpi_tpu_torch.parallel import seam
 from mpi_tpu_torch.utils.hashinit import init_dense
 from mpi_tpu_torch.utils.segmenting import segment_depths, segmented_evolve
@@ -92,9 +107,17 @@ def plan_engine(config: GolConfig) -> Tuple[str, int, int, Tuple[str, ...]]:
     the TPU's lane and VMEM conditions, which the port's kernels do not
     have.  Where the reference would take a 1x1-mesh stepper, the port
     takes K2 at the real width.  The notes say why a non-word-aligned
-    width stays on K2, in the reference's words.  ``GolConfig`` refuses
-    what no kernel serves (comm_every x r > 16)."""
+    width stays on K2, in the reference's words.  With ``sparse_tile``
+    set, a radius > 1 rule at a width that is not whole words stays on K2
+    at the real width, as the reference's engine does off the TPU, with a
+    note: padded, it could not run sparse."""
     r = config.rule.radius
+    if config.sparse_tile and r > 1 and config.cols % WORD:
+        return "dense", config.cols, 0, (
+            f"sparse_tile {config.sparse_tile} on a radius-{r} rule at a "
+            f"width of {config.cols} cells, not whole words: dense engine "
+            f"at the real width (the packed engines would pad it, and "
+            f"sparse stepping does not run on a padded width)",)
     cols_eff, pad_bits = plan_pad_width(config)
     if cols_eff % WORD == 0:
         if r == 1:
@@ -119,6 +142,56 @@ def select_engine(config: GolConfig) -> str:
     """``"bit"``, ``"ltl"`` or ``"dense"``: the engine ``plan_engine``
     picks."""
     return plan_engine(config)[0]
+
+
+def pass_depth(config: GolConfig, kind: Optional[str] = None) -> int:
+    """Generations per kernel pass on engine ``kind`` (the planned one when
+    None): ``comm_every``, except on K2 where comm_every x r exceeds its
+    halo (``cuda_stencil.MAX_DEPTH``): there ⌊16/r⌋, the deepest pass K2
+    serves, which needs the fewest launches.  On one device every
+    comm_every gives the same grid."""
+    kind = kind or select_engine(config)
+    if kind == "dense":
+        return min(config.comm_every,
+                   cuda_stencil.MAX_DEPTH // config.rule.radius)
+    return config.comm_every
+
+
+def sparse_dense_depth(kind: str, rule) -> int:
+    """Generations per pass of a sparse engine's unprobed dense chunks: the
+    deepest of 8, 4, 2 and 1 that the engine's kernel serves for ``rule``
+    (1 for a birth-on-0 rule).  Every chunk of ``activity.DENSE_CHUNKS``
+    but the last is a multiple of it."""
+    if 0 in rule.birth:
+        return 1
+    top = {"bit": cuda_bitlife.MAX_GENS,
+           "ltl": cuda_bitltl.max_gens(rule.radius),
+           "dense": cuda_stencil.MAX_DEPTH // rule.radius}[kind]
+    return max(d for d in (8, 4, 2, 1) if d <= top)
+
+
+def plan_sparse(config: GolConfig, kind: str, cols_eff: int,
+                pad_bits: int) -> activity.TilePlan:
+    """The tile plan of a sparse run, with the reference's refusals
+    (``mpi_tpu.backends.tpu.build_engine``): on the packed engines the
+    tile is a whole number of words, and no sparse run takes a padded
+    width."""
+    T = config.sparse_tile
+    packed = kind != "dense"
+    if packed and T % WORD != 0:
+        raise ConfigError(
+            f"sparse_tile {T} must be a multiple of {WORD} on the "
+            f"packed engines (tiles are expressed in words); use a "
+            f"multiple of {WORD} or a rule/width that takes the "
+            f"dense engine")
+    if pad_bits:
+        raise ConfigError(
+            f"sparse_tile on a pad-to-32 width ({config.cols} cols) "
+            f"is unsupported; use a word-aligned width")
+    return activity.make_plan(
+        rows=config.rows, cols_units=cols_eff // WORD if packed else cols_eff,
+        tile_px=T, radius=config.rule.radius,
+        periodic=config.boundary == "periodic", packed=packed)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -149,34 +222,48 @@ class Engine:
     buffers do: the engine keeps the input as the spare buffer of its
     ping-pong pair, and the next step of that shape writes into it.
     Callers must replace their reference with the returned grid and never
-    read the old one.
+    read the old one.  Each pass runs ``depth`` generations (``pass_depth``)
+    and a shorter remainder.
 
     A padded engine (``pad_bits`` > 0) holds ``cols_eff`` columns of which
     the first ``config.cols`` are real (``col_limit``); the pad is always
     zero, so ``population`` is exact, and ``fetch`` and ``tiles`` crop to
-    the real width.  ``notes`` are the planning notes ``build_engine``
-    printed."""
+    the real width.
+
+    A sparse engine (``sparse_plan`` set) passes an
+    ``ops/activity.py:SparseState`` where the others pass a grid: the grid
+    and its [nti, ntj] tile map, both stacked on a board axis in a batch.
+    ``raw_grid`` unwraps it; ``sparse_stats`` reads its active set.  Its
+    ``step_batched`` steps the boards one after another, each with its own
+    phases, so its launches are per board, not one a pass.
+
+    ``notes`` are the planning notes ``build_engine`` printed."""
 
     def __init__(self, config: GolConfig, device: torch.device, kind: str,
                  depths=(1,), cols_eff: Optional[int] = None,
-                 pad_bits: int = 0, notes=()):
+                 pad_bits: int = 0, notes=(), depth: Optional[int] = None,
+                 sparse_plan: Optional[activity.TilePlan] = None):
         self.config = config
         self.device = device
         self.kind = kind
         self.depths = sorted(set(depths)) or [1]
+        self.depth = config.comm_every if depth is None else depth
         self.bitpacked = kind != "dense"
         self.kernel_id, self._kernel, _ = KERNELS[kind]
         self.cols_eff = config.cols if cols_eff is None else cols_eff
         self.pad_bits = pad_bits
         self.col_limit = config.cols if pad_bits else None
         self.notes = tuple(notes)
+        self.sparse_plan = sparse_plan
         # the seam band repairs a periodic padded grid's wrap columns
         self.seam = pad_bits > 0 and config.boundary == "periodic"
         if self.seam:
             self._evolve = seam.make_seam_stepper(
                 self._pass, config.rule, config.cols, config.comm_every)
+        elif sparse_plan is not None:
+            self._evolve = self._sparse_evolve(sparse_plan)
         else:
-            self._evolve = segmented_evolve(self._pass, config.comm_every)
+            self._evolve = segmented_evolve(self._pass, self.depth)
         # the spare buffer of the ping-pong pair, one for a solo grid (rank 2)
         # and one for a batch (rank 3), replaced when the shape changes
         self._spares = {}
@@ -190,14 +277,44 @@ class Engine:
         return self._kernel(src, self.config.rule, self.config.boundary,
                             gens=k, out=dst)
 
+    def _stripe_step(self, stripe, out):
+        """One generation of a sparse stripe: the engine's kernel at a dead
+        boundary (the stripe's halo holds the tiles' neighbours)."""
+        return self._kernel(stripe, self.config.rule, "dead", gens=1, out=out)
+
+    def _sparse_evolve(self, plan: activity.TilePlan):
+        return activity.make_sparse_evolve(
+            self._pass, self._stripe_step, plan,
+            sparse_dense_depth(self.kind, self.config.rule))
+
     def _shape(self) -> Tuple[int, int]:
         cols = self.cols_eff // WORD if self.bitpacked else self.config.cols
         return self.config.rows, cols
 
-    def init_grid(self, initial=None, seed=None) -> torch.Tensor:
+    def raw_grid(self, grid):
+        """The grid tensor behind a step state: unwraps a sparse engine's
+        ``SparseState``, identity on the others."""
+        return grid.grid if self.sparse_plan is not None else grid
+
+    def sparse_stats(self, grid) -> Optional[dict]:
+        """The active set a sparse engine's state implies for its next step
+        (``activity.activity_stats``: one small reduction, one host read);
+        None on a dense engine."""
+        if self.sparse_plan is None:
+            return None
+        return activity.activity_stats(grid, self.sparse_plan)
+
+    def init_grid(self, initial=None, seed=None):
         """A fresh grid on the device: the hash init of ``seed`` (default
         config.seed), or the uint8 0/1 ``initial`` grid; a padded grid's
-        pad starts dead."""
+        pad starts dead.  A sparse engine wraps it in a ``SparseState``
+        with every tile marked changed."""
+        grid = self._init_raw(initial, seed)
+        if self.sparse_plan is not None:
+            return activity.initial_state(grid, self.sparse_plan)
+        return grid
+
+    def _init_raw(self, initial, seed) -> torch.Tensor:
         rows, cols = self.config.rows, self.config.cols
         if initial is not None:
             initial = np.asarray(initial, dtype=np.uint8)
@@ -218,7 +335,7 @@ class Engine:
                                    col_limit=self.col_limit,
                                    device=self.device)
 
-    def init_grids(self, seeds=None, initials=None) -> torch.Tensor:
+    def init_grids(self, seeds=None, initials=None):
         """A fresh stacked (B, ...) batch: one board per entry of ``seeds``
         (hash init) or ``initials`` (uint8 grids)."""
         if initials is not None:
@@ -227,23 +344,33 @@ class Engine:
             boards = [self.init_grid(seed=s) for s in seeds]
         return self.stack_grids(boards)
 
-    def stack_grids(self, grids) -> torch.Tensor:
-        """One (B, ...) batch from B grids of this engine."""
-        return torch.stack(list(grids))
+    def stack_grids(self, grids):
+        """One (B, ...) batch from B grids (or sparse states) of this
+        engine."""
+        grids = list(grids)
+        if self.sparse_plan is not None:
+            return SparseState(torch.stack([g.grid for g in grids]),
+                               torch.stack([g.changed for g in grids]))
+        return torch.stack(grids)
 
-    def unstack_grids(self, batched: torch.Tensor) -> list:
-        """The B grids of a stacked batch, each in a buffer of its own."""
+    def unstack_grids(self, batched) -> list:
+        """The B grids (or sparse states) of a stacked batch, each in
+        buffers of its own."""
+        if self.sparse_plan is not None:
+            return [SparseState(g.clone(), c.clone()) for g, c in
+                    zip(batched.grid.unbind(0), batched.changed.unbind(0))]
         return [b.clone() for b in batched.unbind(0)]
 
     def warm_up(self, boards: int = 0) -> None:
         """Build and load the kernel and launch it once at each pass depth
         of the run on a one-cell or one-word grid (and for a seam engine
         run the band's extraction and stitch on a one-row grid and its K2
-        step at its height, so that its index tensors exist and PyTorch's
-        kernels are loaded), and
-        allocate the spare buffer of the ping-pong pair (and of a batch of
-        ``boards``), so the first timed pass pays no build, module load,
-        first-launch setup, host-to-device copy or ``cudaMalloc``."""
+        step at its height; for a sparse engine run every phase on a zero
+        grid of 3 x 3 tiles, so that PyTorch's kernels for them are
+        loaded), and allocate the spare buffer of the ping-pong pair (and
+        of a batch of ``boards``), so the first timed pass pays no build,
+        module load, first-launch setup, host-to-device copy or
+        ``cudaMalloc``."""
         dtype = torch.int32 if self.bitpacked else torch.uint8
         rule = self.config.rule
         shape = self._shape()
@@ -259,53 +386,109 @@ class Engine:
                     seam.stitch_band(tiny, seam.extract_band(tiny, C, d), C, d)
                 seam.step_band(torch.zeros((shape[0], 4 * d), dtype=torch.uint8,
                                            device=self.device), rule, k)
+        if self.sparse_plan is not None:
+            self._warm_sparse(dtype)
+            boards = 0  # a sparse batch steps board by board
         for key in [shape] + ([(boards, *shape)] if boards else []):
             self._spares[len(key)] = torch.empty(key, dtype=dtype,
                                                  device=self.device)
+
+    def _warm_sparse(self, dtype) -> None:
+        # 3 x 3 tiles of zeros: a dense chunk of 8 and the probe (every tile
+        # starts changed), then a gather of plan.gens and one of 1 (the probe
+        # found nothing changed)
+        p = self.sparse_plan
+        tiny = activity.make_plan(
+            rows=3 * p.tile_r, cols_units=3 * p.tile_c, tile_px=p.tile_px,
+            radius=self.config.rule.radius, periodic=p.periodic,
+            packed=self.bitpacked)
+        grid = torch.zeros((3 * p.tile_r, 3 * p.tile_c), dtype=dtype,
+                           device=self.device)
+        state, spare = activity.initial_state(grid, tiny), None
+        evolve = self._sparse_evolve(tiny)
+        for n in (activity.DENSE_CHUNKS[-2] + 1, tiny.gens + 1):
+            state, spare = evolve(state, n, spare)
 
     def sync(self) -> None:
         """Wait for the device: closes every timed region."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _advance(self, grid: torch.Tensor, n: int) -> torch.Tensor:
-        rank = grid.dim()
-        spare = self._spares.pop(rank, None)
+    def _take_spare(self, grid: torch.Tensor) -> torch.Tensor:
+        spare = self._spares.pop(grid.dim(), None)
         if (spare is None or spare.shape != grid.shape
                 or spare.device != grid.device
                 or spare.data_ptr() == grid.data_ptr()):
             del spare  # freed before its replacement is allocated
             spare = torch.empty_like(grid)
-        grid, self._spares[rank] = self._evolve(grid, n, spare)
+        return spare
+
+    def _advance(self, grid: torch.Tensor, n: int) -> torch.Tensor:
+        spare = self._take_spare(grid)
+        grid, self._spares[grid.dim()] = self._evolve(grid, n, spare)
         return grid
 
-    def step(self, grid: torch.Tensor, n: int) -> torch.Tensor:
-        """Advance ``grid`` by ``n`` generations; consumes ``grid``."""
+    def _state(self, grid):
+        if (self.sparse_plan is not None) != isinstance(grid, SparseState):
+            raise TypeError("a sparse engine steps a SparseState and any "
+                            "other engine a tensor; init_grid gives the "
+                            "engine's kind")
+        return grid
+
+    def _advance_sparse(self, state: SparseState, n: int) -> SparseState:
+        spare = self._take_spare(state.grid)
+        state, self._spares[2] = self._evolve(state, n, spare)
+        return state
+
+    def step(self, grid, n: int):
+        """Advance ``grid`` (a sparse engine's ``SparseState``) by ``n``
+        generations; consumes ``grid``."""
+        grid = self._state(grid)
         if n <= 0:
             return grid
         self.step_calls += 1
+        if self.sparse_plan is not None:
+            return self._advance_sparse(grid, n)
         return self._advance(grid, n)
 
-    def step_units(self, grid: torch.Tensor, n: int) -> torch.Tensor:
+    def step_units(self, grid, n: int):
         """``n`` chained depth-1 steps with no sync between them (the one
         depth every serve session warms); consumes ``grid``."""
         for _ in range(max(0, int(n))):
             grid = self.step(grid, 1)
         return grid
 
-    def step_batched(self, grids: torch.Tensor, n: int) -> torch.Tensor:
+    def step_batched(self, grids, n: int):
         """Advance every board of a stacked (B, ...) batch by ``n``
-        generations, one kernel launch per pass for the whole batch;
+        generations, one kernel launch per pass for the whole batch (a
+        sparse engine steps the boards in turn, each with its own phases);
         consumes ``grids``."""
+        grids = self._state(grids)
         if n <= 0:
             return grids
-        if grids.dim() != 3:
+        if self.raw_grid(grids).dim() != 3:
             raise ValueError(f"a batch is (B, rows, cols), got "
-                             f"{tuple(grids.shape)}")
+                             f"{tuple(self.raw_grid(grids).shape)}")
         self.batched_step_calls += 1
+        if self.sparse_plan is not None:
+            return self._step_boards(grids, n)
         return self._advance(grids, n)
 
-    def step_batched_units(self, grids: torch.Tensor, n: int) -> torch.Tensor:
+    def _step_boards(self, states: SparseState, n: int) -> SparseState:
+        # each board steps in its batch's buffers; a result the dense phase
+        # left in the private spare is copied back, and no view of the batch
+        # is ever kept as the spare
+        spare = self._take_spare(states.grid[0])
+        for g, c in zip(states.grid.unbind(0), states.changed.unbind(0)):
+            (new, changed), spare = self._evolve(SparseState(g, c), n, spare)
+            if new.data_ptr() != g.data_ptr():
+                g.copy_(new)
+                spare = new
+            c.copy_(changed)
+        self._spares[2] = spare
+        return states
+
+    def step_batched_units(self, grids, n: int):
         """Batched :meth:`step_units`: ``n`` chained depth-1 batched steps
         with no sync between them; consumes ``grids``."""
         for _ in range(max(0, int(n))):
@@ -316,7 +499,8 @@ class Engine:
         """A ``step(grids, n)`` callable pinned to batch width ``B``; it
         raises on a batch of another width."""
         def step(grids, n):
-            got = grids.shape[0] if grids.dim() == 3 else None
+            raw = self.raw_grid(grids)
+            got = raw.shape[0] if raw.dim() == 3 else None
             if got != B:
                 raise ValueError(f"batched stepper built for B={B}, got {got}")
             return self.step_batched(grids, n)
@@ -325,9 +509,12 @@ class Engine:
         step.engine = self
         return step
 
-    def fetch(self, grid: torch.Tensor) -> np.ndarray:
+    def fetch(self, grid) -> np.ndarray:
         """The grid as a host uint8 0/1 array cropped to the real width,
         unpacked on the device a block of rows at a time."""
+        return self._fetch(self.raw_grid(grid))
+
+    def _fetch(self, grid: torch.Tensor) -> np.ndarray:
         if not self.bitpacked:
             return grid.cpu().numpy().copy()
         rows, nw = grid.shape
@@ -339,24 +526,26 @@ class Engine:
             out[r0:r0 + step] = cells.cpu().numpy()
         return out
 
-    def fetch_batched(self, grids: torch.Tensor) -> List[np.ndarray]:
+    def fetch_batched(self, grids) -> List[np.ndarray]:
         """Each board of a stacked batch as a host array (cropped to the
         real width)."""
-        return [self.fetch(g) for g in grids]
+        return [self._fetch(g) for g in self.raw_grid(grids)]
 
-    def tiles(self, grid: torch.Tensor):
+    def tiles(self, grid):
         """Snapshot tiles ``(pid, tile, r0, c0)``: one device, one tile."""
         return [(0, self.fetch(grid), 0, 0)]
 
-    def population(self, grid: torch.Tensor) -> int:
+    def population(self, grid) -> int:
         """Live cells, counted on the device (the pad is always dead)."""
+        grid = self.raw_grid(grid)
         if not self.bitpacked:
             return int(grid.sum(dtype=torch.int64).item())
         return bitlife.population(grid)
 
-    def population_batched(self, grids: torch.Tensor) -> List[int]:
+    def population_batched(self, grids) -> List[int]:
         """Live cells of each board of a stacked batch: one reduction on
         the device, one host transfer of B counts."""
+        grids = self.raw_grid(grids)
         cells = grids if not self.bitpacked else bitlife.popcount(grids)
         counts = cells.sum(dim=(1, 2), dtype=torch.int64)
         return [int(v) for v in counts.cpu()]
@@ -364,25 +553,53 @@ class Engine:
 
 def build_engine(config: GolConfig, device=None, depths=None) -> Engine:
     """The engine for ``config`` on ``device`` (the GPU when None).
-    ``depths``: the pass depths that will run (default 1..comm_every);
-    each must be one the chosen kernel serves.  Planning notes print to
-    stderr as they are decided and stay on ``Engine.notes``."""
+    ``depths``: the pass depths that will run (default 1 to the pass
+    depth); each must be one the chosen kernel serves.  A sparse engine
+    runs depth 1 and its dense chunks' depth, and its stripes at every
+    rung.  Planning notes print to stderr and stay on ``Engine.notes``."""
     dev = resolve_device(device)
     kind, cols_eff, pad_bits, notes = plan_engine(config)
+    notes = list(notes)
+    kernel_id, _, refusal = KERNELS[kind]
+    rule, r = config.rule, config.rule.radius
+    depth = pass_depth(config, kind)
+    if depth < config.comm_every:
+        notes.append(
+            f"comm_every {config.comm_every} x radius {r} = "
+            f"{config.comm_every * r} > {cuda_stencil.MAX_DEPTH}, K2's "
+            f"halo: passes of depth {depth} (on one device every "
+            f"comm_every gives the same grid)")
+    sparse_plan, stripes = None, []
+    if config.sparse_tile:
+        sparse_plan = plan_sparse(config, kind, cols_eff, pad_bits)
+        p = sparse_plan
+        unit = p.cell_cols_per_unit
+        stripes = [(p.stripe_shape(K)[0], p.stripe_shape(K)[1] * unit)
+                   for K in p.capacities]
+        dense_depth = sparse_dense_depth(kind, rule)
+        depths = (1, dense_depth)
+        notes.append(
+            f"sparse stepping on {p.tile_px}x{p.tile_px} tiles ({p.nti}x"
+            f"{p.ntj}, rungs {list(p.capacities)}, {p.gens} generations a "
+            f"gather, dense chunks in passes of {dense_depth}): the host "
+            f"reads the active count once a phase (after each gather and "
+            f"each probe); step_batched steps each board's phases in turn, "
+            f"with launches per board")
+    elif depths is None:
+        depths = range(1, depth + 1)
     for msg in notes:
         print(f"note: {msg}", file=sys.stderr)
-    kernel_id, _, refusal = KERNELS[kind]
-    if depths is None:
-        depths = range(1, config.comm_every + 1)
     depths = [k for k in depths if k > 0]
-    shape = (config.rows, cols_eff)
-    for k in depths:
-        reason = refusal(shape, config.rule, k, config.boundary)
+    checks = ([((config.rows, cols_eff), k, config.boundary) for k in depths]
+              + [(s, 1, "dead") for s in stripes])
+    for shape, k, boundary in checks:
+        reason = refusal(shape, rule, k, boundary)
         if reason:
-            raise ConfigError(f"kernel {kernel_id} cannot run {config.rule} "
+            raise ConfigError(f"kernel {kernel_id} cannot run {rule} "
                               f"at depth {k} on a {shape[0]}x{shape[1]} "
                               f"grid: {reason}")
-    return Engine(config, dev, kind, depths, cols_eff, pad_bits, notes)
+    return Engine(config, dev, kind, depths, cols_eff, pad_bits, notes,
+                  depth=depth, sparse_plan=sparse_plan)
 
 
 def run_cuda(
@@ -402,7 +619,7 @@ def run_cuda(
     segments = plan_segments(
         config.steps, config.snapshot_every if want_snapshots else 0)
     engine = build_engine(config, device=device,
-                          depths=segment_depths(segments, config.comm_every))
+                          depths=segment_depths(segments, pass_depth(config)))
     grid = engine.init_grid(initial=initial)
     engine.warm_up()
     engine.sync()

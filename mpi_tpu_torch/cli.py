@@ -8,15 +8,18 @@ Examples::
     python -m mpi_tpu_torch.cli 512 512 10 50 --save --out-dir /tmp/run
     python -m mpi_tpu_torch.cli 512 512 10 50 --backend serial --save
     python -m mpi_tpu_torch.cli 64 64 10 50 --device cpu --resume NAME@50
+    python -m mpi_tpu_torch.cli 65536 65536 0 1000 --sparse 128
 
 ``--backend cuda`` (the default) runs on the GPU through one of three
 kernels (``backends/cuda.py:select_engine``): K1 for radius-1 rules, K3
 for Larger-than-Life rules (radius 2..7) with ``--comm-every`` <= ⌊8/r⌋,
 on a width of whole 32-cell words or padded to one (a periodic padded
 width has its seam columns recomputed on a thin band, where the band
-serves), and K2 for every other width or depth with comm-every x radius
-<= 16; ``--comm-every auto`` picks the depth (``parallel/policy.py``);
-``--device cpu`` runs the kernel's plain PyTorch version instead.
+serves), and K2 for every other width or depth, in passes of at most
+⌊16/r⌋ generations; ``--comm-every auto`` picks the depth
+(``parallel/policy.py``); ``--sparse T`` steps only the T x T tiles that
+can change (``ops/activity.py``); ``--device cpu`` runs the kernel's plain
+PyTorch version instead.
 ``serial`` runs the numpy oracle.
 Every backend writes the same ``.gol`` files and the same two timing
 reports.
@@ -69,10 +72,17 @@ def build_parser() -> argparse.ArgumentParser:
                    % golio.GOLP_THRESHOLD)
     p.add_argument("--out-dir", default=".")
     p.add_argument("--comm-every", default="1", metavar="K",
-                   help="cuda backend: generations per kernel pass (1..16, "
-                   "and comm-every x radius <= 16 off the packed engines), "
-                   "the kernel's temporal-blocking depth, or 'auto' to pick "
+                   help="cuda backend: generations per kernel pass (1..16; "
+                   "the dense kernel runs at most 16/radius a pass), the "
+                   "kernel's temporal-blocking depth, or 'auto' to pick "
                    "it from the kernel the run lands on")
+    p.add_argument("--sparse", type=int, default=0, metavar="T",
+                   help="cuda backend: activity-gated sparse stepping with "
+                   "TxT dirty tiles (ops/activity.py) — skip tiles that "
+                   "provably cannot change (bit-identical; automatic "
+                   "hysteresis fallback to dense when the board is busy). "
+                   "T must divide the grid; multiple of 32 on the packed "
+                   "engines. 0 = dense (default)")
     p.add_argument("--name", default=None, help="run name (default: timestamp)")
     p.add_argument("--strict", action="store_true",
                    help="enforce the reference's validation rules "
@@ -121,6 +131,7 @@ def _run(args) -> int:
         boundary=args.boundary,
         backend=args.backend,
         comm_every=comm_every,
+        sparse_tile=args.sparse,
     )
     if auto_comm:
         import dataclasses

@@ -1,16 +1,14 @@
 """Run configuration of the port: the single-device subset of
 ``mpi_tpu.config``.
 
-The fields keep the reference's names and meanings.  What no kernel of
-the port serves yet is refused here with a :class:`ConfigError` that names
-the ROADMAP item which brings it, rather than run on a slower path: device
-meshes, ``overlap``, ``sparse_tile``, and on the ``cuda`` backend a
-``comm_every`` deeper than kernel K2's halo (comm_every x radius >
-``cuda_stencil.MAX_DEPTH``), which the packed kernels, shallower still,
-cannot take either, and which the reference serves with its 1x1-mesh
-stepper (ROADMAP queue 1 item 13).  Every other rule and width runs on
-one of kernels K1, K2 and K3 (``backends/cuda.py:select_engine``, padded
-widths included); the ``serial`` oracle serves any rule and width.
+The fields keep the reference's names and meanings, and ``sparse_tile``
+the reference's checks.  What the port does not serve yet is refused here
+with a :class:`ConfigError` that names the ROADMAP item which brings it:
+device meshes and ``overlap`` (item 13).  Every other rule, width and
+``comm_every`` runs on one of kernels K1, K2 and K3
+(``backends/cuda.py:select_engine``, padded widths included; K2 runs a
+comm_every deeper than its halo as passes of ⌊16/r⌋ generations); the
+``serial`` oracle serves any rule and width.
 """
 
 from __future__ import annotations
@@ -19,7 +17,6 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 from mpi_tpu_torch.models.rules import LIFE, Rule
-from mpi_tpu_torch.ops.cuda_stencil import MAX_DEPTH as MAX_DENSE_DEPTH
 
 WORD = 32  # cells per packed word
 BACKENDS = ("cuda", "serial")
@@ -52,7 +49,7 @@ class GolConfig:
     mesh_shape: Optional[Tuple[int, int]] = None  # only None or (1, 1) here
     comm_every: int = 1              # cuda: generations per kernel pass (1..16)
     overlap: bool = False            # refused: multi-GPU slice
-    sparse_tile: int = 0             # refused: activity-gated slice
+    sparse_tile: int = 0             # cuda: sparse tile side in cells; 0 = dense
 
     def __post_init__(self):
         if self.rows <= 0 or self.cols <= 0:
@@ -86,21 +83,25 @@ class GolConfig:
                 "overlap needs a device mesh; multi-GPU meshes are ROADMAP "
                 "queue 1 item 13"
             )
+        if self.sparse_tile < 0:
+            raise ConfigError(f"sparse_tile must be >= 0, got {self.sparse_tile}")
         if self.sparse_tile:
-            raise ConfigError(
-                "sparse_tile: activity-gated stepping is ROADMAP queue 1 "
-                "item 10"
-            )
-        if self.backend == "cuda":
-            depth = self.rule.radius * self.comm_every
-            if depth > MAX_DENSE_DEPTH:
+            if self.backend != "cuda":
+                raise ConfigError("sparse_tile applies to the cuda backend only")
+            if self.comm_every != 1:
                 raise ConfigError(
-                    f"comm_every {self.comm_every} x radius "
-                    f"{self.rule.radius} = {depth} > {MAX_DENSE_DEPTH}: the "
-                    f"dense kernel K2 blocks at most {MAX_DENSE_DEPTH} cells "
-                    f"of halo and the packed kernels fewer; the 1x1-mesh "
-                    f"stepper that would serve it is ROADMAP queue 1 item 13"
-                )
+                    "sparse_tile requires comm_every=1 (the dirty map is "
+                    "maintained per generation)")
+            if self.rows % self.sparse_tile or self.cols % self.sparse_tile:
+                raise ConfigError(
+                    f"sparse_tile {self.sparse_tile} must divide the grid "
+                    f"({self.rows}x{self.cols})")
+            if self.sparse_tile < self.rule.radius:
+                raise ConfigError(
+                    f"sparse_tile {self.sparse_tile} smaller than the rule "
+                    f"radius {self.rule.radius} (one-ring dilation would "
+                    f"miss changes)")
+        if self.backend == "cuda":
             validate_size(self.rows, self.cols,
                           self.rule.radius * self.comm_every)
 

@@ -1,7 +1,8 @@
 """Carry state between the JAX package and the port: packed uint32 words
 as numpy arrays on one side, int32 tensors of the same bit pattern on the
-other; dense uint8 0/1 cells as numpy arrays and uint8 tensors; and rules
-rebuilt from their fields."""
+other; dense uint8 0/1 cells as numpy arrays and uint8 tensors; a sparse
+engine's state (the grid and its bool tile map); and rules rebuilt from
+their fields."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import numpy as np
 import torch
 
 from mpi_tpu_torch.models.rules import Rule
+from mpi_tpu_torch.ops.activity import SparseState
 
 
 def grid_from_numpy(packed_u32: np.ndarray, device) -> torch.Tensor:
@@ -40,6 +42,38 @@ def dense_to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.uint8:
         raise TypeError(f"dense cells must be uint8, got {t.dtype}")
     return t.detach().cpu().contiguous().numpy()
+
+
+def sparse_from_numpy(grid: np.ndarray, changed: np.ndarray,
+                      device) -> SparseState:
+    """The fields of a reference ``SparseState`` as numpy arrays (uint32
+    packed words or uint8 cells, and the bool tile map, each with or
+    without a leading board axis) → the port's ``SparseState`` on
+    ``device``, in buffers of its own (the engine writes a sparse grid in
+    place)."""
+    grid = np.array(grid, order="C")
+    changed = np.array(changed, order="C")
+    if changed.dtype != np.bool_ or changed.ndim != grid.ndim:
+        raise TypeError(f"the tile map must be bool of the grid's rank, got "
+                        f"{changed.dtype} {changed.shape}")
+    if grid.dtype == np.uint32:
+        t = torch.from_numpy(grid.view(np.int32))
+    elif grid.dtype == np.uint8:
+        t = torch.from_numpy(grid)
+    else:
+        raise TypeError(f"the grid must be uint32 words or uint8 cells, got "
+                        f"{grid.dtype}")
+    return SparseState(t.to(device), torch.from_numpy(changed).to(device))
+
+
+def sparse_to_numpy(state: SparseState):
+    """A port ``SparseState`` → (grid, changed) numpy arrays, the fields of
+    the reference's ``SparseState``: packed words as uint32, cells as
+    uint8, the tile map as bool."""
+    grid = state.grid.detach().cpu().contiguous().numpy()
+    if grid.dtype == np.int32:
+        grid = grid.view(np.uint32)
+    return grid, state.changed.detach().cpu().numpy()
 
 
 def rule_from_fields(name: str, birth, survive, radius: int = 1) -> Rule:

@@ -57,8 +57,11 @@ def resolve_auto(config) -> int:
     from mpi_tpu_torch.backends.cuda import select_engine
 
     def route(g: int) -> Optional[str]:
+        # judged without sparse_tile, which holds comm_every at 1: the
+        # config then refuses the depth picked, as the reference's does
         try:
-            return select_engine(dataclasses.replace(config, comm_every=g))
+            return select_engine(dataclasses.replace(
+                config, comm_every=g, sparse_tile=0))
         except ConfigError:  # the grid is smaller than the depth's halo
             return None
 

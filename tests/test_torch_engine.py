@@ -15,7 +15,7 @@ from mpi_tpu.backends.tpu import run_tpu
 from mpi_tpu.cli import main as jax_main
 from mpi_tpu.config import GolConfig as JaxConfig
 from mpi_tpu.models.rules import rule_from_name as jax_rule_from_name
-from mpi_tpu_torch import interop
+from mpi_tpu_torch import golio, interop
 from mpi_tpu_torch.backends import cuda as port
 from mpi_tpu_torch.backends.serial_np import evolve_np
 from mpi_tpu_torch.cli import main as port_main
@@ -109,16 +109,23 @@ def test_cli_resume_continues_the_run(tmp_path):
     assert (tmp_path / "b.gol").read_text() == "32 64 6 12 1\n"
 
 
+@pytest.mark.parametrize("cols,rule,comm", [(48, "bosco", "4"),
+                                            (64, "R3,B20-25,S18-30", "6")])
+def test_cli_serves_comm_every_beyond_k2s_halo(cols, rule, comm, tmp_path):
+    # 4 x 5 = 20 and 6 x 3 = 18 cells of halo, beyond K2's 16: K2 runs
+    # passes of 3 and 5 generations, the same grid on one device
+    d = ["--out-dir", str(tmp_path), "--device", "cpu", "--quiet",
+         "--name", "n", "--save"]
+    assert port_main(["32", str(cols), "4", "4", "--rule", rule,
+                      "--comm-every", comm] + d) == 0
+    got = golio.load_snapshot(str(tmp_path), "n", 4)
+    want = evolve_np(init_tile_np(32, cols, 0), 4, rule_from_name(rule),
+                     "periodic")
+    np.testing.assert_array_equal(got, want)
+
+
 def test_cli_refuses_what_this_slice_does_not_run(tmp_path, capsys):
     d = ["--out-dir", str(tmp_path), "--device", "cpu", "--quiet"]
-    # 4 x 5 = 20 cells of halo: K2 blocks 16, and K3 one generation at r 5;
-    # the reference's 1x1-mesh stepper for it comes with meshes
-    assert port_main(["32", "48", "0", "4", "--rule", "bosco",
-                      "--comm-every", "4"] + d) == 2
-    assert "ROADMAP queue 1 item 13" in capsys.readouterr().err
-    assert port_main(["32", "64", "0", "4", "--rule", "R3,B20-25,S18-30",
-                      "--comm-every", "6"] + d) == 2
-    assert "item 13" in capsys.readouterr().err
     assert port_main(["32", "64", "0", "4", "--comm-every", "auto",
                       "--backend", "serial"] + d) == 2
     assert port_main(["32", "64", "0", "4", "--comm-every", "nope"] + d) == 2
@@ -129,12 +136,22 @@ def test_cli_refuses_what_this_slice_does_not_run(tmp_path, capsys):
     assert os.listdir(tmp_path) == []
 
 
+@pytest.mark.parametrize("kw,engine", [
+    (dict(sparse_tile=32), "bit"),
+    (dict(rule=BOSCO, comm_every=4), "dense"),
+    (dict(cols=80, rule=BOSCO, comm_every=4), "dense"),
+], ids=["sparse", "bosco-4", "bosco-4-ragged"])
+def test_config_serves_what_earlier_slices_refused(kw, engine):
+    cfg = GolConfig(**{**dict(rows=64, cols=64, steps=9, seed=2), **kw})
+    assert port.select_engine(cfg) == engine
+    want = evolve_np(init_tile_np(cfg.rows, cfg.cols, 2), 9, cfg.rule,
+                     "periodic")
+    np.testing.assert_array_equal(port.run_cuda(cfg, device="cpu"), want)
+
+
 def test_config_refuses_other_slices():
     for kw, item in [(dict(mesh_shape=(2, 1)), "item 13"),
-                     (dict(overlap=True), "item 13"),
-                     (dict(sparse_tile=32), "item 10"),
-                     (dict(rule=BOSCO, comm_every=4), "item 13"),
-                     (dict(cols=80, rule=BOSCO, comm_every=4), "item 13")]:
+                     (dict(overlap=True), "item 13")]:
         with pytest.raises(ConfigError, match=item):
             GolConfig(**{**dict(rows=64, cols=64, steps=1), **kw})
     GolConfig(rows=64, cols=64, steps=1, mesh_shape=(1, 1))
@@ -277,9 +294,10 @@ def test_select_engine_follows_the_reference_policy(kw, engine):
     eng = port.build_engine(cfg, device="cpu")
     assert (eng.kind, eng.bitpacked) == (engine, engine != "dense")
     assert eng.kernel_id == {"bit": "K1", "ltl": "K3", "dense": "K2"}[engine]
-    with pytest.raises(ConfigError, match="item 13"):  # the table's last row
-        GolConfig(**{**dict(rows=64, steps=1), **kw,
-                     "rule": R3, "comm_every": 6})
+    # the table's last row: 6 x 3 cells of halo, K2 in passes of 5
+    deep = GolConfig(**{**dict(rows=64, steps=1), **kw,
+                        "rule": R3, "comm_every": 6})
+    assert (port.select_engine(deep), port.pass_depth(deep)) == ("dense", 5)
 
 
 @pytest.mark.parametrize("kw", [

@@ -44,16 +44,23 @@ def test_cpu_slice_runs_without_loading_jax(tmp_path):
         "import mpi_tpu_torch.interop, mpi_tpu_torch.ops._build\n"
         "import mpi_tpu_torch.ops.cuda_bitltl, mpi_tpu_torch.ops.cuda_stencil\n"
         "import mpi_tpu_torch.parallel.seam, mpi_tpu_torch.parallel.policy\n"
+        "import mpi_tpu_torch.ops.activity\n"
         "from mpi_tpu_torch.backends.cuda import build_engine\n"
         "from mpi_tpu_torch.models.rules import BOSCO\n"
         "for kw in (dict(cols=64, comm_every=2), dict(cols=64, rule=BOSCO),"
         " dict(cols=50, rule=BOSCO, comm_every=2), dict(cols=50),"
-        " dict(cols=50, boundary='dead', rule=BOSCO)):\n"
-        "    run_cuda(GolConfig(rows=16, steps=5, **kw), device='cpu')\n"
+        " dict(cols=50, boundary='dead', rule=BOSCO),"
+        " dict(rows=32, cols=64, rule=BOSCO, comm_every=4),"
+        " dict(cols=48, sparse_tile=16, rule=BOSCO),"
+        " dict(rows=32, cols=64, sparse_tile=32)):\n"
+        "    run_cuda(GolConfig(**{'rows': 16, 'steps': 5, **kw}),"
+        " device='cpu')\n"
         "eng = build_engine(GolConfig(rows=16, cols=50, steps=0), 'cpu')\n"
         "eng.step_batched(eng.init_grids(seeds=[1, 2]), 3)\n"
         f"assert main(['16', '64', '2', '4', '--save', '--device', 'cpu',"
         f" '--quiet', '--out-dir', {str(tmp_path)!r}]) == 0\n"
+        f"assert main(['32', '64', '2', '4', '--sparse', '32', '--device',"
+        f" 'cpu', '--quiet', '--out-dir', {str(tmp_path)!r}]) == 0\n"
         f"assert main(['16', '50', '2', '4', '--comm-every', 'auto',"
         f" '--device', 'cpu', '--quiet', '--out-dir', {str(tmp_path)!r}]) == 0\n"
         "bad = [m for m in sys.modules"

@@ -80,7 +80,31 @@ Phases; any failure exits non-zero before the result line:
    kernel (the sparse path's follow its phases), the other kernels' time
    (the seam band; the sparse path's gathers, compares and write-backs),
    the device's idle share of the wall time, and no kernel build inside
-   it.
+   it;
+6. the serve layer (``mpi_tpu_torch/serve``) on the card: a
+   ``SessionManager`` creates 32 sessions of 4096² Life (comm_every 8; one
+   cache miss, 31 hits that warm nothing), and 32 threads step them 8
+   generations a request, coalesced into one K1 launch a round, whose
+   boards must equal ``step_batched``'s on the same seeds and the plain
+   version's; 8 sessions of 4096² Bosco on K3 (comm_every 1) and 8 on K2
+   (comm_every 3) step through tickets of mixed depths, equal to the plain
+   versions, with a state dir (checkpoint_every 64) from which a second
+   manager restores every session bit for bit after the first is shut
+   down, both stepping on equal; at 256², a transient injected fault
+   retries, an injected delay past the deadline is a ``DeadlineError``
+   with the session intact, and a tripped breaker degrades the session to
+   the oracle with equal boards, while a real failure of the card's engine
+   answers ``EngineUnavailableError`` with the session left on the card;
+   8 threads step 8 sessions on one 4096² Life engine solo (no batcher),
+   each board equal to the plain version's.  Outside those faults, no batched
+   fallback, engine failure or degraded session, and no kernel build
+   while serving.  A ``torch.profiler`` window of serving gives the
+   device's idle share and the K1 time, which the layer's own step time
+   (``batched_step_s``, and each session's ``steady_s`` when every round
+   coalesced) must reach: the wait for the device truly waits.  The
+   per-layer numbers: board-generations/s of serving against
+   ``step_batched`` alone on the same boards, requests/s and the host's
+   CPU ms a request.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -95,7 +119,9 @@ import os
 import re
 import subprocess
 import sys
+import shutil
 import tempfile
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -107,6 +133,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from mpi_tpu_torch.backends import cuda as backend  # noqa: E402
+from mpi_tpu_torch.backends.serial_np import evolve_np  # noqa: E402
 from mpi_tpu_torch.cli import main as cli_main  # noqa: E402
 from mpi_tpu_torch.config import WORD, GolConfig  # noqa: E402
 from mpi_tpu_torch.interop import grid_from_numpy  # noqa: E402
@@ -138,7 +165,10 @@ from mpi_tpu_torch.ops.stencil import (  # noqa: E402
     counts_from_padded, pad_grid,
 )
 from mpi_tpu_torch.parallel import seam  # noqa: E402
-from mpi_tpu_torch.utils.hashinit import init_dense  # noqa: E402
+from mpi_tpu_torch.serve import (  # noqa: E402
+    DeadlineError, EngineCache, EngineUnavailableError, SessionManager,
+)
+from mpi_tpu_torch.utils.hashinit import init_dense, init_tile_np  # noqa: E402
 from mpi_tpu_torch.utils.segmenting import segmented_evolve  # noqa: E402
 from mpi_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
 
@@ -1839,6 +1869,513 @@ def phase5_traces(card: str) -> None:
            board=_sparse_board)
 
 
+# -- phase 6: the serve layer --------------------------------------------------
+
+# (sessions, size, comm_every, generations a request, rounds timed, rounds
+# traced): the batched path's 32 boards of 4096² Life (64 MiB), one K1
+# pass a request, coalesced into one launch a round
+SERVE_LIFE = (32, 4096, 8, 8, 100, 20)
+# (sessions per engine, size, ticket depths, cycles): 4096² Bosco on K3
+# (comm_every 1) and on K2 (comm_every 3); the depths rotate by session so
+# every round mixes them, and 5 cycles pass checkpoint_every
+SERVE_LTL = (8, 4096, (1, 2, 5, 8), 5)
+SERVE_CHECKPOINT_EVERY = 64
+# (sessions, size, generations a request, rounds): solo steps (no batcher)
+# of sessions that share one 4096² Life engine, one thread each
+SERVE_SOLO = (8, 4096, 8, 25)
+SERVE_FAULT_SIZE = 256
+
+
+def _reset_launches() -> None:
+    for w in KERNELS.values():
+        w.launches = 0
+
+
+def _launches() -> dict:
+    return {kid: w.launches for kid, w in KERNELS.items()}
+
+
+def _serve_rounds(mgr, sids, rounds: int, n: int) -> float:
+    """``rounds`` requests of ``n`` generations from one thread a session,
+    all started together; the wall seconds."""
+    errors, barrier = [], threading.Barrier(len(sids))
+
+    def run(sid):
+        try:
+            barrier.wait()
+            for _ in range(rounds):
+                mgr.step(sid, n)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(s,)) for s in sids]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"serving failed: {errors[:3]}")
+    return wall
+
+
+def _no_faults(mgr, label: str) -> None:
+    batch = mgr.stats().get("batch", {})
+    counts = {"batched_fallbacks": batch.get("batched_fallbacks", 0),
+              "async_batched_fallbacks": mgr.dispatcher.batched_fallbacks,
+              "engine_failures": mgr.engine_failures,
+              "degraded_total": mgr.degraded_total}
+    if any(counts.values()):
+        fail(f"the {label} serving fell back or failed: {counts}")
+
+
+def _serve_trace(fn):
+    """Run ``fn`` under ``torch.profiler`` inside a ``serve`` range: the
+    range's wall ms, the union of its kernels' intervals (busy ms), and the
+    count and summed ms of K1's kernels in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        with record_function("serve"):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = next(e.time_range for e in events if e.name == "serve"
+                  and e.device_type == DeviceType.CPU)
+    spans = sorted((max(e.time_range.start, window.start), e.time_range.end,
+                    e.name) for e in events
+                   if e.device_type == DeviceType.CUDA and e.name != "serve"
+                   and e.time_range.end > window.start)
+    busy, end = 0.0, float("-inf")
+    for start, stop, _ in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    k1 = [stop - start for start, stop, name in spans
+          if KERNEL_NAMES["K1"][0] in name]
+    return {"wall_ms": (window.end - window.start) / 1e3,
+            "busy_ms": busy / 1e3, "k1_kernels": len(k1),
+            "k1_ms": sum(k1) / 1e3}
+
+
+def _serve_life(card: str, times: dict) -> None:
+    """Part 1 (coalesced Life sessions on K1), part 5 (the wait truly
+    waits) and part 6 (the per-layer numbers)."""
+    B, size, k, n, rounds, traced = SERVE_LIFE
+    mgr = SessionManager(EngineCache(), batch_max=B)
+    spec = {"rows": size, "cols": size, "rule": "life", "comm_every": k,
+            "segments": [1, k]}
+    infos = [mgr.create(dict(spec, seed=SEED + b)) for b in range(B)]
+    if [i["cache_hit"] for i in infos] != [False] + [True] * (B - 1):
+        fail("the Life sessions' creates were not one miss and hits")
+    if {i["engine_compiles"] for i in infos} != {infos[0]["engine_compiles"]}:
+        fail("a cache hit compiled")
+    sids = [i["id"] for i in infos]
+    engine = mgr.get(sids[0]).engine
+    _serve_rounds(mgr, sids, 1, n)      # warms the (n, B) batched step
+    builds = _build.builds
+
+    def steps_and_warmups(st0, c0):
+        # a step is one K1 launch (one pass); a batch width met for the
+        # first time (a round that split) warms its depth once: one more
+        st1 = mgr.batcher.stats()
+        return (st1["coalesced_calls"] - st0["coalesced_calls"]
+                + st1["solo_steps"] - st0["solo_steps"],
+                engine.compile_count - c0, st1)
+
+    st0, c0 = mgr.batcher.stats(), engine.compile_count
+    steady0 = [mgr.get(s).steady_s for s in sids]
+    _reset_launches()
+    cpu0 = time.process_time()
+    wall = _serve_rounds(mgr, sids, rounds, n)
+    cpu = time.process_time() - cpu0
+    launches = _launches()
+    calls, warmups, st1 = steps_and_warmups(st0, c0)
+    if launches != {"K1": calls + warmups, "K2": 0, "K3": 0} or not calls:
+        fail(f"coalesced serving launched {launches} for {calls} steps and "
+             f"{warmups} warm-ups (one K1 launch each)")
+    boards = st1["batched_boards"] - st0["batched_boards"]
+    # part 5: the layer's own step time against the kernels' own, in a
+    # trace that holds every counted K1 launch (phase 5's rule: one more
+    # take when the profiler lost a record, never a looser count)
+    steady_after_rounds = [mgr.get(s).steady_s for s in sids]
+    for attempt in (1, 2):
+        s0, c0 = mgr.batcher.stats(), engine.compile_count
+        steady1 = [mgr.get(s).steady_s for s in sids]
+        _reset_launches()
+        trace = _serve_trace(lambda: _serve_rounds(mgr, sids, traced, n))
+        traced_launches = _launches()["K1"]
+        traced_calls, traced_warmups, s1 = steps_and_warmups(s0, c0)
+        if _build.builds != builds:
+            fail("a kernel was built while the sessions were served")
+        if (traced_launches != traced_calls + traced_warmups
+                or trace["k1_kernels"] > traced_launches):
+            fail(f"the traced serving counted {traced_launches} K1 launches "
+                 f"for {traced_calls} steps, and the trace holds "
+                 f"{trace['k1_kernels']}: a kernel ran uncounted")
+        if trace["k1_kernels"] == traced_launches:
+            break
+        print(f"chip_smoke: the serve trace lost "
+              f"{traced_launches - trace['k1_kernels']} K1 records; "
+              f"tracing again", file=sys.stderr, flush=True)
+    else:
+        fail(f"the serve trace holds {trace['k1_kernels']} K1 kernels for "
+             f"{traced_launches} counted launches, twice")
+    layer_s = (s1["batched_step_s"] - s0["batched_step_s"]
+               + s1["solo_step_s"] - s0["solo_step_s"])
+    steady = [mgr.get(s).steady_s - t for s, t in zip(sids, steady1)]
+    whole = (s1["coalesced_calls"] - s0["coalesced_calls"] == traced
+             and s1["batched_boards"] - s0["batched_boards"] == B * traced)
+    if layer_s * 1e3 < trace["k1_ms"]:
+        fail(f"the serve layer's step time {layer_s * 1e3} ms is below its "
+             f"K1 kernels' {trace['k1_ms']} ms: the wait did not wait")
+    if whole and min(steady) * 1e3 < trace["k1_ms"]:
+        fail(f"a session's steady_s ({min(steady) * 1e3} ms) is below the "
+             f"K1 kernels it waited for ({trace['k1_ms']} ms)")
+    _no_faults(mgr, "Life")
+    total = n * (1 + rounds + traced * attempt)
+    if any(mgr.get(s).generation != total for s in sids):
+        fail("a Life session lost a step")
+    # step_batched alone on the same boards, same generations: the
+    # boards must equal the sessions', and the plain version's (two)
+    ref = engine.init_grids(seeds=[SEED + b for b in range(B)])
+    engine.sync()
+    t0 = time.perf_counter()
+    ref = engine.step_batched(ref, total)
+    engine.sync()
+    alone_s = time.perf_counter() - t0
+    got = torch.stack([mgr.get(s).grid for s in sids])
+    if not torch.equal(got, ref):
+        fail("the served Life boards differ from step_batched's")
+    plain = torch.stack([init_packed(size, size, SEED + b, device="cuda")
+                         for b in (0, B - 1)])
+    plain = bit_step_plain(plain, LIFE, "periodic", 1)
+    for _ in range(total - 1):
+        plain = bit_step_plain(plain, LIFE, "periodic", 1)
+    if not (torch.equal(got[0], plain[0]) and torch.equal(got[-1], plain[1])):
+        fail("the served Life boards differ from the plain version's")
+    phase4_ms = times["K1", "batched"]["ms"]
+    emit({"phase": "serve", "part": "coalesced_life", "card": card,
+          "kernel": "K1", "sessions": B, "grid": [size, size],
+          "comm_every": k, "generations_a_request": n, "rounds": rounds,
+          "cache": mgr.cache.stats(),
+          "engine_compiles": engine.compile_count,
+          "engine_batched_compiles": engine.batched_compile_count,
+          "compile_wall_s": engine.compile_wall_s,
+          "launches": launches, "steps": calls, "warmups": warmups,
+          "avg_occupancy": boards / max(1, st1["coalesced_calls"]
+                                        - st0["coalesced_calls"]),
+          "solo_steps": st1["solo_steps"] - st0["solo_steps"],
+          "boards_equal_to_step_batched_and_plain": True,
+          "builds_while_serving": 0,
+          "serving_wall_s": wall,
+          "serving_board_generations_per_s": B * n * rounds / wall,
+          "step_batched_board_generations_per_s": B * total / alone_s,
+          "requests_per_s": B * rounds / wall,
+          "host_cpu_ms_per_request": cpu * 1e3 / (B * rounds),
+          "steady_s_over_rounds": {"min": min(s - t for s, t in
+                                              zip(steady_after_rounds, steady0)),
+                                   "max": max(s - t for s, t in
+                                              zip(steady_after_rounds, steady0))},
+          "phase4_k1_batched_ms_per_pass": phase4_ms,
+          "min_steady_over_phase4_kernel_time":
+              min(s - t for s, t in zip(steady_after_rounds, steady0)) * 1e3
+              / (rounds * phase4_ms)})
+    emit({"phase": "serve", "part": "trace", "card": card, "rounds": traced,
+          "takes": attempt,
+          "every_round_coalesced": whole, "k1_launches": traced_launches,
+          "steps": traced_calls, **trace,
+          "idle_share": 1 - trace["busy_ms"] / trace["wall_ms"],
+          "layer_step_ms": layer_s * 1e3,
+          "min_session_steady_ms": min(steady) * 1e3,
+          "layer_step_over_k1_ms": layer_s * 1e3 / trace["k1_ms"]})
+    mgr.shutdown()
+    del ref, got, plain
+    torch.cuda.empty_cache()
+
+
+def _serve_solo_threads(card: str) -> None:
+    """Sessions sharing one engine step solo (``batching=False``) from one
+    thread each: their launches interleave on the engine's ping-pong spare,
+    and every board must equal the plain version's."""
+    B, size, n, rounds = SERVE_SOLO
+    mgr = SessionManager(EngineCache(), batching=False)
+    sids = [mgr.create({"rows": size, "cols": size, "rule": "life",
+                        "comm_every": n, "segments": [n],
+                        "seed": SEED + b})["id"] for b in range(B)]
+    engine = mgr.get(sids[0]).engine
+    if any(mgr.get(s).engine is not engine for s in sids):
+        fail("the solo Life sessions do not share one engine")
+    _reset_launches()
+    wall = _serve_rounds(mgr, sids, rounds, n)
+    launches = _launches()
+    if (launches != {"K1": B * rounds, "K2": 0, "K3": 0}
+            or engine.batched_step_calls):
+        fail(f"{B * rounds} solo steps launched {launches} "
+             f"({engine.batched_step_calls} batched steps)")
+    _no_faults(mgr, "solo Life")
+    got = torch.stack([mgr.get(s).grid for s in sids])
+    plain = torch.stack([init_packed(size, size, SEED + b, device="cuda")
+                         for b in range(B)])
+    for _ in range(n * rounds):
+        plain = bit_step_plain(plain, LIFE, "periodic", 1)
+    if not torch.equal(got, plain):
+        bad = [b for b in range(B) if not torch.equal(got[b], plain[b])]
+        fail(f"the solo boards {bad} stepped from {B} threads on one "
+             f"engine differ from the plain version's")
+    emit({"phase": "serve", "part": "solo_threads", "card": card,
+          "kernel": "K1", "sessions": B, "threads": B, "grid": [size, size],
+          "generations_a_request": n, "rounds": rounds,
+          "launches": launches, "serving_wall_s": wall,
+          "boards_equal_to_plain": True})
+    mgr.shutdown()
+    del got, plain
+    torch.cuda.empty_cache()
+
+
+def _ltl_plain(kid: str, size: int, seeds, gens: int) -> torch.Tensor:
+    """The plain version's boards of 4096² Bosco after ``gens``
+    generations: packed words stepped by K3's plain version, or cells by
+    K2's."""
+    if kid == "K3":
+        x = torch.stack([init_packed(size, size, s, device="cuda")
+                         for s in seeds])
+        for _ in range(gens):
+            x = ltl_step_plain(x, BOSCO, "periodic", 1)
+        return x
+    x = torch.stack([init_dense(size, size, s, device="cuda") for s in seeds])
+    for g in [3] * (gens // 3) + [gens % 3] * bool(gens % 3):
+        x = dense_step_plain(x, BOSCO, "periodic", g)
+    return x
+
+
+def _ltl_sessions(mgr, per: int, size: int) -> dict:
+    """``per`` sessions of Bosco at ``size``² on K3 (comm_every 1) and
+    ``per`` on K2 (comm_every 3), seeds SEED, SEED + 1, ...: kernel -> sids."""
+    sids = {kid: [mgr.create({"rows": size, "cols": size, "rule": "bosco",
+                              "comm_every": k, "seed": SEED + i})["id"]
+                  for i in range(per)] for kid, k in (("K3", 1), ("K2", 3))}
+    for kid, ids in sids.items():
+        if mgr.get(ids[0]).engine.kernel_id != kid:
+            fail(f"the Bosco sessions meant for {kid} took another engine")
+    return sids
+
+
+def _ticket_cycle(mgr, sids: list, depths) -> None:
+    """One ticket of each depth for every session, the depths rotated by
+    session so every round mixes them; waits for all."""
+    out = [mgr.step_async(sid, d) for i, sid in enumerate(sids)
+           for d in depths[i % len(depths):] + depths[:i % len(depths)]]
+    for t in out:
+        r = mgr.ticket_result(t["ticket"], wait=True, timeout_s=600)
+        if r["status"] != "done":
+            fail(f"a ticket did not finish: {r}")
+
+
+def _serve_ltl(card: str, state_dir: str) -> None:
+    """Part 2 (LtL sessions through tickets on K3 and K2, with no state
+    dir: the serving alone) and part 3 (the same with a state dir, then
+    a restore)."""
+    per, size, depths, cycles = SERVE_LTL
+    mgr = SessionManager(EngineCache())
+    sids = _ltl_sessions(mgr, per, size)
+    every = sids["K3"] + sids["K2"]
+    _ticket_cycle(mgr, every, depths)   # warms the batch widths a cycle meets
+    engines = [mgr.get(ids[0]).engine for ids in sids.values()]
+    builds = _build.builds
+    st0 = mgr.dispatcher.stats()
+    c0 = sum(e.compile_count for e in engines)
+    _reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(cycles - 1):
+        _ticket_cycle(mgr, every, depths)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    st1 = mgr.dispatcher.stats()
+    # one launch a unit round of a chain, and one a batch width warmed
+    unit_rounds = st1["unit_rounds"] - st0["unit_rounds"]
+    warmups = sum(e.compile_count for e in engines) - c0
+    if (launches["K1"] or not launches["K3"] or not launches["K2"]
+            or launches["K3"] + launches["K2"] != unit_rounds + warmups
+            or st1["solo_tickets"] != st0["solo_tickets"]):
+        fail(f"the ticket rounds launched {launches} for {unit_rounds} "
+             f"unit rounds and {warmups} warm-ups")
+    if _build.builds != builds:
+        fail("a kernel was built while the tickets were served")
+    _no_faults(mgr, "ticket")
+    gens = cycles * sum(depths)
+    for kid, ids in sids.items():
+        want = _ltl_plain(kid, size, [SEED + i for i in range(per)], gens)
+        if not torch.equal(torch.stack([mgr.get(s).grid for s in ids]),
+                           want):
+            fail(f"the {kid} ticket sessions' boards differ from the plain "
+                 f"version's")
+    del want
+    emit({"phase": "serve", "part": "tickets", "card": card,
+          "sessions": {kid: per for kid in sids}, "grid": [size, size],
+          "rule": "bosco", "comm_every": {"K3": 1, "K2": 3},
+          "depths": list(depths), "cycles": cycles, "generations": gens,
+          "launches": launches, "unit_rounds": unit_rounds,
+          "warmups": warmups, "rounds": st1["group_dispatches"]
+          - st0["group_dispatches"], "max_occupancy": st1["max_occupancy"],
+          "wall_s": wall, "board_generations_per_s":
+              2 * per * (cycles - 1) * sum(depths) / wall,
+          "boards_equal_to_plain": True, "builds_while_serving": 0})
+    # part 3: the same tickets with a state dir; a second manager restores
+    # from a copy of it, so the first can step on without writing into the
+    # second's records
+    durable = SessionManager(EngineCache(), state_dir=state_dir,
+                             checkpoint_every=SERVE_CHECKPOINT_EVERY)
+    if _ltl_sessions(durable, per, size) != sids:
+        fail("the durable manager's session ids differ")
+    t0 = time.perf_counter()
+    for _ in range(cycles):
+        _ticket_cycle(durable, every, depths)
+    durable_s = time.perf_counter() - t0
+    for sid in every:
+        if not torch.equal(durable.get(sid).grid, mgr.get(sid).grid):
+            fail(f"session {sid} with a state dir differs from without")
+    mgr.shutdown()
+    durable.shutdown()
+    _no_faults(durable, "durable ticket")
+    copy = state_dir + "_restored"
+    shutil.copytree(state_dir, copy)
+    t0 = time.perf_counter()
+    restored = SessionManager(EngineCache(), state_dir=copy,
+                              checkpoint_every=SERVE_CHECKPOINT_EVERY)
+    restore_s = time.perf_counter() - t0
+    snaps = [rec.get("snapshot") for rec in restored.store.load_records()]
+    if (restored.restored_sessions != len(every) or restored.restore_errors
+            or not all(snaps)):
+        fail(f"restored {restored.restored_sessions} of {len(every)} "
+             f"sessions ({restored.restore_errors} errors, "
+             f"{sum(map(bool, snaps))} snapshots)")
+    for sid in every:
+        if not torch.equal(restored.get(sid).grid, durable.get(sid).grid):
+            fail(f"restored session {sid} differs from the one it restores")
+    for m in (durable, restored):
+        for sid in every:
+            m.step(sid, 3)
+    for sid in every:
+        if not torch.equal(restored.get(sid).grid, durable.get(sid).grid):
+            fail(f"restored session {sid} and its original diverged")
+    _no_faults(restored, "restored")
+    store = durable.store.stats()
+    emit({"phase": "serve", "part": "restore", "card": card,
+          "sessions": len(every), "checkpoint_every": SERVE_CHECKPOINT_EVERY,
+          "durable_cycles": cycles, "durable_wall_s": durable_s,
+          "durable_board_generations_per_s":
+              2 * per * cycles * sum(depths) / durable_s,
+          "store": {k: store[k] for k in ("writes", "write_s",
+                                          "snapshot_writes",
+                                          "journal_appends", "bytes_full",
+                                          "bytes_delta", "compactions")},
+          "snapshot_generations": sorted({s["generation"] for s in snaps}),
+          "restored_generation": gens, "restore_s": restore_s,
+          "bit_identical": True, "equal_after_3_more": True})
+    restored.shutdown()
+    torch.cuda.empty_cache()
+
+
+def _serve_faults(card: str) -> None:
+    """Part 4: injected faults at 256²."""
+    size, n = SERVE_FAULT_SIZE, 8
+    spec = {"rows": size, "cols": size, "comm_every": n, "segments": [n]}
+
+    def oracle(seed, gens):
+        return evolve_np(init_tile_np(size, size, seed), gens, LIFE,
+                         "periodic")
+
+    def board(mgr, sid):
+        return mgr.snapshot_array(sid)[0]
+
+    out = {}
+    mgr = SessionManager(faults="step:1:raise", step_retries=2,
+                         retry_backoff_s=0.001, batching=False)
+    sid = mgr.create(dict(spec, seed=7))["id"]
+    if (mgr.step(sid, n)["generation"] != n or mgr.engine_failures != 1
+            or not np.array_equal(board(mgr, sid), oracle(7, n))):
+        fail("a transient fault did not retry to the oracle's board")
+    out["transient"] = {"engine_failures": mgr.engine_failures}
+    mgr.shutdown()
+
+    mgr = SessionManager(faults="step:1:delay:2.0", request_timeout_s=0.5,
+                         step_retries=0, batching=False)
+    sid = mgr.create(dict(spec, seed=8))["id"]
+    try:
+        mgr.step(sid, n)
+        fail("a step delayed past its deadline returned")
+    except DeadlineError:
+        pass
+    mgr.shutdown()                      # joins the abandoned worker
+    gen = mgr.get(sid).generation       # the late step commits
+    mgr.step(sid, n)
+    if not np.array_equal(board(mgr, sid), oracle(8, gen + n)):
+        fail("the session behind a missed deadline lost its board")
+    out["deadline"] = {"watchdog_timeouts": mgr.watchdog_timeouts,
+                       "generation_after": gen + n}
+
+    mgr = SessionManager(EngineCache(breaker_threshold=3,
+                                     breaker_cooldown_s=600.0),
+                         faults="step:1-3:raise", step_retries=2,
+                         retry_backoff_s=0.001, batching=False)
+    sid = mgr.create(dict(spec, seed=9))["id"]
+    mgr.step(sid, n)
+    s = mgr.get(sid)
+    if not (s.degraded and s.engine is None and mgr.degraded_total == 1):
+        fail("the breaker did not degrade the session")
+    mgr.step(sid, n)
+    if not np.array_equal(board(mgr, sid), oracle(9, 2 * n)):
+        fail("the degraded session's board differs from the oracle's")
+    out["breaker"] = {"trips": mgr.cache.breaker_stats()["trips"],
+                      "degraded_total": mgr.degraded_total}
+    mgr.shutdown()
+
+    # a real failure of a card engine (here its fault hook raising before
+    # any launch) opens the breaker and never moves the session to the CPU
+    mgr = SessionManager(EngineCache(breaker_threshold=3,
+                                     breaker_cooldown_s=600.0),
+                         step_retries=2, retry_backoff_s=0.001,
+                         batching=False)
+    sid = mgr.create(dict(spec, seed=10))["id"]
+    s = mgr.get(sid)
+
+    def broken(site):
+        raise RuntimeError(f"{site} dispatch failed")
+
+    s.engine.fault_hook = broken
+    try:
+        mgr.step(sid, n)
+        fail("a step of a failing card engine returned")
+    except EngineUnavailableError:
+        pass
+    if (mgr.get(sid) is not s or s.degraded or s.engine is None
+            or mgr.degraded_total or s.grid.device.type != "cuda"):
+        fail("a real engine failure moved the card session to the CPU")
+    try:
+        mgr.create(dict(spec, seed=11))
+        fail("a create on the failed card plan returned a session")
+    except EngineUnavailableError:
+        pass
+    out["card_failure"] = {"engine_failures": mgr.engine_failures,
+                           "degraded_total": mgr.degraded_total}
+    mgr.shutdown()
+    emit({"phase": "serve", "part": "faults", "card": card,
+          "grid": [size, size], **out, "boards_equal_to_oracle": True})
+
+
+def phase6_serve(card: str, times: dict) -> None:
+    _serve_life(card, times)
+    _serve_solo_threads(card)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        _serve_ltl(card, os.path.join(d, "state"))
+    _serve_faults(card)
+
+
 def main() -> int:
     card = phase0_card()
     seconds, t0 = {}, time.perf_counter()
@@ -1858,6 +2395,8 @@ def main() -> int:
     lap("times")
     phase5_traces(card)
     lap("traces")
+    phase6_serve(card, times)
+    lap("serve")
     emit({"phase": "seconds", **seconds})
     k1 = times["K1", MAIN_GENS]
     k2 = times["K2", DENSE_PATH[2]]

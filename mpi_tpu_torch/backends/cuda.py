@@ -29,6 +29,13 @@ Batches: ``Engine.step_batched`` steps a stacked (B, ...) batch of boards
 of one configuration with one kernel launch per pass for the whole batch
 (the kernels' board axis), padded and seam engines included.
 
+Serving (``mpi_tpu_torch/serve``): many sessions share one engine, so the
+engine carries the reference's serve surfaces: ``ensure_compiled`` and
+``ensure_compiled_batched`` (warm a step's pass depths once, counted in
+``compile_count``), ``block_until_ready`` (the wait for the launches that
+produce a grid), ``fetch_window`` and ``write_window`` (one region, on the
+device), ``shard_snapshots`` (one tile) and ``fault_hook``.
+
 Sparse stepping (``sparse_tile``): the engine steps a
 ``ops/activity.py:SparseState`` (the grid and its tile map), gathering
 the active tiles into a stripe stepped by the engine's own kernel at a
@@ -50,6 +57,8 @@ without that request they raise.
 from __future__ import annotations
 
 import sys
+import threading
+import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -237,7 +246,14 @@ class Engine:
     ``step_batched`` steps the boards one after another, each with its own
     phases, so its launches are per board, not one a pass.
 
-    ``notes`` are the planning notes ``build_engine`` printed."""
+    ``notes`` are the planning notes ``build_engine`` printed.
+
+    Sessions of the serve layer share one engine and step it from several
+    threads.  Their grids never share a buffer: a buffer is the engine's
+    spare only between the step that consumed it and the step that takes
+    it (``dict.pop`` hands it to one caller), and every launch goes to the
+    device's current stream in the order the steps made them, so a step
+    that writes into a spare runs after the step that last read it."""
 
     def __init__(self, config: GolConfig, device: torch.device, kind: str,
                  depths=(1,), cols_eff: Optional[int] = None,
@@ -265,10 +281,28 @@ class Engine:
         else:
             self._evolve = segmented_evolve(self._pass, self.depth)
         # the spare buffer of the ping-pong pair, one for a solo grid (rank 2)
-        # and one for a batch (rank 3), replaced when the shape changes
+        # and one for a batch (rank 3), replaced when the shape changes; beside
+        # each, the stream that last launched on it (both under one lock)
         self._spares = {}
+        self._spare_streams = {}
+        self._spare_lock = threading.Lock()
         self.step_calls = 0
         self.batched_step_calls = 0
+        # the serve layer's surfaces (the reference's Engine members): the
+        # step depths and (depth, B) widths warmed, under one lock; one
+        # engine, one tile; the hook a fault injector installs, called
+        # before a step takes a buffer or launches
+        self._compile_lock = threading.Lock()
+        self._compiled = set()
+        self._compiled_batched = set()
+        self.compile_count = 0
+        self.batched_compile_count = 0
+        self.compile_wall_s = 0.0
+        self.fault_hook = None
+        self.sig_label = None
+        self.obs = None
+        self.tuned_plan = None
+        self.mi = self.mj = 1
 
     def _pass(self, src, k, dst):
         if self.bitpacked:
@@ -306,9 +340,13 @@ class Engine:
 
     def init_grid(self, initial=None, seed=None):
         """A fresh grid on the device: the hash init of ``seed`` (default
-        config.seed), or the uint8 0/1 ``initial`` grid; a padded grid's
-        pad starts dead.  A sparse engine wraps it in a ``SparseState``
-        with every tile marked changed."""
+        config.seed), or the uint8 0/1 ``initial`` grid, or the grid a
+        region loader ``initial(r0, r1, c0, c1)`` gives for the whole board
+        (the restore path's); a padded grid's pad starts dead.  A sparse
+        engine wraps it in a ``SparseState`` with every tile marked
+        changed."""
+        if callable(initial):
+            initial = initial(0, self.config.rows, 0, self.config.cols)
         grid = self._init_raw(initial, seed)
         if self.sparse_plan is not None:
             return activity.initial_state(grid, self.sparse_plan)
@@ -371,10 +409,14 @@ class Engine:
         of a batch of ``boards``), so the first timed pass pays no build,
         module load, first-launch setup, host-to-device copy or
         ``cudaMalloc``."""
+        self._warm(self.depths, boards)
+
+    def _warm(self, depths, boards: int) -> None:
+        """:meth:`warm_up` at the pass ``depths`` given."""
         dtype = torch.int32 if self.bitpacked else torch.uint8
         rule = self.config.rule
         shape = self._shape()
-        for k in self.depths:
+        for k in depths:
             if self.device.type == "cuda":
                 tiny = torch.zeros((1, 1), dtype=dtype, device=self.device)
                 self._kernel(tiny, rule, self.config.boundary, gens=k)
@@ -390,8 +432,57 @@ class Engine:
             self._warm_sparse(dtype)
             boards = 0  # a sparse batch steps board by board
         for key in [shape] + ([(boards, *shape)] if boards else []):
-            self._spares[len(key)] = torch.empty(key, dtype=dtype,
-                                                 device=self.device)
+            self._keep_spare(torch.empty(key, dtype=dtype, device=self.device))
+
+    def _step_depths(self, n: int):
+        """The pass depths a step of ``n`` generations launches (a sparse
+        engine: its own, every phase)."""
+        if self.sparse_plan is not None:
+            return self.depths
+        return sorted(segment_depths([n], self.depth))
+
+    def ensure_compiled(self, grid, n: int) -> None:
+        """Warm (:meth:`warm_up`) every pass depth that a step of ``n``
+        generations launches, once per ``n``: the first call for a new
+        rule is where its kernel library is built.  Each first call counts
+        in ``compile_count`` and its time in ``compile_wall_s`` (the serve
+        layer charges it to setup); ``grid`` is the grid that will step,
+        and is not read."""
+        self._ensure(self._compiled, n, n, 0)
+
+    def ensure_compiled_batched(self, grids, n: int) -> None:
+        """:meth:`ensure_compiled` for a stacked (B, ...) batch, once per
+        ``(n, B)``, counted in ``batched_compile_count`` too."""
+        B = self.raw_grid(grids).shape[0]
+        self._ensure(self._compiled_batched, (n, B), n, B)
+
+    def _ensure(self, warmed: set, key, n: int, boards: int) -> None:
+        if n <= 0 or key in warmed:
+            return
+        with self._compile_lock:
+            if key in warmed:
+                return
+            t0 = time.perf_counter()
+            self._warm(self._step_depths(n), boards)
+            self.sync()
+            warmed.add(key)
+            self.compile_count += 1
+            self.batched_compile_count += bool(boards)
+            self.compile_wall_s += time.perf_counter() - t0
+
+    def cost_card(self, depth: int, batch: int = 0):
+        """None: the reference's answer with observability off (cost
+        cards come with ROADMAP queue 1 item 11b)."""
+        return None
+
+    def cost_cards(self) -> list:
+        """[]: no cost cards without observability (item 11b)."""
+        return []
+
+    def compile_segments(self, grid, segments) -> None:
+        """:meth:`ensure_compiled` for every distinct segment length."""
+        for n in sorted(set(segments)):
+            self.ensure_compiled(grid, n)
 
     def _warm_sparse(self, dtype) -> None:
         # 3 x 3 tiles of zeros: a dense chunk of 8 and the probe (every tile
@@ -414,9 +505,39 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def block_until_ready(self, grid):
+        """Wait until the launches queued so far on this thread's stream,
+        those that produce ``grid`` among them, have run; returns ``grid``.
+        A no-op on the CPU, whose steps finish before they return."""
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            event.synchronize()
+        return grid
+
+    def _stream(self):
+        """The stream this thread launches on (None on the CPU)."""
+        if self.device.type == "cuda":
+            return torch.cuda.current_stream(self.device)
+        return None
+
+    def _keep_spare(self, spare: torch.Tensor) -> None:
+        stream = self._stream()
+        with self._spare_lock:
+            self._spares[spare.dim()] = spare
+            self._spare_streams[spare.dim()] = stream
+
     def _take_spare(self, grid: torch.Tensor) -> torch.Tensor:
-        spare = self._spares.pop(grid.dim(), None)
-        if (spare is None or spare.shape != grid.shape
+        # threads that share the engine (the serve layer's) each pop the
+        # spare whole, and reuse it only on the stream that last launched
+        # on it: launches still reading it run before the next writer's only
+        # in one stream's order (the device's default stream, unless a
+        # caller picks another)
+        with self._spare_lock:
+            spare = self._spares.pop(grid.dim(), None)
+            stream = self._spare_streams.pop(grid.dim(), None)
+        if (spare is None or stream != self._stream()
+                or spare.shape != grid.shape
                 or spare.device != grid.device
                 or spare.data_ptr() == grid.data_ptr()):
             del spare  # freed before its replacement is allocated
@@ -424,8 +545,8 @@ class Engine:
         return spare
 
     def _advance(self, grid: torch.Tensor, n: int) -> torch.Tensor:
-        spare = self._take_spare(grid)
-        grid, self._spares[grid.dim()] = self._evolve(grid, n, spare)
+        grid, spare = self._evolve(grid, n, self._take_spare(grid))
+        self._keep_spare(spare)
         return grid
 
     def _state(self, grid):
@@ -436,8 +557,8 @@ class Engine:
         return grid
 
     def _advance_sparse(self, state: SparseState, n: int) -> SparseState:
-        spare = self._take_spare(state.grid)
-        state, self._spares[2] = self._evolve(state, n, spare)
+        state, spare = self._evolve(state, n, self._take_spare(state.grid))
+        self._keep_spare(spare)
         return state
 
     def step(self, grid, n: int):
@@ -446,6 +567,10 @@ class Engine:
         grid = self._state(grid)
         if n <= 0:
             return grid
+        if self.fault_hook is not None:
+            # before any buffer is taken or any launch made: an injected
+            # failure leaves the caller's grid intact
+            self.fault_hook("step")
         self.step_calls += 1
         if self.sparse_plan is not None:
             return self._advance_sparse(grid, n)
@@ -469,6 +594,8 @@ class Engine:
         if self.raw_grid(grids).dim() != 3:
             raise ValueError(f"a batch is (B, rows, cols), got "
                              f"{tuple(self.raw_grid(grids).shape)}")
+        if self.fault_hook is not None:
+            self.fault_hook("batched")
         self.batched_step_calls += 1
         if self.sparse_plan is not None:
             return self._step_boards(grids, n)
@@ -485,7 +612,7 @@ class Engine:
                 g.copy_(new)
                 spare = new
             c.copy_(changed)
-        self._spares[2] = spare
+        self._keep_spare(spare)
         return states
 
     def step_batched_units(self, grids, n: int):
@@ -534,6 +661,61 @@ class Engine:
     def tiles(self, grid):
         """Snapshot tiles ``(pid, tile, r0, c0)``: one device, one tile."""
         return [(0, self.fetch(grid), 0, 0)]
+
+    def shard_snapshots(self, grid):
+        """``[(r0, c0, tile)]``: the checkpoint tiles, one for one device."""
+        return [(0, 0, self.fetch(grid))]
+
+    def _window(self, r0: int, c0: int, h: int, w: int):
+        """(word or cell columns to slice, first cell column in the slice)
+        of the window ``[r0, r0+h) x [c0, c0+w)``, which must lie on the
+        board's real cells."""
+        rows, cols = self.config.rows, self.config.cols
+        if not (h > 0 and w > 0 and 0 <= r0 and r0 + h <= rows
+                and 0 <= c0 and c0 + w <= cols):
+            raise ValueError(f"window [{r0}:{r0 + h}, {c0}:{c0 + w}] is not "
+                             f"on the {rows}x{cols} board")
+        if not self.bitpacked:
+            return slice(c0, c0 + w), 0
+        w0 = c0 // WORD
+        return slice(w0, -(-(c0 + w) // WORD)), c0 - w0 * WORD
+
+    def fetch_window(self, grid, r0: int, c0: int, h: int, w: int,
+                     shard_timer=None) -> np.ndarray:
+        """The host window ``[r0, r0+h) x [c0, c0+w)`` of the board (uint8
+        0/1), cropped on the device: only its rows, and on a packed grid
+        the words it covers, are unpacked and cross to the host, in one
+        transfer.  ``shard_timer(dt_s)`` is called once, with that
+        transfer's time."""
+        cols, off = self._window(r0, c0, h, w)
+        block = self.raw_grid(grid)[r0:r0 + h, cols]
+        if self.bitpacked:
+            block = bitlife.unpack(block)[:, off:off + w]
+        t0 = time.perf_counter()
+        out = block.to("cpu", copy=True).numpy()
+        if shard_timer is not None:
+            shard_timer(time.perf_counter() - t0)
+        return out
+
+    def write_window(self, grid, r0: int, c0: int, patch):
+        """``grid`` with the uint8 0/1 ``patch`` written at ``(r0, c0)``,
+        in place on the device; on a packed grid the edge words are read,
+        changed and written back, and the pad bits stay zero.  None on a
+        sparse engine, whose tile map a partial edit would make stale:
+        the caller re-inits the whole board."""
+        if self.sparse_plan is not None:
+            return None
+        patch = np.asarray(patch, dtype=np.uint8)
+        h, w = patch.shape
+        cols, off = self._window(r0, c0, h, w)
+        cells = torch.from_numpy(patch).to(self.device)
+        if not self.bitpacked:
+            grid[r0:r0 + h, cols] = cells
+            return grid
+        block = bitlife.unpack(grid[r0:r0 + h, cols])
+        block[:, off:off + w] = cells
+        grid[r0:r0 + h, cols] = bitlife.pack(block)
+        return grid
 
     def population(self, grid) -> int:
         """Live cells, counted on the device (the pad is always dead)."""

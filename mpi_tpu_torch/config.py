@@ -105,6 +105,10 @@ class GolConfig:
             validate_size(self.rows, self.cols,
                           self.rule.radius * self.comm_every)
 
+    @property
+    def cells(self) -> int:
+        return self.rows * self.cols
+
     def validate_strict(self) -> None:
         """The reference's strict preconditions for a one-device run:
         square grid, tile >= 4 cells per side."""
@@ -112,6 +116,35 @@ class GolConfig:
             raise ConfigError("strict mode: grid must be square")
         if self.rows < 4:
             raise ConfigError("strict mode: tile must be >= 4 cells per side")
+
+
+def plan_signature(config: GolConfig, mesh_shape: Tuple[int, int],
+                   segments=()) -> tuple:
+    """Hashable key of everything an engine depends on: the EngineCache
+    key (``mpi_tpu_torch.serve``), the reference's tuple field for field
+    (``SIGNATURE_FIELDS``).  Two configs with equal signatures share one
+    :class:`~mpi_tpu_torch.backends.cuda.Engine`.
+
+    Deliberately EXCLUDES ``steps``, ``snapshot_every`` and ``seed``:
+    none of them reach the stepper (seed only picks the initial grid; the
+    step plan only picks which segment lengths are warmed, and those are
+    carried separately as the sorted distinct ``segments`` set).
+    ``mesh_shape`` is the resolved shape, always (1, 1) on one device, and
+    ``Rule`` is a frozen dataclass of frozensets, so the whole tuple
+    hashes."""
+    return (
+        config.rows, config.cols, config.rule, config.boundary,
+        config.backend, tuple(mesh_shape), config.comm_every,
+        bool(config.overlap), tuple(sorted(set(segments))),
+        config.sparse_tile,
+    )
+
+
+# what each position of the plan_signature tuple holds, in order
+SIGNATURE_FIELDS = (
+    "rows", "cols", "rule", "boundary", "backend", "mesh_shape",
+    "comm_every", "overlap", "segments", "sparse_tile",
+)
 
 
 def plan_segments(steps: int, snapshot_every: int) -> List[int]:

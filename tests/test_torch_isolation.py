@@ -63,6 +63,13 @@ def test_cpu_slice_runs_without_loading_jax(tmp_path):
         f" 'cpu', '--quiet', '--out-dir', {str(tmp_path)!r}]) == 0\n"
         f"assert main(['16', '50', '2', '4', '--comm-every', 'auto',"
         f" '--device', 'cpu', '--quiet', '--out-dir', {str(tmp_path)!r}]) == 0\n"
+        "from mpi_tpu_torch.serve import SessionManager\n"
+        f"mgr = SessionManager(device='cpu', state_dir={str(tmp_path)!r})\n"
+        "sid = mgr.create({'rows': 16, 'cols': 64, 'seed': 3})['id']\n"
+        "assert mgr.step(sid, 3)['generation'] == 3\n"
+        "t = mgr.step_async(sid, 2)['ticket']\n"
+        "assert mgr.ticket_result(t, wait=True)['result']['generation'] == 5\n"
+        "mgr.shutdown()\n"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_tpu')]\n"
         "assert not bad, bad\n"

@@ -104,7 +104,25 @@ Phases; any failure exits non-zero before the result line:
    coalesced) must reach: the wait for the device truly waits.  The
    per-layer numbers: board-generations/s of serving against
    ``step_batched`` alone on the same boards, requests/s and the host's
-   CPU ms a request.
+   CPU ms a request;
+7. observability on the card and the native backends on its host: 32
+   sessions of 4096² Life (K1) and one each of 4096² Bosco on K3 and on K2
+   (comm_every 3) on two managers, one without obs and one with a full
+   ``Obs`` (telemetry unstarted, flight recorder, anomaly detector,
+   device-memory sampler), served the same requests in turns (off, on,
+   on, off: requests/s of each), their boards equal bit for bit; every
+   engine's cost cards (one per warmed depth and batch, ``source``
+   ``kernel_count``, K1's, K3's and K2's equal to their kernels' counts
+   times the work) and the card's int32 roof from its properties, printed
+   with its name and power limit; ``run_profile`` over about a second of
+   the Life traffic, started half a second after the capture's first
+   kernel, writes a Chrome trace whose K1 records equal the K1 launches
+   counted in it (the trace rule of phases 5 and 6, one retake);
+   ``read_device_memory`` reports memory in use; a ``cpp-par`` session
+   equals a ``cuda`` session of its spec; and the CLI at 2048² with
+   ``--backend cpp`` and ``--backend cpp-par --workers 8`` writes the
+   board ``--backend cuda`` writes, read back with ``golio``, with the
+   same master header but for ``cpp-par``'s tile count.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -132,7 +150,9 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from mpi_tpu_torch import golio  # noqa: E402
 from mpi_tpu_torch.backends import cuda as backend  # noqa: E402
+from mpi_tpu_torch.backends.cpp import plan_tiles  # noqa: E402
 from mpi_tpu_torch.backends.serial_np import evolve_np  # noqa: E402
 from mpi_tpu_torch.cli import main as cli_main  # noqa: E402
 from mpi_tpu_torch.config import WORD, GolConfig  # noqa: E402
@@ -140,6 +160,12 @@ from mpi_tpu_torch.interop import grid_from_numpy  # noqa: E402
 from mpi_tpu_torch.models.rules import (  # noqa: E402
     BOSCO, DAY_AND_NIGHT, HIGHLIFE, LIFE, SEEDS, Rule, rule_from_name,
 )
+from mpi_tpu_torch.obs import Obs  # noqa: E402
+from mpi_tpu_torch.obs.cost import (  # noqa: E402
+    device_roof_ops_per_s, roof_ops_per_s,
+)
+from mpi_tpu_torch.obs.devmem import read_device_memory  # noqa: E402
+from mpi_tpu_torch.obs.profile import capturing, run_profile  # noqa: E402
 from mpi_tpu_torch.ops import _build, activity  # noqa: E402
 from mpi_tpu_torch.ops.bitlife import (  # noqa: E402
     bit_step, init_packed, pack, population, word_ops,
@@ -162,7 +188,7 @@ from mpi_tpu_torch.ops.cuda_stencil import (  # noqa: E402
     cuda_dense_step, dense_step_plain,
 )
 from mpi_tpu_torch.ops.stencil import (  # noqa: E402
-    counts_from_padded, pad_grid,
+    counts_from_padded, dense_cell_ops, pad_grid,
 )
 from mpi_tpu_torch.parallel import seam  # noqa: E402
 from mpi_tpu_torch.serve import (  # noqa: E402
@@ -1694,6 +1720,33 @@ KERNEL_NAMES = {"K1": ("bit_step_kernel",),
                 "K3": ("ltl_step_kernel",)}
 
 
+def _trace_holds_launches(label: str, attempt):
+    """The one trace rule of phases 5, 6 and 7: a traced window holds
+    exactly the kernel launches the wrappers counted in it.  ``attempt()``
+    traces the window once and returns ``(counted, in_trace, result)``,
+    dicts of kernel id -> launches counted and kernel records in the
+    trace.  More records than launches fail at once (a kernel ran
+    uncounted); fewer take the window once more — the profiler drops a
+    kernel's record now and then (one of 200 on one path of a whole run),
+    while a launch that the code counts and does not make would be missing
+    again — and fail the second time.  Returns ``(result, takes, lost)``,
+    ``lost`` the records missing on a retaken attempt."""
+    lost = []
+    for take in (1, 2):
+        counted, in_trace, result = attempt()
+        if any(in_trace.get(kid, 0) > n for kid, n in counted.items()):
+            fail(f"the {label} trace holds {in_trace} kernels for "
+                 f"{counted} counted launches: a kernel ran uncounted")
+        if all(in_trace.get(kid, 0) == n for kid, n in counted.items()):
+            return result, take, lost
+        lost.append({kid: n - in_trace.get(kid, 0)
+                     for kid, n in counted.items()})
+        print(f"chip_smoke: the {label} trace lost {lost[-1]} kernel "
+              f"records; tracing again", file=sys.stderr, flush=True)
+    fail(f"the {label} trace holds {in_trace} kernels for {counted} "
+         f"counted launches, twice")
+
+
 def _trace(card, label, size, rule, comm_every, steps,
            boundary="periodic", boards=0, board=None) -> None:
     """The steady stepping of ``run_cuda``'s engine on one main path (or of
@@ -1734,8 +1787,9 @@ def _trace(card, label, size, rule, comm_every, steps,
         grid = engine.step(grid, steps)
         engine.sync()
         unprofiled_ms = (time.perf_counter() - t0) * 1e3
-    lost = []  # kernels the profiler lost on an attempt it was retried for
-    for attempt in (1, 2):
+
+    def attempt():
+        nonlocal grid
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             # the profiler's first kernel
@@ -1766,20 +1820,10 @@ def _trace(card, label, size, rule, comm_every, steps,
                              if e.device_type == DeviceType.CUDA
                              and any(n in e.name for n in names))
                     for kid, names in KERNEL_NAMES.items()}
-        if any(in_trace[kid] > counted[kid] for kid in counted):
-            fail(f"the {label} trace holds {in_trace} kernels for "
-                 f"{counted} counted launches: a kernel ran uncounted")
-        if in_trace == counted:
-            break
-        # fewer in the trace: the profiler drops a kernel's record now and
-        # then (one of 200 on one path of a whole run); a launch that the
-        # code counts and does not make would be missing again
-        lost.append({kid: counted[kid] - in_trace[kid] for kid in counted})
-        print(f"chip_smoke: the {label} trace lost {lost[-1]} kernel "
-              f"records; tracing again", file=sys.stderr, flush=True)
-    else:
-        fail(f"the {label} trace holds {in_trace} kernels for {counted} "
-             f"counted launches, twice")
+        return counted, in_trace, (events, counted, in_trace)
+
+    (events, counted, in_trace), _, lost = _trace_holds_launches(label,
+                                                                  attempt)
     launches = counted[engine.kernel_id]
     del grid
     torch.cuda.empty_cache()
@@ -1933,7 +1977,10 @@ def _no_faults(mgr, label: str) -> None:
 def _serve_trace(fn):
     """Run ``fn`` under ``torch.profiler`` inside a ``serve`` range: the
     range's wall ms, the union of its kernels' intervals (busy ms), and the
-    count and summed ms of K1's kernels in it."""
+    count and summed ms of K1's kernels in the whole trace.  Only ``fn``
+    launches K1 there, and the profiler places a kernel up to milliseconds
+    before its launch (phase 7's ``kernel_placement``), so a K1 kernel that
+    ``fn`` launched at once can sit before the range's start."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1955,8 +2002,9 @@ def _serve_trace(fn):
     for start, stop, _ in spans:
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
-    k1 = [stop - start for start, stop, name in spans
-          if KERNEL_NAMES["K1"][0] in name]
+    k1 = [e.time_range.end - e.time_range.start for e in events
+          if e.device_type == DeviceType.CUDA
+          and KERNEL_NAMES["K1"][0] in e.name]
     return {"wall_ms": (window.end - window.start) / 1e3,
             "busy_ms": busy / 1e3, "k1_kernels": len(k1),
             "k1_ms": sum(k1) / 1e3}
@@ -2003,7 +2051,8 @@ def _serve_life(card: str, times: dict) -> None:
     # trace that holds every counted K1 launch (phase 5's rule: one more
     # take when the profiler lost a record, never a looser count)
     steady_after_rounds = [mgr.get(s).steady_s for s in sids]
-    for attempt in (1, 2):
+
+    def attempt():
         s0, c0 = mgr.batcher.stats(), engine.compile_count
         steady1 = [mgr.get(s).steady_s for s in sids]
         _reset_launches()
@@ -2012,19 +2061,14 @@ def _serve_life(card: str, times: dict) -> None:
         traced_calls, traced_warmups, s1 = steps_and_warmups(s0, c0)
         if _build.builds != builds:
             fail("a kernel was built while the sessions were served")
-        if (traced_launches != traced_calls + traced_warmups
-                or trace["k1_kernels"] > traced_launches):
+        if traced_launches != traced_calls + traced_warmups:
             fail(f"the traced serving counted {traced_launches} K1 launches "
-                 f"for {traced_calls} steps, and the trace holds "
-                 f"{trace['k1_kernels']}: a kernel ran uncounted")
-        if trace["k1_kernels"] == traced_launches:
-            break
-        print(f"chip_smoke: the serve trace lost "
-              f"{traced_launches - trace['k1_kernels']} K1 records; "
-              f"tracing again", file=sys.stderr, flush=True)
-    else:
-        fail(f"the serve trace holds {trace['k1_kernels']} K1 kernels for "
-             f"{traced_launches} counted launches, twice")
+                 f"for {traced_calls} steps and {traced_warmups} warm-ups")
+        return ({"K1": traced_launches}, {"K1": trace["k1_kernels"]},
+                (s0, s1, steady1, trace, traced_launches, traced_calls))
+
+    (s0, s1, steady1, trace, traced_launches, traced_calls), takes, _ = \
+        _trace_holds_launches("serve", attempt)
     layer_s = (s1["batched_step_s"] - s0["batched_step_s"]
                + s1["solo_step_s"] - s0["solo_step_s"])
     steady = [mgr.get(s).steady_s - t for s, t in zip(sids, steady1)]
@@ -2037,7 +2081,7 @@ def _serve_life(card: str, times: dict) -> None:
         fail(f"a session's steady_s ({min(steady) * 1e3} ms) is below the "
              f"K1 kernels it waited for ({trace['k1_ms']} ms)")
     _no_faults(mgr, "Life")
-    total = n * (1 + rounds + traced * attempt)
+    total = n * (1 + rounds + traced * takes)
     if any(mgr.get(s).generation != total for s in sids):
         fail("a Life session lost a step")
     # step_batched alone on the same boards, same generations: the
@@ -2086,7 +2130,7 @@ def _serve_life(card: str, times: dict) -> None:
               min(s - t for s, t in zip(steady_after_rounds, steady0)) * 1e3
               / (rounds * phase4_ms)})
     emit({"phase": "serve", "part": "trace", "card": card, "rounds": traced,
-          "takes": attempt,
+          "takes": takes,
           "every_round_coalesced": whole, "k1_launches": traced_launches,
           "steps": traced_calls, **trace,
           "idle_share": 1 - trace["busy_ms"] / trace["wall_ms"],
@@ -2376,6 +2420,307 @@ def phase6_serve(card: str, times: dict) -> None:
     _serve_faults(card)
 
 
+# -- phase 7: observability and the native backends ---------------------------
+
+# (sessions, size, comm_every, generations a request, rounds a turn): the
+# Life sessions of each manager (obs off, obs on), 32 boards of 4096² as
+# in phase 6, beside one 4096² Bosco session on K3 and one on K2
+OBS_LIFE = (32, 4096, 8, 8, 20)
+OBS_LTL_SIZE = 4096
+# run_profile's capture, the wait inside it before the traffic starts, and
+# the traffic.  Inside the capture the profiler's first kernel comes first
+# (phases 5 and 6 launch one too): the record of the first kernel launched
+# in a capture can be missing from the trace, and the counted traffic must
+# not hold it.  The counted launches also lie half a second from either
+# edge of the capture, as the trace places a kernel up to milliseconds
+# off the host call that launched it, before it or after
+OBS_PROFILE_S, OBS_LEAD_S, OBS_TRAFFIC_S = 2.0, 0.5, 1.0
+# (size, generations, cpp-par workers) of the native backends' runs
+NATIVE = (2048, 20, 8)
+
+
+def _obs_sessions(mgr) -> dict:
+    """The sessions of phase 7 on ``mgr``: 32 of Life (K1), one of Bosco on
+    K3 (comm_every 1) and one on K2 (comm_every 3)."""
+    B, size, k, _, _ = OBS_LIFE
+    life = [mgr.create({"rows": size, "cols": size, "rule": "life",
+                        "comm_every": k, "segments": [1, k],
+                        "seed": SEED + b})["id"] for b in range(B)]
+    ltl = {kid: mgr.create({"rows": OBS_LTL_SIZE, "cols": OBS_LTL_SIZE,
+                            "rule": "bosco", "comm_every": ce,
+                            "seed": SEED})["id"]
+           for kid, ce in (("K3", 1), ("K2", 3))}
+    for kid, sid in [("K1", life[0]), *ltl.items()]:
+        if mgr.get(sid).engine.kernel_id != kid:
+            fail(f"a phase 7 session meant for {kid} took another engine")
+    return {"life": life, **ltl}
+
+
+def _obs_traffic(mgr, sids: dict, rounds: int) -> float:
+    """``rounds`` coalesced Life rounds (the wall seconds, the requests/s
+    measure), then one step of each Bosco session (K3 two generations, K2
+    three)."""
+    wall = _serve_rounds(mgr, sids["life"], rounds, OBS_LIFE[3])
+    mgr.step(sids["K3"], 2)
+    mgr.step(sids["K2"], 3)
+    return wall
+
+
+def _kernel_placement(events: list, kernels: list) -> dict:
+    """Where a Chrome trace puts its kernels against the host calls that
+    launched them (paired by ``correlation``), in µs from the trace's
+    first event: the kernel's start less its launch's (least, median,
+    most: negative means the device's clock, as converted, runs early),
+    the first launch and the last kernel's end, and every launch call
+    whose kernel the trace lacks."""
+    t0 = min(e["ts"] for e in events if "ts" in e)
+    start = {e["args"]["correlation"]: e["ts"] for e in kernels
+             if "correlation" in e.get("args", {})}
+    calls = [e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "LaunchKernel" in e.get("name", "")]
+    offsets = sorted(start[c] - e["ts"] for e in calls
+                     if (c := e.get("args", {}).get("correlation")) in start)
+    return {"kernel_minus_launch_us": (
+                [offsets[0], offsets[len(offsets) // 2], offsets[-1]]
+                if offsets else None),
+            "first_launch_us": min((e["ts"] - t0 for e in calls),
+                                   default=None),
+            "last_kernel_end_us": max((e["ts"] + e.get("dur", 0) - t0
+                                       for e in kernels), default=None),
+            "trace_span_us": max(e["ts"] for e in events if "ts" in e) - t0,
+            "launches_without_kernel": [
+                {"name": e["name"], "at_us": e["ts"] - t0}
+                for e in calls if e.get("args", {}).get("correlation")
+                not in start]}
+
+
+def _obs_profile(mgr, sids: dict, logdir: str) -> dict:
+    """One ``run_profile`` capture over about a second of Life traffic,
+    started ``OBS_LEAD_S`` after the capture's first kernel: the K1
+    launches counted inside the capture against the K1 kernel records of
+    the Chrome trace it wrote (the trace rule), and where the trace placed
+    its kernels."""
+    n = OBS_LIFE[3]
+
+    def attempt():
+        out = {}
+        t = threading.Thread(
+            target=lambda: out.update(run_profile(logdir, OBS_PROFILE_S)))
+        t.start()
+        if not capturing.wait(60):
+            fail("run_profile's capture did not start")
+        # the profiler's first kernel
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(OBS_LEAD_S)
+        _reset_launches()
+        t0, rounds = time.perf_counter(), 0
+        while time.perf_counter() - t0 < OBS_TRAFFIC_S:
+            _serve_rounds(mgr, sids["life"], 1, n)
+            rounds += 1
+        torch.cuda.synchronize()
+        counted = _launches()
+        if not capturing.is_set():
+            fail("the profiled traffic outlasted run_profile's capture")
+        t.join(120)
+        if t.is_alive() or not out.get("ok"):
+            fail(f"run_profile failed: {out}")
+        with open(out["path"]) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        in_trace = {kid: sum(1 for e in kernels
+                             if any(nm in e.get("name", "") for nm in names))
+                    for kid, names in KERNEL_NAMES.items()}
+        if counted["K2"] or counted["K3"] or not counted["K1"]:
+            fail(f"the profiled Life traffic launched {counted}")
+        placement = _kernel_placement(events, kernels)
+        if placement["launches_without_kernel"]:
+            print(f"chip_smoke: run_profile's launches without a kernel "
+                  f"record: {placement}", file=sys.stderr, flush=True)
+        return ({"K1": counted["K1"]}, {"K1": in_trace["K1"]},
+                {"rounds": rounds, "k1_launches": counted["K1"],
+                 "trace_kernels": in_trace, "trace_events": len(events),
+                 "trace_bytes": os.path.getsize(out["path"]),
+                 "capture_s": out["seconds"], "lead_s": OBS_LEAD_S,
+                 "kernel_placement": placement})
+
+    result, takes, lost = _trace_holds_launches("run_profile", attempt)
+    return {**result, "takes": takes, "records_lost_on_retaken": lost}
+
+
+def _check_cards(engines: dict) -> dict:
+    """Every engine holds a card for each (depth, B) it warmed, from its
+    kernel's count; K1's, K3's and K2's equal their counts times the work."""
+    B, size, k, _, _ = OBS_LIFE
+    out = {}
+    for kid, eng in engines.items():
+        cards = {(c.depth, c.batch): c for c in eng.cost_cards()}
+        warmed = {(n, 0) for n in eng._compiled} | set(eng._compiled_batched)
+        if not cards or set(cards) != warmed:
+            fail(f"{kid}'s cost cards {sorted(cards)} are not its warmed "
+                 f"steps {sorted(warmed)}")
+        if any(c.source != "kernel_count" or c.flops <= 0
+               or c.bytes_accessed <= 0 for c in cards.values()):
+            fail(f"{kid} has a cost card without its kernel's counts")
+        out[kid] = [c.as_dict() for c in cards.values()]
+    words = size * size // WORD
+    batched = max(c.batch for c in engines["K1"].cost_cards())
+    want = {"K1": [((k, 0), word_ops(LIFE) * words * k),
+                   ((k, batched), word_ops(LIFE) * words * k * batched)],
+            "K3": [((1, 0), ltl_word_ops(BOSCO) * OBS_LTL_SIZE ** 2 // WORD)],
+            "K2": [((3, 0), dense_cell_ops(5) * OBS_LTL_SIZE ** 2 * 3)]}
+    for kid, keys in want.items():
+        for key, ops in keys:
+            card = engines[kid].cost_card(*key)
+            if card is None or card.flops != ops:
+                fail(f"{kid}'s {key} card counts {card and card.flops} "
+                     f"instructions, its kernel's count gives {ops}")
+    return out
+
+
+def phase7_obs(card: str) -> None:
+    """Observability on the card, then the native backends on its host."""
+    B, size, k, n, rounds = OBS_LIFE
+    off = SessionManager(EngineCache(), batch_max=B)
+    obs = Obs()
+    on = SessionManager(EngineCache(), batch_max=B, obs=obs)
+    obs.arm_telemetry(manager=on, start=False)
+    obs.arm_flight(manager=on, anomaly=True)
+    sids = {"off": _obs_sessions(off), "on": _obs_sessions(on)}
+    if sids["off"] != sids["on"]:
+        fail("the obs-on and obs-off managers' session ids differ")
+    sids = sids["on"]
+    for mgr in (off, on):
+        _obs_traffic(mgr, sids, 1)      # warms the (n, B) batched step
+    builds = _build.builds
+    # turns: off, on, on, off; the obs-on run is this phase's own path,
+    # its counts set to 0 just before and read just after
+    walls = {"off": [], "on": []}
+    for label in ("off", "on", "on", "off"):
+        mgr = on if label == "on" else off
+        _reset_launches()
+        walls[label].append(_obs_traffic(mgr, sids, rounds))
+        launches = _launches()
+        if not all(launches.values()):
+            fail(f"the obs-{label} traffic launched {launches}")
+        if label == "on":
+            on_launches = launches
+    if _build.builds != builds:
+        fail("a kernel was built while phase 7 served")
+    for label, mgr in (("off", off), ("on", on)):
+        _no_faults(mgr, f"obs-{label}")
+    requests = B * rounds
+    rps = {label: [requests / w for w in ws] for label, ws in walls.items()}
+    emit({"phase": "obs", "part": "requests_per_s", "card": card,
+          "sessions": B, "grid": [size, size], "comm_every": k,
+          "generations_a_request": n, "rounds_a_turn": rounds,
+          "turns": ["off", "on", "on", "off"],
+          "requests_per_s": rps,
+          "on_over_off": (sum(rps["on"]) / len(rps["on"]))
+          / (sum(rps["off"]) / len(rps["off"])),
+          "launches_obs_on": on_launches})
+    # the same requests on both managers: the boards, bit for bit
+    every = sids["life"] + [sids["K3"], sids["K2"]]
+    for sid in every:
+        a, b = off.get(sid), on.get(sid)
+        if a.generation != b.generation or not torch.equal(a.grid, b.grid):
+            fail(f"session {sid} with obs on differs from obs off")
+    engines = {kid: on.get(sid).engine for kid, sid in
+               (("K1", sids["life"][0]), ("K3", sids["K3"]),
+                ("K2", sids["K2"]))}
+    cards = _check_cards(engines)
+    roof = roof_ops_per_s()
+    props = torch.cuda.get_device_properties(0)
+    if roof is None or roof != device_roof_ops_per_s():
+        fail(f"no roof from the card's properties: {roof}")
+    usage = on.usage()
+    rooflines = {row["signature"]: row.get("roofline")
+                 for row in usage["signatures"]}
+    life_row = rooflines.get(engines["K1"].sig_label)
+    if life_row is None:
+        fail("the usage readout has no roofline for the Life signature")
+    emit({"phase": "obs", "part": "cost_cards", "card": card,
+          "roof_ops_per_s": roof, "sm_count": props.multi_processor_count,
+          "int32_lanes_per_sm": 64,
+          "clock_hz": roof / (props.multi_processor_count * 64),
+          "cards": cards, "rooflines": rooflines,
+          "usage_totals": usage["totals"]})
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        prof = _obs_profile(on, sids, d)
+    obs.telemetry.sample_once()         # the devmem sample and the anomaly
+    mem = read_device_memory()
+    if not mem.get(("cuda:0", "in_use")) or not obs.devmem.memory_total():
+        fail(f"read_device_memory reports no memory in use: {mem}")
+    stats = on.stats()["obs"]
+    if stats["flight"]["recorded"] <= 0 or on.slo()["evals"] < 1:
+        fail(f"the flight recorder or SLO engine saw nothing: {stats}")
+    emit({"phase": "obs", "part": "profile_devmem", "card": card, **prof,
+          "device_memory": {f"{dev}/{kind}": v
+                            for (dev, kind), v in sorted(mem.items())},
+          "obs_stats": stats, "health_slo": on.health().get("slo")})
+    # a cpp-par session of the same spec as a cuda one: equal boards
+    nsize, ngens, workers = NATIVE
+    spec = {"rows": nsize, "cols": nsize, "seed": SEED}
+    pair = {b: on.create(dict(spec, backend=b))["id"]
+            for b in ("cuda", "cpp-par")}
+    for sid in pair.values():
+        on.step(sid, ngens)
+    if not np.array_equal(on.snapshot_array(pair["cuda"])[0],
+                          on.snapshot_array(pair["cpp-par"])[0]):
+        fail("a cpp-par session differs from the cuda session of its spec")
+    if on.get(pair["cpp-par"]).engine is not None:
+        fail("the cpp-par session holds an engine")
+    off.shutdown()
+    on.shutdown()
+    obs.close()
+    torch.cuda.empty_cache()
+    _native_cli(card)
+
+
+def _native_cli(card: str) -> None:
+    """The CLI's native backends on the card's host against ``--backend
+    cuda``: equal boards read back with ``golio``, equal master headers but
+    for ``cpp-par``'s tile count."""
+    size, gens, workers = NATIVE
+    runs = (("cuda", []), ("cpp", []),
+            ("cpp-par", ["--workers", str(workers)]))
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        for b, extra in runs:
+            name = b.replace("-", "_")
+            t0 = time.perf_counter()
+            rc = cli_main([str(size), str(size), str(gens), str(gens),
+                           "--backend", b, *extra, "--save", "--name", name,
+                           "--seed", str(SEED), "--out-dir", d, "--quiet"])
+            if rc != 0:
+                fail(f"the CLI with --backend {b} exited {rc}")
+            out[b] = {"wall_s": time.perf_counter() - t0,
+                      "header": golio.read_master(golio.master_path(d, name)),
+                      "grids": [golio.load_snapshot(d, name, it)
+                                for it in (0, gens)]}
+        tiles = plan_tiles((size, size), workers, 1)
+        for b in ("cpp", "cpp-par"):
+            if not all(np.array_equal(x, y) for x, y in
+                       zip(out[b]["grids"], out["cuda"]["grids"])):
+                fail(f"--backend {b} wrote another board than --backend cuda")
+        head = out["cuda"]["header"]
+        if out["cpp"]["header"] != head:
+            fail(f"the cpp and cuda headers differ: {out['cpp']['header']} "
+                 f"{head}")
+        par = out["cpp-par"]["header"]
+        if (par[4] != tiles[0] * tiles[1] or par[4] == head[4]
+                or par[:4] != head[:4]):
+            fail(f"the cpp-par header {par} is not the cuda header with "
+                 f"{tiles} tiles")
+    emit({"phase": "obs", "part": "native_cli", "card": card,
+          "grid": [size, size], "generations": gens, "workers": workers,
+          "tiles": list(tiles),
+          "headers": {b: list(r["header"]) for b, r in out.items()},
+          "wall_s": {b: r["wall_s"] for b, r in out.items()},
+          "boards_equal": True})
+
+
 def main() -> int:
     card = phase0_card()
     seconds, t0 = {}, time.perf_counter()
@@ -2397,6 +2742,8 @@ def main() -> int:
     lap("traces")
     phase6_serve(card, times)
     lap("serve")
+    phase7_obs(card)
+    lap("obs_native")
     emit({"phase": "seconds", **seconds})
     k1 = times["K1", MAIN_GENS]
     k2 = times["K2", DENSE_PATH[2]]

@@ -300,7 +300,11 @@ class Engine:
         self.compile_wall_s = 0.0
         self.fault_hook = None
         self.sig_label = None
+        # observability (mpi_tpu_torch.obs.Obs, set by the serve layer):
+        # the first warm-up of each (depth, B) records its wall and a cost
+        # card from the kernel's own counts (obs/cost.py)
         self.obs = None
+        self._cost_cards = {}
         self.tuned_plan = None
         self.mi = self.mj = 1
 
@@ -465,19 +469,41 @@ class Engine:
             t0 = time.perf_counter()
             self._warm(self._step_depths(n), boards)
             self.sync()
+            dt = time.perf_counter() - t0
             warmed.add(key)
             self.compile_count += 1
             self.batched_compile_count += bool(boards)
-            self.compile_wall_s += time.perf_counter() - t0
+            self.compile_wall_s += dt
+            if self.obs is not None:
+                self.obs.compile_wall.observe(dt)
+                if boards:
+                    self.obs.event("compile", dt, t0, depth=n, B=boards)
+                else:
+                    self.obs.event("compile", dt, t0, depth=n)
+                self._capture_cost_card(n, boards)
+
+    def _capture_cost_card(self, depth: int, batch: int) -> None:
+        """The (depth, B) cost card from the kernel's counts
+        (``obs/cost.py``); the caller holds ``_compile_lock`` and checked
+        ``self.obs``.  A card that cannot be built is dropped: metering
+        never fails a step."""
+        try:
+            from mpi_tpu_torch.obs.cost import capture_card
+
+            self._cost_cards[(depth, batch)] = capture_card(
+                self, depth=depth, batch=batch)
+        except Exception:  # noqa: BLE001 — metering must never break serving
+            pass
 
     def cost_card(self, depth: int, batch: int = 0):
-        """None: the reference's answer with observability off (cost
-        cards come with ROADMAP queue 1 item 11b)."""
-        return None
+        """The captured card for the (depth, B) step, or None (no obs, or
+        that step was not warmed with obs on)."""
+        return self._cost_cards.get((depth, batch))
 
     def cost_cards(self) -> list:
-        """[]: no cost cards without observability (item 11b)."""
-        return []
+        """Snapshot of every captured card."""
+        with self._compile_lock:
+            return list(self._cost_cards.values())
 
     def compile_segments(self, grid, segments) -> None:
         """:meth:`ensure_compiled` for every distinct segment length."""

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from mpi_tpu_torch.models.rules import LIFE, Rule
+from mpi_tpu_torch.utils.hashinit import init_tile_np
 
 
 def counts_np(grid: np.ndarray, radius: int, boundary: str) -> np.ndarray:
@@ -50,3 +51,9 @@ def evolve_np(
         grid = step_np(grid, rule, boundary)
     return grid
 
+
+
+def run_serial(config) -> np.ndarray:
+    """Init + evolve per a GolConfig; returns the final grid."""
+    grid = init_tile_np(config.rows, config.cols, config.seed)
+    return evolve_np(grid, config.steps, config.rule, config.boundary)

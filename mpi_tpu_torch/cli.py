@@ -9,6 +9,7 @@ Examples::
     python -m mpi_tpu_torch.cli 512 512 10 50 --backend serial --save
     python -m mpi_tpu_torch.cli 64 64 10 50 --device cpu --resume NAME@50
     python -m mpi_tpu_torch.cli 65536 65536 0 1000 --sparse 128
+    python -m mpi_tpu_torch.cli 2048 2048 10 50 --backend cpp-par --workers 8
 
 ``--backend cuda`` (the default) runs on the GPU through one of three
 kernels (``backends/cuda.py:select_engine``): K1 for radius-1 rules, K3
@@ -20,9 +21,11 @@ serves), and K2 for every other width or depth, in passes of at most
 (``parallel/policy.py``); ``--sparse T`` steps only the T x T tiles that
 can change (``ops/activity.py``); ``--device cpu`` runs the kernel's plain
 PyTorch version instead.
-``serial`` runs the numpy oracle.
-Every backend writes the same ``.gol`` files and the same two timing
-reports.
+``serial`` runs the numpy oracle, ``cpp`` the native C++ engine on one
+host thread and ``cpp-par`` the same engine on a mesh of ``--workers``
+host threads, one ``.gol`` tile per worker (``backends/cpp.py``).
+Every backend writes the same ``.gol`` grids and the same two timing
+reports; the master header counts the tile writers.
 """
 
 from __future__ import annotations
@@ -54,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="basename for timing reports (default: run name)")
     p.add_argument("first", nargs="?", type=int, default=0,
                    help="nonzero: write the CSV header (sweep convention)")
-    p.add_argument("--backend", choices=["cuda", "serial"], default="cuda")
+    p.add_argument("--backend", choices=["cuda", "serial", "cpp", "cpp-par"],
+                   default="cuda")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda backend: cpu runs the kernel's plain PyTorch "
                    "version instead of the kernel")
@@ -71,6 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "(1 bit/cell); auto picks text up to %d cells per tile"
                    % golio.GOLP_THRESHOLD)
     p.add_argument("--out-dir", default=".")
+    p.add_argument("--workers", type=int, default=0,
+                   help="cpp-par worker threads (default: auto)")
     p.add_argument("--comm-every", default="1", metavar="K",
                    help="cuda backend: generations per kernel pass (1..16; "
                    "the dense kernel runs at most 16/radius a pass), the "
@@ -130,6 +136,7 @@ def _run(args) -> int:
         rule=rule,
         boundary=args.boundary,
         backend=args.backend,
+        workers=args.workers,
         comm_every=comm_every,
         sparse_tile=args.sparse,
     )
@@ -141,7 +148,20 @@ def _run(args) -> int:
         config = dataclasses.replace(config, comm_every=resolve_auto(config))
         _log(args.quiet, f"comm policy auto: comm_every={config.comm_every}")
     if args.strict:
+        # backend-independent checks fail here, before any side effect;
+        # the cpp-par tile plan is judged below
         config.validate_strict()
+    # processes in the master header = number of tile writers: one device
+    # (cuda) or one process (serial, cpp), or the cpp-par tile mesh
+    tiles_shape = (1, 1)
+    if config.backend == "cpp-par":
+        from mpi_tpu_torch.backends.cpp import plan_tiles
+
+        tiles_shape = plan_tiles((config.rows, config.cols), config.workers,
+                                 rule.radius)
+        if args.strict:
+            config.validate_strict(tiles_shape)
+    processes = tiles_shape[0] * tiles_shape[1]
     if config.backend == "cuda":
         from mpi_tpu_torch.backends.cuda import resolve_device
 
@@ -174,7 +194,6 @@ def _run(args) -> int:
         _log(args.quiet, f"resumed {rname}@{start_iter}")
 
     total_iter = start_iter + config.steps
-    processes = 1  # one device (cuda) or one process (serial): one tile
     golio.write_master(
         args.out_dir, name, config.rows, config.cols,
         args.iteration_gap, total_iter, processes,
@@ -189,6 +208,14 @@ def _run(args) -> int:
             [(tile, r0, c0) for _pid, tile, r0, c0 in tiles],
             fmt=args.snapshot_format)
 
+    def host_snapshot(grid, iteration) -> None:
+        ti, tj = tiles_shape
+        tr, tc = grid.shape[0] // ti, grid.shape[1] // tj
+        snapshot(iteration, [
+            (i * tj + j, grid[i * tr:(i + 1) * tr, j * tc:(j + 1) * tc],
+             i * tr, j * tc)
+            for i in range(ti) for j in range(tj)])
+
     if config.backend == "cuda":
         from mpi_tpu_torch.backends.cuda import run_cuda
 
@@ -201,7 +228,26 @@ def _run(args) -> int:
             device=args.device,
         )
     else:
-        from mpi_tpu_torch.backends.serial_np import evolve_np
+        if config.backend == "serial":
+            from mpi_tpu_torch.backends.serial_np import evolve_np
+
+            def engine(g, n):
+                return evolve_np(g, n, rule, config.boundary)
+        else:
+            from mpi_tpu_torch.backends.cpp import (
+                evolve_cpp, evolve_par_cpp, load_library,
+            )
+
+            # building/loading the native library is setup, like the
+            # kernels' build and warm-up
+            load_library()
+            if config.backend == "cpp":
+                def engine(g, n):
+                    return evolve_cpp(g, n, rule, config.boundary)
+            else:
+                def engine(g, n):
+                    return evolve_par_cpp(g, n, rule, config.boundary,
+                                          tiles=tiles_shape)
         from mpi_tpu_torch.utils.hashinit import init_tile_np
 
         grid = (init_tile_np(config.rows, config.cols, config.seed)
@@ -209,12 +255,12 @@ def _run(args) -> int:
         timer.setup_done()
         it = start_iter
         if args.save and it == 0:
-            snapshot(0, [(0, grid, 0, 0)])
+            host_snapshot(grid, 0)
         for n in plan_segments(config.steps, config.snapshot_every):
-            grid = evolve_np(grid, n, rule, config.boundary)
+            grid = engine(grid, n)
             it += n
             if args.save:
-                snapshot(it, [(0, grid, 0, 0)])
+                host_snapshot(grid, it)
         timer.finish()
         final = grid
 

@@ -8,18 +8,20 @@ device meshes and ``overlap`` (item 13).  Every other rule, width and
 ``comm_every`` runs on one of kernels K1, K2 and K3
 (``backends/cuda.py:select_engine``, padded widths included; K2 runs a
 comm_every deeper than its halo as passes of ⌊16/r⌋ generations); the
-``serial`` oracle serves any rule and width.
+``serial`` oracle and the native host backends ``cpp`` and ``cpp-par``
+(``backends/cpp.py``, ``workers`` threads) serve any rule and width.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 from mpi_tpu_torch.models.rules import LIFE, Rule
 
 WORD = 32  # cells per packed word
-BACKENDS = ("cuda", "serial")
+BACKENDS = ("cuda", "serial", "cpp", "cpp-par")
 
 
 class ConfigError(ValueError):
@@ -45,8 +47,9 @@ class GolConfig:
     seed: int = 0
     rule: Rule = LIFE
     boundary: str = "periodic"       # "periodic" | "dead"
-    backend: str = "cuda"            # "cuda" | "serial"
+    backend: str = "cuda"            # "cuda" | "serial" | "cpp" | "cpp-par"
     mesh_shape: Optional[Tuple[int, int]] = None  # only None or (1, 1) here
+    workers: int = 0                 # native backend threads; 0 = auto
     comm_every: int = 1              # cuda: generations per kernel pass (1..16)
     overlap: bool = False            # refused: multi-GPU slice
     sparse_tile: int = 0             # cuda: sparse tile side in cells; 0 = dense
@@ -109,12 +112,29 @@ class GolConfig:
     def cells(self) -> int:
         return self.rows * self.cols
 
-    def validate_strict(self) -> None:
-        """The reference's strict preconditions for a one-device run:
-        square grid, tile >= 4 cells per side."""
+    def validate_strict(self, effective_mesh: Optional[Tuple[int, int]] = None) -> None:
+        """Enforce the reference's exact preconditions (``main.cpp:195``):
+        square grid, square mesh, divisibility, tile >= 4 cells/side.
+
+        ``effective_mesh`` is the decomposition the run will actually use
+        (the cpp-par tile plan; one device, (1, 1), for every other
+        backend) — strict mode must judge what runs, so when provided it
+        wins over ``mesh_shape``; with neither, the one device's (1, 1)."""
         if self.rows != self.cols:
             raise ConfigError("strict mode: grid must be square")
-        if self.rows < 4:
+        mesh = effective_mesh if effective_mesh is not None else (
+            self.mesh_shape or (1, 1))
+        mi, mj = mesh
+        p = mi * mj
+        z = math.isqrt(p)
+        if z * z != p or mi != mj:
+            raise ConfigError(
+                f"strict mode: device count must be a perfect square mesh "
+                f"(effective mesh {mi}x{mj})"
+            )
+        if self.rows % mi:
+            raise ConfigError("strict mode: mesh must divide rows")
+        if self.rows // mi < 4:
             raise ConfigError("strict mode: tile must be >= 4 cells per side")
 
 

@@ -88,3 +88,38 @@ def make_stepper(rule: Rule = LIFE, boundary: str = "periodic"):
         return grid
 
     return evolve
+
+
+# Kernel K2's row loop (csrc/stencil.cu, dense_step_body): a thread owns
+# GROUP words of four byte cells in a row and steps them one row at a time.
+GROUP = 4          # words a thread owns per row (kGroup)
+CELLS_PER_WORD = 4
+
+
+def dense_cell_ops(radius: int) -> float:
+    """Instructions kernel K2 issues per cell per generation at ``radius``,
+    counted from its row loop in ``csrc/stencil.cu`` (one row of a thread's
+    GROUP words, 16 cells), arithmetic and memory instructions only: loop
+    control and address arithmetic are the compiler's (``chip_smoke.py``
+    phase 1 counts the built loop's SASS at r = 5 beside this count).
+    Per row, with M = ⌈r/4⌉ neighbour words a side:
+
+    * the entering and leaving rows' windows, ``load_window`` twice: one
+      16-byte load and two more each (6);
+    * the sliding vertical sums, ``v = v + e - l`` on GROUP + 2M words, one
+      three-input add each;
+    * the centre words, one 16-byte load (1);
+    * per word: a byte permute for each of the 2r+1 horizontal shifts that
+      is not a whole word (``shifted``), r three-input adds for the 2r+1
+      terms (``hsum``), two permutes pairing totals with states, four table
+      indices (a mask or a shift each), four table loads, three merges of
+      the looked-up bytes and one mask with ``keep`` (``nxt``);
+    * the store of the four words, one 16-byte store (1)."""
+    r = int(radius)
+    if not 1 <= r <= 7:
+        raise ValueError(f"radius must be in 1..7, got {radius}")
+    m = -(-r // 4)
+    permutes = sum(1 for s in range(-r, r + 1) if s % 4)
+    per_word = permutes + r + 2 + 4 + 4 + 3 + 1
+    per_row = 6 + (GROUP + 2 * m) + 1 + GROUP * per_word + 1
+    return per_row / (GROUP * CELLS_PER_WORD)

@@ -25,10 +25,14 @@ device submission: ``SessionManager.step_async`` returns a ticket at once
 and a per-manager dispatch loop owns the device, decomposing depth-k
 tickets into unit steps so mixed-depth sessions share batched launches.
 
+Sessions may also name the host backends: ``serial`` (the numpy oracle)
+and the native ``cpp``/``cpp-par`` engine.  ``SessionManager(obs=...)``
+takes the observability handle of ``mpi_tpu_torch.obs``.
+
 This is the reference's session core (``mpi_tpu.serve``).  Its network
-fronts (``transport``, ``httpd``, ``aio``, ``serve/cli``), admission,
-cluster and observability come with ROADMAP queue 1 item 11b, and its
-native ``cpp``/``cpp-par`` backends with item 16.
+fronts (``transport``, ``httpd``, ``aio``, ``serve/cli``, and the
+``/metrics``, ``/usage``, ``/debug/*`` endpoints), admission and cluster
+come with the second half of ROADMAP queue 1 item 11b.
 """
 
 from mpi_tpu_torch.serve.batch import MicroBatcher

@@ -113,7 +113,12 @@ class MicroBatcher:
                 leader = False
         if leader:
             if self.window_s:
+                t0 = time.perf_counter()
                 time.sleep(self.window_s)
+                if manager.obs is not None:
+                    manager.obs.event("batch_window",
+                                      time.perf_counter() - t0, t0,
+                                      sid=session.id)
             self._run_leader(manager, key)
         else:
             entry.event.wait()
@@ -122,7 +127,8 @@ class MicroBatcher:
         return entry.result
 
     def queue_depth(self) -> int:
-        """Entries currently waiting in coalescing queues."""
+        """Entries currently waiting in coalescing queues (scraped as the
+        ``mpi_tpu_batch_queue_depth`` gauge)."""
         with self._lock:
             return sum(len(q) for q in self._queues.values())
 
@@ -261,6 +267,44 @@ class MicroBatcher:
             for e in group:
                 self._step_solo(manager, e, steps)
             return
+        obs = manager.obs
+        if obs is not None:
+            # t2 - t1: the batch's launches and the wait for them
+            # (Engine.block_until_ready), so the time is the step's, not
+            # its enqueue.  One step serves B requests: the span lists
+            # every rid so any of them reconstructs this shared leg; each
+            # rider's trace context rides as a *link*, never a parent —
+            # the shared step belongs to no single trace
+            links = [e.tctx.link() for e in group if e.tctx is not None]
+            obs.event("batched_dispatch", t2 - t1, t1, B=B, steps=steps,
+                      sids=[e.session.id for e in group],
+                      request_ids=[e.rid for e in group],
+                      **({"links": links} if links else {}))
+            obs.occupancy_series.observe(B)
+            if getattr(engine, "tuned_plan", None):
+                obs.dispatch_batched_tuned.observe(t2 - t1)
+            else:
+                obs.dispatch_batched.observe(t2 - t1)
+            tel = obs.telemetry
+            if tel is not None:
+                tel.dispatch_digest.observe(t2 - t1)
+            # usage ledger: ONE wait split evenly across the B riders
+            # (shares sum to the leader's block time); the failed-batch
+            # path above commits nothing here — each solo fallback
+            # records its own wait in _step_locked, never both
+            card = engine.cost_card(steps, B)
+            per_flops = card.flops / B if card is not None else 0.0
+            obs.ledger.record(
+                "batched", engine.sig_label, t2 - t1,
+                [(e.session.id, steps, steps * e.session.config.cells,
+                  per_flops) for e in group])
+            fl = obs.flight
+            if fl is not None:
+                fl.record("batched", engine=engine, steps=steps,
+                          batch=B, setup_s=t1 - t0, device_s=t2 - t1,
+                          sessions=[e.session.id for e in group],
+                          request_ids=[e.rid for e in group],
+                          links=links or None)
         for e, grid in zip(group, boards):
             s = e.session
             s.setup_s += t1 - t0

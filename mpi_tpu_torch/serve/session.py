@@ -4,11 +4,12 @@ A session is one live board — created once (paying setup: planning, and
 on a cache miss the warm-up of its pass depths, with a new rule's nvcc
 build; nearly nothing on a hit), then stepped/inspected by any number of
 requests.  ``cuda`` sessions step through kernels K1, K2 and K3 on one
-device and ``serial`` sessions on the numpy oracle, so a served board is
-bit-identical to the same config run one-shot (the parity tests in
+device, ``serial`` sessions on the numpy oracle and ``cpp``/``cpp-par``
+sessions on the native C++ engine (``backends/cpp.py``), so a served board
+is bit-identical to the same config run one-shot (the parity tests in
 ``tests/test_torch_serve*.py`` hold the serve path to the reference's
-``serial_np`` oracle).  The native ``cpp``/``cpp-par`` backends are
-ROADMAP item 16 and are refused until then.
+``serial_np`` oracle).  A host backend serves only a session whose spec
+names it: a ``cuda`` session never steps on the native engine.
 
 Sessions and engines are decoupled: cuda sessions hold a *reference* to a
 cached :class:`~mpi_tpu_torch.backends.cuda.Engine` plus their own grid
@@ -57,14 +58,20 @@ at enqueue and whose eventual outcome — :meth:`SessionManager.ticket_result`
 verbs.  The dispatch loop decomposes depth-k tickets into unit steps so
 mixed-depth sessions share batched launches.
 
-Observability (the reference's ``obs`` package: metrics, usage ledger,
-cost cards) is ROADMAP item 11b and autotuned plans item 12; the manager
-refuses ``obs`` and ``tune_cache`` until then.  The cluster and admission
-seams stay as the reference has them, no-ops while unset.
+Observability is one optional handle, ``SessionManager(obs=Obs(...))``
+(``mpi_tpu_torch/obs``): spans, metrics, the usage ledger, cost cards from
+the kernels' own instruction counts, and when armed the flight recorder,
+anomaly detector, SLO engine, time series and device-memory sampler.
+Every instrumentation site guards on the handle and only reads what
+happened: ``obs=None`` runs the uninstrumented path, and obs never changes
+which device or engine steps a board.  Autotuned plans are ROADMAP item 12
+(the manager refuses ``tune_cache``); the cluster and admission seams stay
+as the reference has them, no-ops while unset.
 """
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import sys
 import threading
@@ -91,8 +98,15 @@ _SPEC_KEYS = {
 
 # the one device a session's plan spans (the port runs one device)
 MESH_SHAPE = (1, 1)
-# host backends of the reference that the port does not have yet
-NATIVE_BACKENDS = ("cpp", "cpp-par")
+
+
+def _span(obs, name, **fields):
+    """A trace span when observability is on, a no-op context otherwise —
+    the guard every instrumentation site in this module goes through, so
+    ``obs=None`` runs the uninstrumented code path exactly."""
+    if obs is None:
+        return contextlib.nullcontext()
+    return obs.span(name, **fields)
 
 
 class DeadlineError(RuntimeError):
@@ -127,10 +141,6 @@ def _parse_spec(spec: dict):
     except KeyError as e:
         raise ConfigError(f"session spec needs {e.args[0]!r}")
     backend = str(spec.get("backend", "cuda"))
-    if backend in NATIVE_BACKENDS:
-        raise ConfigError(
-            f"backend {backend!r}: the native C++ backends are ROADMAP "
-            f"queue 1 item 16; the port serves 'cuda' and 'serial'")
     mesh = spec.get("mesh")
     if isinstance(mesh, str):
         try:
@@ -350,9 +360,7 @@ class SessionManager:
                  obs=None,
                  tune_cache=None,
                  device=None):
-        if obs is not None:
-            raise ConfigError("observability (obs) is ROADMAP queue 1 item "
-                              "11b; the port's manager runs without it")
+        self.obs = obs                  # mpi_tpu_torch.obs.Obs or None (off)
         if tune_cache is not None:
             raise ConfigError("autotuned plans (tune_cache) are ROADMAP "
                               "queue 1 item 12")
@@ -416,10 +424,12 @@ class SessionManager:
             journal_max_age_s=journal_max_age_s,
             keep=state_keep)
             if state_dir else None)
-        if self.store is not None and self.faults is not None:
-            # the io fault sites fire inside StateStore._io — the
-            # one choke point every persisted byte flows through
-            self.store.fault_hook = self.faults.io_hook
+        if self.store is not None:
+            self.store.obs = obs
+            if self.faults is not None:
+                # the io fault sites fire inside StateStore._io — the
+                # one choke point every persisted byte flows through
+                self.store.fault_hook = self.faults.io_hook
         self.engine_failures = 0
         self.watchdog_timeouts = 0
         self.degraded_total = 0
@@ -427,6 +437,8 @@ class SessionManager:
         self.restore_errors = 0
         self.store_errors = 0
         self._last_dispatch_ok: Optional[float] = None
+        if self.obs is not None:
+            self.obs.bind_manager(self)
         if self.store is not None:
             self._restore_all()
 
@@ -538,10 +550,12 @@ class SessionManager:
             tenant = tenant if tenant is not None else adm.resolve(None)
             adm.admit_session(tenant)
         t0 = time.perf_counter()
-        if config.backend == "cuda":
-            session = self._create_cuda(config, segments)
-        else:
-            session = self._create_host(config)
+        with _span(self.obs, "create", backend=config.backend,
+                   rows=config.rows, cols=config.cols):
+            if config.backend == "cuda":
+                session = self._create_cuda(config, segments)
+            else:
+                session = self._create_host(config)
         session.setup_s = time.perf_counter() - t0
         session.spec = dict(spec)
         with self._lock:
@@ -580,8 +594,12 @@ class SessionManager:
         if self.faults is not None:
             # idempotent: cached engines get the same hook re-installed
             engine.fault_hook = self.faults.engine_hook
-        # the compact plan tag of the signature (bounded cardinality:
-        # signatures, never sessions)
+        # same idempotent-install idiom: a cached engine follows THIS
+        # manager's obs setting (None detaches a previous manager's)
+        engine.obs = self.obs
+        # the compact plan tag keys the engine's cost cards and the usage
+        # ledger's per-signature series (bounded cardinality: signatures,
+        # never sessions)
         engine.sig_label = signature_label(sig)
         grid = engine.init_grid(initial=initial, seed=config.seed)
         # warm the requested segment set (a no-op on a cache hit — the
@@ -591,10 +609,32 @@ class SessionManager:
                        plan_sig=sig)
 
     def _create_host(self, config: GolConfig) -> Session:
+        """A session on a host backend the spec named: the numpy oracle
+        (``serial``) or the native engine (``cpp``, ``cpp-par``).  Only an
+        explicit backend lands here; a degraded card session takes
+        :meth:`_degraded_host_session`'s oracle instead."""
         rule, boundary = config.rule, config.boundary
+        if config.backend == "serial":
+            def stepper(g, n):
+                return evolve_np(g, n, rule, boundary)
+        elif config.backend == "cpp":
+            from mpi_tpu_torch.backends.cpp import evolve_cpp, load_library
 
-        def stepper(g, n):
-            return evolve_np(g, n, rule, boundary)
+            load_library()              # build/dlopen is setup, like a build
+
+            def stepper(g, n):
+                return evolve_cpp(g, n, rule, boundary)
+        else:  # cpp-par
+            from mpi_tpu_torch.backends.cpp import (
+                evolve_par_cpp, load_library, plan_tiles,
+            )
+
+            load_library()
+            tiles = plan_tiles((config.rows, config.cols), config.workers,
+                               rule.radius)
+
+            def stepper(g, n):
+                return evolve_par_cpp(g, n, rule, boundary, tiles=tiles)
 
         grid = init_tile_np(config.rows, config.cols, config.seed)
         return Session("?", config, stepper=stepper, grid=grid)
@@ -672,6 +712,7 @@ class SessionManager:
         if self.store is None or session.spec is None:
             return
         try:
+            t0 = time.perf_counter()
             if shards is not None:
                 snap = recovery.encode_grid_shards(
                     shards, session.config.rows, session.config.cols)
@@ -683,6 +724,13 @@ class SessionManager:
                 session.ckpt = snap
             self.store.save(session.id, session.spec, session.generation,
                             session.ckpt)
+            if self.obs is not None:
+                dt = time.perf_counter() - t0
+                self.obs.checkpoint_write.observe(dt)
+                self.obs.event("checkpoint_write", dt, t0, sid=session.id,
+                               generation=session.generation,
+                               snapshot=(grid_np is not None
+                                         or shards is not None))
         except recovery.StorageDegradedError:
             # fast-fail while degraded: already queued as pending and
             # counted by the store; no stderr spam per skipped write
@@ -728,6 +776,7 @@ class SessionManager:
                 grid_np = None
                 tiles = None
         try:
+            t0 = time.perf_counter()
             if tiles is not None:
                 snap = recovery.encode_grid_shards(
                     tiles, session.config.rows, session.config.cols)
@@ -737,11 +786,25 @@ class SessionManager:
                 snap = recovery.encode_grid(grid_np)
                 snap["generation"] = session.generation
                 session.ckpt = snap
-            self.store.commit_step(
+            info = self.store.commit_step(
                 session.id, session.spec, session.generation, session.ckpt,
                 grid=grid_np,
                 shards=None if tiles is None else
                 (session.config.rows, session.config.cols, tiles))
+            if self.obs is not None:
+                dt = time.perf_counter() - t0
+                if info["form"] == "journal":
+                    self.obs.event("journal_append", dt, t0,
+                                   sid=session.id,
+                                   generation=session.generation,
+                                   kind=info["kind"],
+                                   bytes=info["bytes"])
+                else:
+                    self.obs.checkpoint_write.observe(dt)
+                    self.obs.event("checkpoint_write", dt, t0,
+                                   sid=session.id,
+                                   generation=session.generation,
+                                   snapshot=grid_np is not None)
         except recovery.StorageDegradedError:
             pass                        # queued as pending; retried later
         except Exception as e:  # noqa: BLE001 — durability is best-effort
@@ -799,6 +862,11 @@ class SessionManager:
                 session.grid = session.stepper(session.grid, n)
             session.generation = target_gen
         session.setup_s = time.perf_counter() - t0
+        if self.obs is not None:
+            self.obs.restore_replay.observe(session.setup_s)
+            self.obs.event("restore_replay", session.setup_s, t0,
+                           sid=rec["id"], replayed=n,
+                           backend=config.backend)
         session.spec = dict(rec["spec"])
         session.ckpt = snap
         session.restored = True
@@ -834,6 +902,10 @@ class SessionManager:
         if self._on_card and not isinstance(err, InjectedFault):
             self._card_failures.add(sig)
         session.last_error = f"{type(err).__name__}: {err}"
+        if self.obs is not None:
+            self.obs.engine_failures.inc()
+            self.obs.event("engine_failure", sid=session.id,
+                           error=session.last_error, timeout=timeout)
         opened = self.cache.record_failure(sig)
         if opened:
             print(f"note: circuit breaker OPEN for plan of session "
@@ -891,6 +963,8 @@ class SessionManager:
         print(f"note: session {repl.id} degraded to the serial_np oracle "
               f"({reason}); results stay bit-identical, throughput drops",
               file=sys.stderr)
+        if self.obs is not None:
+            self.obs.event("degrade", sid=repl.id, reason=reason)
         self._persist(repl)
 
     @staticmethod
@@ -995,7 +1069,18 @@ class SessionManager:
             # takes session.lock (leader-side) and falls back to
             # _step_locked when alone or on any batched-path failure
             return self.batcher.submit(self, session, steps)
-        session.lock.acquire()
+        obs = self.obs
+        if obs is not None:
+            t0 = time.perf_counter()
+            session.lock.acquire()
+            wait = time.perf_counter() - t0
+            obs.lock_wait_series.observe(wait)
+            if wait >= 1e-3:
+                # only a *contended* wait is a trace-worthy fact; the
+                # uncontended acquire would just be ring noise
+                obs.event("lock_wait", wait, t0, sid=session.id)
+        else:
+            session.lock.acquire()
         try:
             if session.closed:
                 raise KeyError(session.id)
@@ -1009,7 +1094,14 @@ class SessionManager:
         path via :meth:`_step_entry`, the microbatch leader for
         lone/fallback entries, the async dispatcher's solo fallback —
         the latter with ``unit=True``: chain depth-1 steps instead of
-        warming depth ``steps``)."""
+        warming depth ``steps``).
+
+        With obs on, each step's times: ``t1 - t0`` the warm-up check (a
+        build on a new depth), ``t2 - t1`` the launches and the wait for
+        them to finish (``Engine.block_until_ready``: on the card the
+        launches are asynchronous, so only a time that ends after the
+        wait is the step's), ``t2 - td`` that wait alone."""
+        obs = self.obs
         if session.engine is not None:
             # a depth never seen before is warmed here — that is setup,
             # not stepping; charge it to setup_s so throughput numbers
@@ -1026,13 +1118,86 @@ class SessionManager:
                 grid = session.engine.step_units(session.grid, steps)
             else:
                 grid = session.engine.step(session.grid, steps)
+            td = time.perf_counter() if obs is not None else 0.0
             session.grid = session.engine.block_until_ready(grid)
-            session.steady_s += time.perf_counter() - t1
+            t2 = time.perf_counter()
+            session.steady_s += t2 - t1
+            if obs is not None:
+                # ONE event for the launch+wait pair (block_s splits
+                # them at read time) through the pre-bound series
+                if unit:
+                    obs.event("device_dispatch", t2 - t1, t1,
+                              sid=session.id, steps=steps, unit=True,
+                              block_s=round(t2 - td, 9))
+                else:
+                    obs.event("device_dispatch", t2 - t1, t1,
+                              sid=session.id, steps=steps,
+                              block_s=round(t2 - td, 9))
+                if getattr(session.engine, "tuned_plan", None):
+                    obs.dispatch_solo_tuned.observe(t2 - t1)
+                else:
+                    obs.dispatch_solo.observe(t2 - t1)
+                tel = obs.telemetry
+                if tel is not None:
+                    tel.dispatch_digest.observe(t2 - t1)
+                # usage ledger: one committed wait.  The unit path is a
+                # solo chain (ONE wait for `steps` depth-1 steps); its
+                # instructions are the depth-1 card times the chain
+                # length.  A batched-path failure re-enters here, so
+                # fallbacks are counted exactly once — by this site.
+                card = session.engine.cost_card(1 if unit else steps)
+                flops = 0.0 if card is None else (
+                    card.flops * steps if unit else card.flops)
+                obs.ledger.record(
+                    "unit" if unit else "solo", session.engine.sig_label,
+                    t2 - t1,
+                    [(session.id, steps, steps * session.config.cells,
+                      flops)])
+                sa = None
+                if session.engine.sparse_plan is not None:
+                    # activity readout AFTER the wait (tiny tile-map
+                    # reduce + fetch) — the span every sparse step
+                    # leaves in the trace
+                    sa = session.engine.sparse_stats(session.grid)
+                    obs.event("sparse_step", 0.0, t2, sid=session.id,
+                              active_tiles=sa["active_tiles"],
+                              active_fraction=round(
+                                  sa["active_fraction"], 6),
+                              mode=sa["mode"])
+                fl = obs.flight
+                if fl is not None:
+                    fl.record("unit" if unit else "solo",
+                              engine=session.engine, steps=steps,
+                              session=session.id, setup_s=t1 - t0,
+                              device_s=t2 - t1, block_s=t2 - td,
+                              sparse=sa)
             self._mark_dispatch_ok()
         else:
             t0 = time.perf_counter()
             session.grid = session.stepper(session.grid, steps)
-            session.steady_s += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            session.steady_s += t1 - t0
+            if obs is not None:
+                obs.event("host_step", t1 - t0, t0,
+                          sid=session.id, steps=steps)
+                obs.dispatch_host.observe(t1 - t0)
+                tel = obs.telemetry
+                if tel is not None:
+                    tel.dispatch_digest.observe(t1 - t0)
+                # host wall is metered apart from device-seconds (the
+                # ledger's host_s bucket); degraded cuda sessions keep
+                # their signature row, plain host backends get "-"
+                obs.ledger.record(
+                    "host",
+                    signature_label(session.plan_sig)
+                    if session.plan_sig is not None else None,
+                    t1 - t0,
+                    [(session.id, steps, steps * session.config.cells,
+                      0.0)])
+                fl = obs.flight
+                if fl is not None:
+                    fl.record("host", steps=steps, session=session.id,
+                              device_s=t1 - t0)
         session.generation += steps
         self._checkpoint(session)
         return {"id": session.id, "generation": session.generation,
@@ -1088,6 +1253,7 @@ class SessionManager:
         self._storage_gate(mutating=True)   # reject at enqueue, not resolve
         session = self.get(sid)         # unknown session -> 404 at enqueue
         deadline = _Deadline(self._budget(timeout_s))
+        t0 = time.perf_counter()
         adm = self.admission
         if adm is None:
             ticket = self.dispatcher.submit(sid, steps, deadline)
@@ -1101,6 +1267,9 @@ class SessionManager:
             ticket = self.dispatcher.submit(
                 sid, steps, deadline, qos=resolved,
                 cost=adm.estimate_ops(session, steps))
+        if self.obs is not None:
+            self.obs.event("enqueue", time.perf_counter() - t0, t0,
+                           sid=sid, ticket=ticket.id, steps=steps)
         return {"ticket": ticket.id, "id": sid, "status": "pending"}
 
     def ticket_result(self, tid: str, wait: bool = False,  # lint: disable=lock-discipline -- ticket status flips exactly once under _cv; a racy read settles via event.wait, terminal states are immutable
@@ -1113,8 +1282,21 @@ class SessionManager:
         if self.dispatcher is None:
             raise KeyError(tid)
         ticket = self.dispatcher.get(tid)
-        if wait and ticket.status == "pending":
-            ticket.event.wait(self._budget(timeout_s))
+        if wait:
+            # the span records how long THIS read blocked — 0 when the
+            # ticket had already resolved (emitted either way, so trace
+            # tooling sees every waited read, not just the slow ones)
+            t0 = time.perf_counter()
+            if ticket.status == "pending":
+                ticket.event.wait(self._budget(timeout_s))
+            if self.obs is not None:
+                dt = time.perf_counter() - t0
+                self.obs.event("ticket_wait", dt, t0,
+                               ticket=tid, sid=ticket.sid,
+                               resolved=ticket.status != "pending")
+                tel = self.obs.telemetry
+                if tel is not None:
+                    tel.ticket_wait_digest.observe(dt)
         if ticket.status == "error":
             raise ticket.error
         out = {"ticket": ticket.id, "id": ticket.sid,
@@ -1216,6 +1398,16 @@ class SessionManager:
         rects = self.window_rects(x0, y0, h, w, session.config.rows,
                                    session.config.cols,
                                    session.config.boundary)
+        obs = self.obs
+        timer = None
+        fetched = {"n": 0, "s": 0.0}
+        if obs is not None:
+            series = obs.shard_fetch_series
+
+            def timer(dt_s, _series=series, _f=fetched):
+                _f["n"] += 1
+                _f["s"] += dt_s
+                _series.observe(dt_s)
         with session.lock:
             if session.closed:
                 raise KeyError(sid)
@@ -1226,7 +1418,7 @@ class SessionManager:
             if session.engine is not None:
                 for out_r, out_c, r0, c0, rh, rw in rects:
                     part = session.engine.fetch_window(
-                        session.grid, r0, c0, rh, rw)
+                        session.grid, r0, c0, rh, rw, shard_timer=timer)
                     if part is None:
                         raise ConfigError(
                             "viewport over HTTP needs single-host "
@@ -1237,6 +1429,12 @@ class SessionManager:
                 for out_r, out_c, r0, c0, rh, rw in rects:
                     out[out_r:out_r + rh,
                         out_c:out_c + rw] = grid[r0:r0 + rh, c0:c0 + rw]
+            fl = obs.flight if obs is not None else None
+            if fl is not None:
+                fl.record("viewport", engine=session.engine,
+                          session=sid, device_s=fetched["s"],
+                          window=(x0, y0, h, w),
+                          shards_touched=fetched["n"])
         return out, generation, session.config
 
     def write_board(self, sid: str, grid, generation: Optional[int] = None,
@@ -1281,6 +1479,9 @@ class SessionManager:
             self._persist(session, grid_np=arr)
             out = {"id": sid, "generation": session.generation,
                    "rows": shape[0], "cols": shape[1], "written": True}
+        if self.obs is not None:
+            self.obs.event("board_write", sid=sid,
+                           generation=out["generation"])
         return out
 
     def write_window(self, sid: str, x0: int, y0: int, patch,
@@ -1363,6 +1564,10 @@ class SessionManager:
             out = {"id": sid, "generation": session.generation,
                    "x0": x0, "y0": y0, "rows": int(arr.shape[0]),
                    "cols": int(arr.shape[1]), "written": True}
+        if self.obs is not None:
+            self.obs.event("board_write", sid=sid,
+                           generation=out["generation"], x0=x0, y0=y0,
+                           h=int(arr.shape[0]), w=int(arr.shape[1]))
         return out
 
     def density(self, sid: str, timeout_s: Optional[float] = None) -> dict:
@@ -1425,6 +1630,12 @@ class SessionManager:
                 # armed admission only — unarmed payloads are unchanged
                 d["tenant"] = session.tenant
                 d["class"] = session.qos
+        if self.obs is not None:
+            # the session's usage-ledger row (process-local metering;
+            # absent until the first committed step)
+            usage = self.obs.ledger.session_row(session.id)
+            if usage is not None:
+                d["usage"] = usage
         if self.dispatcher is not None:
             # read AFTER session.lock is released: the dispatch loop
             # takes session locks while holding its own, never reversed
@@ -1432,6 +1643,10 @@ class SessionManager:
             d["tickets_pending"] = self.dispatcher.pending_for(session.id)
             d["tickets_completed"] = self.dispatcher.completed_for(session.id)
         return d
+
+    def _session_list(self):
+        with self._lock:
+            return list(self._sessions.values())
 
     def stats(self) -> dict:
         with self._lock:
@@ -1460,6 +1675,93 @@ class SessionManager:
             out["recovery"] = rec
         if self.faults is not None:
             out["faults"] = self.faults.stats()
+        if self.obs is not None:
+            from mpi_tpu_torch.obs.profile import compile_execute_breakdown
+
+            obs_stats = self.obs.stats()
+            obs_stats["breakdown"] = compile_execute_breakdown(self)
+            obs_stats["usage"] = self.obs.ledger.totals()
+            out["obs"] = obs_stats
+        return out
+
+    def usage(self) -> dict:
+        """The usage payload (the reference's ``GET /usage``): ledger
+        totals, per-session rows, and per-signature rows joined with each
+        live engine's cost cards and a roofline readout (achieved cells/s
+        over the cost-model bound, present only where there is a roof:
+        on the card, or with ``MPI_TPU_ROOF_OPS_PER_S``).  Raises
+        :class:`RuntimeError` when obs is off.
+
+        The ledger is process-local: a restart (or restore-from-
+        checkpoint) starts metering from zero, by design."""
+        if self.obs is None:
+            raise RuntimeError("usage metering needs observability")
+        from mpi_tpu_torch.obs.cost import ops_per_cell_detail, roof_ops_per_s
+        from mpi_tpu_torch.obs.profile import _live_engines
+
+        roof = roof_ops_per_s()
+        ledger = self.obs.ledger
+        signatures = ledger.signature_rows()
+        by_label = {}
+        for eng in _live_engines(self):
+            label = getattr(eng, "sig_label", None)
+            if label is not None and label not in by_label:
+                by_label[label] = eng
+        sig_rows = []
+        for label in sorted(signatures):
+            row = dict(signatures[label], signature=label)
+            eng = by_label.get(label)
+            if eng is not None:
+                cards = eng.cost_cards()
+                row["cost_cards"] = [c.as_dict() for c in cards]
+                ops_per_cell, suspect = ops_per_cell_detail(
+                    cards, eng.config.cells)
+                if getattr(eng, "tuned_plan", None):
+                    row["tuned_plan"] = dict(eng.tuned_plan)
+                if (roof is not None and ops_per_cell is not None
+                        and row["device_s"] > 0):
+                    bound = roof / ops_per_cell
+                    achieved = row["cells"] / row["device_s"]
+                    row["roofline"] = {
+                        "ops_per_cell": ops_per_cell,
+                        "bound_cells_per_s": bound,
+                        "achieved_cells_per_s": achieved,
+                        "efficiency": achieved / bound,
+                        # the estimate came from depth>1 cards alone
+                        "trip_count_suspect": suspect,
+                    }
+            sig_rows.append(row)
+        out = {
+            "totals": ledger.totals(),
+            "sessions": ledger.session_rows(),
+            "signatures": sig_rows,
+            "roof_ops_per_s": roof,
+            "note": "process-local: restarts and restores reset nothing "
+                    "but start metering from zero",
+        }
+        if self.cluster is not None:
+            # slice-wide roll-up: local totals + each peer's latest
+            # gossiped snapshot (exact sums, at most one interval stale)
+            out["cluster"] = self.cluster.usage_rollup()
+        if self.admission is not None:
+            # spend vs quota, live sessions, class mix per tenant —
+            # absent (not empty) on unarmed managers
+            out["tenants"] = self.admission.tenants_block()
+        return out
+
+    def slo(self) -> dict:
+        """The SLO payload (the reference's ``GET /slo``): the engine's
+        full snapshot (states, burn rates, window summaries) plus the
+        cluster roll-up when a node is attached.  Raises
+        :class:`RuntimeError` when obs is off or telemetry is unarmed."""
+        if self.obs is None or self.obs.slo is None:
+            raise RuntimeError(
+                "SLO evaluation needs armed telemetry (Obs.arm_telemetry)")
+        out = self.obs.slo.snapshot()
+        if self.cluster is not None:
+            # slice-wide roll-up: local compact state + each peer's
+            # latest gossiped snapshot (same discipline as usage)
+            out["cluster"] = self.cluster.slo_rollup()
         return out
 
     def health(self) -> dict:
@@ -1512,6 +1814,12 @@ class SessionManager:
                 # this) while the node keeps serving/proxying — exactly
                 # what a load balancer needs to rotate it out
                 out["draining"] = True
+        if self.obs is not None and self.obs.slo is not None:
+            # alerting, not readiness: a burning SLO (even critical
+            # availability) never flips "ok" — the probe keys readiness
+            # on degraded-without-fallback, and restarting a process
+            # because its error budget is gone only burns it faster
+            out["slo"] = self.obs.slo.health_block()
         return out
 
     def __len__(self) -> int:

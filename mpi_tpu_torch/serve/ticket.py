@@ -367,6 +367,18 @@ class AsyncDispatcher:
                     f"{t.deadline.seconds:.3g}s budget while queued "
                     f"({done} of {t.steps} steps dispatched; the session "
                     f"survives)"))
+                if manager.obs is not None:
+                    # drained on the loop thread: re-enter the minting
+                    # context so the expiry is greppable by trace id
+                    ttoken = (set_trace_context(t.tctx)
+                              if t.tctx is not None else None)
+                    try:
+                        manager.obs.event("ticket_expired", sid=t.sid,
+                                          ticket=t.id, dispatched=done,
+                                          rid=t.rid)
+                    finally:
+                        if ttoken is not None:
+                            reset_trace_context(ttoken)
             else:
                 runnable.append(t)
         groups: Dict[int, list] = {}
@@ -408,6 +420,7 @@ class AsyncDispatcher:
         )
 
         manager = self.manager
+        obs = manager.obs
         group.sort(key=lambda ts: ts[1].id)
         engine = group[0][1].engine
         # the watchdog budget for the shared chain is the tightest
@@ -485,7 +498,44 @@ class AsyncDispatcher:
                 with self._cv:
                     self.batched_fallbacks += 1
                 return [t for t, _ in live]
+            # t2 - t1: the whole chain, its launches and the one wait for
+            # them (Engine.block_until_ready in work), so on the card the
+            # time is the chain's, not its enqueue
             t2 = time.perf_counter()
+            if obs is not None:
+                # every rider's trace context rides as a *link* — the
+                # shared round is related to each minting request, not
+                # parented under any one of them
+                links = [t.tctx.link() for t, _ in live
+                         if t.tctx is not None]
+                obs.event("unit_round", t2 - t1, t1, B=B, rounds=chain,
+                          cohorts=len(set(rem)),
+                          sids=[s.id for _, s in live],
+                          request_ids=[t.rid for t, _ in live],
+                          **({"links": links} if links else {}))
+                obs.occupancy_series.observe(B)
+                (obs.dispatch_batched if B > 1
+                 else obs.dispatch_solo).observe(t2 - t1)
+                # usage ledger: the whole chain is ONE wait, however many
+                # depth-1 rounds it stacked; instructions from the
+                # chain's opening (depth-1, B) card, per
+                # board-generation — the cohort peel shrinks B mid-chain,
+                # which this ignores
+                card = engine.cost_card(1, B if B > 1 else 0)
+                pbg = (card.flops / card.boards
+                       if card is not None else 0.0)
+                obs.ledger.record(
+                    "unit", engine.sig_label, t2 - t1,
+                    [(s.id, t.remaining,
+                      t.remaining * s.config.cells,
+                      pbg * t.remaining) for t, s in live])
+                fl = obs.flight
+                if fl is not None:
+                    fl.record("unit_round", engine=engine, steps=chain,
+                              batch=B, device_s=t2 - t1,
+                              sessions=[s.id for _, s in live],
+                              request_ids=[t.rid for t, _ in live],
+                              links=links or None)
             per_board = (t2 - t1) / B
             for (t, s), grid in zip(live, boards):
                 adv = t.remaining       # cohort chains run to completion

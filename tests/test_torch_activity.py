@@ -308,9 +308,27 @@ def test_state_from_the_reference_steps_on_in_the_port():
     _same(je, jg, pe, pg)
     grid, changed = interop.sparse_to_numpy(pg)
     assert grid.dtype == np.uint32 and changed.dtype == np.bool_
-    jg2 = je.step(ref.SparseState(jnp.asarray(grid), jnp.asarray(changed)), 3)
+    # the reference gets numpy copies: on the CPU these arrays are views of
+    # the port's tensors, which the port's next step rewrites in place, and
+    # JAX reads a host array after it returns (jnp.asarray aliases it; even
+    # jnp.array(copy=True) copies it asynchronously)
+    jg2 = je.step(ref.SparseState(jnp.asarray(grid.copy()),
+                                  jnp.asarray(changed.copy())), 3)
     pg = pe.step(pg, 3)
     _same(je, jg2, pe, pg)
+
+
+def test_reference_arrays_from_port_views_alias_the_port_tensors():
+    """Why the test above hands the reference copies: on the CPU a numpy
+    view of a port tensor becomes a JAX array over the same memory, which
+    the port's next in-place step would rewrite under the reference's
+    asynchronous step; a numpy copy is the reference's own."""
+    _, pe = _pair(64, 64, 32)
+    pg = pe.init_grid()
+    grid, _ = interop.sparse_to_numpy(pg)
+    assert jnp.asarray(grid).unsafe_buffer_pointer() == pg.grid.data_ptr()
+    assert jnp.asarray(grid.copy()).unsafe_buffer_pointer() != \
+        pg.grid.data_ptr()
 
 
 def test_sparse_engine_refuses_a_bare_grid():

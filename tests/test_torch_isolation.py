@@ -1,8 +1,11 @@
-"""The port stands alone: no module of ``mpi_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``mpi_tpu``."""
+"""The port stands alone: no module of ``mpi_tpu_torch`` (its ``obs``
+package and native backends included) and not ``chip_smoke.py`` imports
+JAX or anything of the JAX package ``mpi_tpu``, and no file of the port
+names the reference's native build directory."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -69,6 +72,72 @@ def test_cpu_slice_runs_without_loading_jax(tmp_path):
         "assert mgr.step(sid, 3)['generation'] == 3\n"
         "t = mgr.step_async(sid, 2)['ticket']\n"
         "assert mgr.ticket_result(t, wait=True)['result']['generation'] == 5\n"
+        "mgr.shutdown()\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _native_files():
+    d = os.path.join(ROOT, "mpi_tpu_torch", "backends", "native")
+    return sorted(os.path.join(d, f) for f in ("golcore.cpp", "gol_main.cpp",
+                                               "Makefile"))
+
+
+# the reference's built native files live in mpi_tpu/backends/native: a
+# path to them, however joined, is "mpi_tpu" then "backends" then "native"
+_REF_NATIVE = re.compile(
+    r"""mpi_tpu(?!_torch)["'/\\, ]+(os\.sep[, ]+)?backends["'/\\, ]+native""")
+
+
+@pytest.mark.parametrize("path", _port_files() + _native_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_port_file_names_the_reference_native_dir(path):
+    with open(path, encoding="utf-8") as fh:
+        text = fh.read()
+    assert not _REF_NATIVE.search(text), path
+
+
+def test_the_pattern_finds_the_reference_native_dir():
+    for text in ('os.path.join(ROOT, "mpi_tpu", "backends", "native")',
+                 "mpi_tpu/backends/native/libgolcore.so"):
+        assert _REF_NATIVE.search(text)
+    assert not _REF_NATIVE.search("mpi_tpu_torch/backends/native")
+
+
+def test_native_and_obs_run_without_loading_jax(tmp_path):
+    code = (
+        "import sys\n"
+        "import mpi_tpu_torch.obs as o\n"
+        "import mpi_tpu_torch.obs.anomaly, mpi_tpu_torch.obs.cost\n"
+        "import mpi_tpu_torch.obs.devmem, mpi_tpu_torch.obs.flight\n"
+        "import mpi_tpu_torch.obs.ledger, mpi_tpu_torch.obs.metrics\n"
+        "import mpi_tpu_torch.obs.profile, mpi_tpu_torch.obs.slo\n"
+        "import mpi_tpu_torch.obs.timeseries, mpi_tpu_torch.parallel.mesh\n"
+        "from mpi_tpu_torch.backends import cpp\n"
+        "from mpi_tpu_torch.backends.serial_np import run_serial\n"
+        "from mpi_tpu_torch.cli import main\n"
+        "from mpi_tpu_torch.config import GolConfig\n"
+        "from mpi_tpu_torch.serve import SessionManager\n"
+        "run_serial(GolConfig(rows=16, cols=16, steps=3, backend='serial'))\n"
+        f"for b in (['cpp'], ['cpp-par', '--workers', '4']):\n"
+        f"    assert main(['32', '32', '2', '4', '--save', '--quiet',"
+        f" '--out-dir', {str(tmp_path)!r}, '--backend', *b]) == 0\n"
+        "obs = o.Obs()\n"
+        "mgr = SessionManager(device='cpu', obs=obs)\n"
+        "obs.arm_telemetry(manager=mgr, start=False)\n"
+        "obs.arm_flight(manager=mgr, anomaly=True)\n"
+        "a = mgr.create({'rows': 16, 'cols': 64, 'seed': 3})['id']\n"
+        "b = mgr.create({'rows': 16, 'cols': 64, 'backend': 'cpp-par'})['id']\n"
+        "for sid in (a, b):\n"
+        "    assert mgr.step(sid, 3)['generation'] == 3\n"
+        "obs.telemetry.sample_once()\n"
+        "mgr.usage(); mgr.stats(); mgr.slo(); obs.render_metrics()\n"
         "mgr.shutdown()\n"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_tpu')]\n"

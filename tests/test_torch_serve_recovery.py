@@ -298,9 +298,11 @@ def test_restore_salvages_around_bad_record(make_manager, tmp_path, backend):
     sid = m1.create({"rows": 16, "cols": 16, "backend": "serial",
                      "seed": 2})["id"]
     m1.step(sid, 3)
+    # "nope" is no backend; cpp is one, but takes no comm_every
+    bad = {"comm_every": 2} if backend == "cpp" else {}
     (tmp_path / "s7.json").write_text(json.dumps({
         "v": 1, "id": "s7", "generation": 1,
-        "spec": {"rows": 16, "cols": 16, "backend": backend},
+        "spec": {"rows": 16, "cols": 16, "backend": backend, **bad},
     }))
     m2 = make_manager(state_dir=str(tmp_path))
     assert m2.restored_sessions == 1 and m2.restore_errors == 1

@@ -122,7 +122,33 @@ Phases; any failure exits non-zero before the result line:
    equals a ``cuda`` session of its spec; and the CLI at 2048² with
    ``--backend cpp`` and ``--backend cpp-par --workers 8`` writes the
    board ``--backend cuda`` writes, read back with ``golio``, with the
-   same master header but for ``cpp-par``'s tile count.
+   same master header but for ``cpp-par``'s tile count;
+8. the network front on the card: the threaded front
+   (``serve/httpd.py:make_server``, in process, a full ``Obs`` and a
+   profile dir) serving 32 client threads, each on one keep-alive
+   connection and one 4096² Life session, 1 + 20 rounds of 8-generation
+   steps; K1's launches in the timed window equal the steps plus the
+   warm-ups of batch widths met the first time (phase 6's rule); every
+   board read back as a binary frame (``serve/wire.py``) equals
+   ``step_batched``'s, the first and last the plain version's;
+   requests/s, host CPU ms a request and their ratio over phase 6's
+   in-process requests/s.  ``GET /metrics`` holds the reference's
+   families (``obs/metrics.py:FAMILIES``), ``GET /usage`` equals the
+   manager's ``usage()``, and ``POST /debug/profile?secs=2`` under the
+   same traffic writes a trace whose K1 records equal the launches
+   counted inside the capture (the trace rule, with phase 7's lead and
+   first kernel).  Admission: a tenant whose window lies below one
+   request's estimate (K1's card over the card's roof) gets 429 with
+   ``Retry-After`` and no launch, a roomy one is served.  The aio front
+   (``serve/aio.py``): 4 Bosco sessions on K3 and 4 on K2 (comm_every 3),
+   4096², tickets of depths 1, 2, 5, 8 read by parked waiters
+   (launches = unit rounds + warm-ups), boards equal to the plain
+   versions; one ``GET /stream/<sid>?every=1`` of 9 frames, each the
+   plain board at its generation.  Then ``python -m mpi_tpu_torch.cli
+   serve --state-dir D --checkpoint-every 1`` (no ``--device``: the
+   card) steps a 4096² Bosco session on K3 5 times, is SIGKILLed, and a
+   second process restores generation 5 and steps on to the plain board
+   at 8.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -132,9 +158,12 @@ from __future__ import annotations
 
 import ctypes
 import filecmp
+import http.client
 import json
 import os
+import queue
 import re
+import socket
 import subprocess
 import sys
 import shutil
@@ -151,6 +180,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from mpi_tpu_torch import golio  # noqa: E402
+from mpi_tpu_torch.admission import AdmissionControl  # noqa: E402
+from mpi_tpu_torch.admission.tenants import normalize_tenants  # noqa: E402
 from mpi_tpu_torch.backends import cuda as backend  # noqa: E402
 from mpi_tpu_torch.backends.cpp import plan_tiles  # noqa: E402
 from mpi_tpu_torch.backends.serial_np import evolve_np  # noqa: E402
@@ -162,13 +193,14 @@ from mpi_tpu_torch.models.rules import (  # noqa: E402
 )
 from mpi_tpu_torch.obs import Obs  # noqa: E402
 from mpi_tpu_torch.obs.cost import (  # noqa: E402
-    device_roof_ops_per_s, roof_ops_per_s,
+    device_roof_ops_per_s, ops_per_cell_estimate, roof_ops_per_s,
 )
 from mpi_tpu_torch.obs.devmem import read_device_memory  # noqa: E402
+from mpi_tpu_torch.obs.metrics import FAMILIES  # noqa: E402
 from mpi_tpu_torch.obs.profile import capturing, run_profile  # noqa: E402
 from mpi_tpu_torch.ops import _build, activity  # noqa: E402
 from mpi_tpu_torch.ops.bitlife import (  # noqa: E402
-    bit_step, init_packed, pack, population, word_ops,
+    bit_step, init_packed, pack, population, unpack, word_ops,
 )
 from mpi_tpu_torch.ops.bitltl import (  # noqa: E402
     ltl_step, ltl_word_ops, ltl_word_ops_lower,
@@ -192,8 +224,10 @@ from mpi_tpu_torch.ops.stencil import (  # noqa: E402
 )
 from mpi_tpu_torch.parallel import seam  # noqa: E402
 from mpi_tpu_torch.serve import (  # noqa: E402
-    DeadlineError, EngineCache, EngineUnavailableError, SessionManager,
+    DeadlineError, EngineCache, EngineUnavailableError, SessionManager, wire,
 )
+from mpi_tpu_torch.serve.aio import make_aio_server  # noqa: E402
+from mpi_tpu_torch.serve.httpd import make_server  # noqa: E402
 from mpi_tpu_torch.utils.hashinit import init_dense, init_tile_np  # noqa: E402
 from mpi_tpu_torch.utils.segmenting import segmented_evolve  # noqa: E402
 from mpi_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
@@ -2103,6 +2137,7 @@ def _serve_life(card: str, times: dict) -> None:
     if not (torch.equal(got[0], plain[0]) and torch.equal(got[-1], plain[1])):
         fail("the served Life boards differ from the plain version's")
     phase4_ms = times["K1", "batched"]["ms"]
+    times["serve", "requests_per_s"] = B * rounds / wall   # phase 8's base
     emit({"phase": "serve", "part": "coalesced_life", "card": card,
           "kernel": "K1", "sessions": B, "grid": [size, size],
           "comm_every": k, "generations_a_request": n, "rounds": rounds,
@@ -2721,6 +2756,638 @@ def _native_cli(card: str) -> None:
           "boards_equal": True})
 
 
+# -- phase 8: the network front on the card -----------------------------------
+
+# (sessions, size, comm_every, generations a request, rounds timed): 32
+# client threads, each on one keep-alive connection to the threaded front,
+# one 4096² Life session each (phase 6's boards), one warm-up round first
+FRONT_LIFE = (32, 4096, 8, 8, 20)
+# the profile endpoint's capture (POST /debug/profile?secs=...), with phase
+# 7's lead and traffic inside it
+FRONT_PROFILE_S = 2.0
+# (sessions per engine, size, ticket depths, counted cycles): Bosco on K3
+# (comm_every 1) and K2 (comm_every 3) behind the aio front, tickets read
+# by parked waiters (GET /result/<t>?wait=1), one warm-up cycle first
+FRONT_LTL = (4, 4096, (1, 2, 5, 8), 2)
+# frames a stream must push, one a generation, each held to the plain board
+FRONT_FRAMES = 8
+# (size, k, m): a 4096² Bosco session on K3 stepped k times in a server
+# process, SIGKILLed, restored by a second process, stepped m more
+FRONT_RESTART = (4096, 5, 3)
+FRONT_WAIT_S = 300.0        # the limit of every wait for a server
+
+
+def _http(conn, method: str, path: str, body=None, headers=None):
+    """One request on a keep-alive connection: (status, headers, bytes)."""
+    data = body if isinstance(body, bytes) or body is None \
+        else json.dumps(body).encode()
+    conn.request(method, path, body=data, headers=dict(headers or {}))
+    resp = conn.getresponse()
+    raw = resp.read()
+    return resp.status, dict(resp.getheaders()), raw
+
+
+def _http_json(conn, method: str, path: str, body=None, headers=None,
+               want: int = 200):
+    status, _, raw = _http(conn, method, path, body, headers)
+    if status != want:
+        fail(f"{method} {path} answered {status}, not {want}: {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def _connect(address):
+    return http.client.HTTPConnection(*address[:2], timeout=FRONT_WAIT_S)
+
+
+def _serving(server) -> threading.Thread:
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return thread
+
+
+def _stop_serving(server, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    thread.join(30)
+    if thread.is_alive():
+        fail("a server's thread did not stop")
+
+
+def _http_rounds(conns, sids, rounds: int, n: int) -> float:
+    """``rounds`` POST steps of ``n`` generations from one thread a session,
+    each on its own keep-alive connection, all started together; the wall
+    seconds."""
+    errors, barrier = [], threading.Barrier(len(sids))
+
+    def run(conn, sid):
+        try:
+            barrier.wait()
+            for _ in range(rounds):
+                status, _, raw = _http(conn, "POST", f"/sessions/{sid}/step",
+                                       {"steps": n})
+                if status != 200:
+                    errors.append((status, raw[:200]))
+                    return
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=cs)
+               for cs in zip(conns, sids)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(FRONT_WAIT_S)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"serving over HTTP failed: {errors[:3]}")
+    return wall
+
+
+def _frame_cells(raw: bytes, generation: int, shape) -> torch.Tensor:
+    """A binary frame's grid on the card, checked for its generation and
+    shape."""
+    grid, meta = wire.decode_frame(raw)
+    if meta["generation"] != generation or grid.shape != tuple(shape):
+        fail(f"a frame holds generation {meta['generation']} of "
+             f"{grid.shape}, not {generation} of {tuple(shape)}")
+    return torch.from_numpy(np.ascontiguousarray(grid)).to("cuda")
+
+
+def _scrape_families(text: str) -> set:
+    return {ln.split()[2] for ln in text.splitlines()
+            if ln.startswith("# TYPE ")}
+
+
+def _front_profile(conns, sids, n: int, address) -> dict:
+    """``POST /debug/profile?secs=2`` under the same HTTP traffic: the K1
+    launches counted inside the capture against the K1 records of the
+    Chrome trace the endpoint wrote (phase 7's trace rule, lead and first
+    launch)."""
+    def attempt():
+        out = {}
+
+        def post():
+            conn = _connect(address)
+            try:
+                out["reply"] = _http(conn, "POST",
+                                     f"/debug/profile?secs={FRONT_PROFILE_S}")
+            finally:
+                conn.close()
+
+        t = threading.Thread(target=post)
+        t.start()
+        if not capturing.wait(60):
+            fail("the profile endpoint's capture did not start")
+        # the profiler's first kernel
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(OBS_LEAD_S)
+        _reset_launches()
+        t0, rounds = time.perf_counter(), 0
+        while time.perf_counter() - t0 < OBS_TRAFFIC_S:
+            _http_rounds(conns, sids, 1, n)
+            rounds += 1
+        torch.cuda.synchronize()
+        counted = _launches()
+        if not capturing.is_set():
+            fail("the profiled traffic outlasted the capture")
+        t.join(120)
+        status, _, raw = out.get("reply", (None, None, b""))
+        doc = json.loads(raw) if status == 200 else {}
+        if t.is_alive() or not doc.get("ok"):
+            fail(f"POST /debug/profile failed: {status} {raw[:300]!r}")
+        with open(doc["path"]) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        in_trace = {kid: sum(1 for e in kernels
+                             if any(nm in e.get("name", "") for nm in names))
+                    for kid, names in KERNEL_NAMES.items()}
+        if counted["K2"] or counted["K3"] or not counted["K1"]:
+            fail(f"the profiled HTTP traffic launched {counted}")
+        return ({"K1": counted["K1"]}, {"K1": in_trace["K1"]},
+                {"rounds": rounds, "k1_launches": counted["K1"],
+                 "trace_kernels": in_trace, "trace_events": len(events),
+                 "capture_s": doc["seconds"], "lead_s": OBS_LEAD_S,
+                 "kernel_placement": _kernel_placement(events, kernels)})
+
+    result, takes, lost = _trace_holds_launches("profile endpoint", attempt)
+    return {**result, "takes": takes, "records_lost_on_retaken": lost}
+
+
+def _front_admission(card: str, mgr, obs, engine, address, size: int,
+                     n: int) -> None:
+    """Admission on the card: a tenant whose window is below one request's
+    estimate (K1's card over the card's roof) gets 429 with Retry-After and
+    no launch; a roomy tenant is served."""
+    roof = roof_ops_per_s()
+    cells = size * size
+    per_cell = ops_per_cell_estimate(engine.cost_cards(), cells)
+    if roof is None or per_cell != word_ops(LIFE) / WORD:
+        fail(f"no estimate from K1's card ({per_cell} instructions a cell) "
+             f"and the card's roof ({roof})")
+    est_s = per_cell * cells * n / roof
+    adm = AdmissionControl(normalize_tenants([
+        {"name": "tight", "device_s_per_window": est_s / 2},
+        {"name": "roomy", "device_s_per_window": est_s * 1e4}]))
+    adm.arm(mgr, obs)
+    spec = {"rows": size, "cols": size, "rule": "life",
+            "comm_every": FRONT_LIFE[2], "segments": [1, FRONT_LIFE[2]],
+            "seed": SEED}
+    conn = _connect(address)
+    try:
+        out = {}
+        for tenant, want in (("tight", 429), ("roomy", 200)):
+            head = {"X-Gol-Tenant": tenant}
+            sid = _http_json(conn, "POST", "/sessions", spec, head)["id"]
+            session = mgr.get(sid)
+            if adm.estimate(session, n) != (est_s, n * cells):
+                fail(f"the {tenant} request's estimate "
+                     f"{adm.estimate(session, n)} is not K1's card's "
+                     f"{est_s} s")
+            _reset_launches()
+            t0 = time.perf_counter()
+            status, headers, raw = _http(conn, "POST",
+                                         f"/sessions/{sid}/step",
+                                         {"steps": n}, head)
+            http_ms = (time.perf_counter() - t0) * 1e3
+            launches = _launches()
+            if status != want:
+                fail(f"the {tenant} tenant's step answered {status}, not "
+                     f"{want}: {raw[:300]!r}")
+            if want == 429:
+                if (not headers.get("Retry-After")
+                        or launches != {"K1": 0, "K2": 0, "K3": 0}):
+                    fail(f"the refused step had Retry-After "
+                         f"{headers.get('Retry-After')} and launched "
+                         f"{launches}")
+                out[tenant] = {"status": status,
+                               "retry_after": headers["Retry-After"],
+                               "launches": launches,
+                               "error": json.loads(raw)["error"]}
+            else:
+                if launches["K1"] < 1 or launches["K2"] or launches["K3"]:
+                    fail(f"the admitted step launched {launches}")
+                row = obs.ledger.session_row(sid)
+                out[tenant] = {"status": status, "launches": launches,
+                               "http_ms": http_ms,
+                               "step_device_ms": row["device_s"] * 1e3}
+    finally:
+        conn.close()
+    emit({"phase": "front", "part": "admission", "card": card,
+          "grid": [size, size], "generations_a_request": n,
+          "estimate_s": est_s, "estimate_instructions": per_cell * cells * n,
+          "roof_ops_per_s": roof, "tight_window_s": est_s / 2,
+          "tenants": out, "decisions": adm.tenants_block()})
+
+
+def _front_threaded(card: str, times: dict) -> None:
+    """The threaded front in process: 32 keep-alive clients on 4096² Life,
+    every board read back as a binary frame, the endpoints, the profile
+    capture and admission."""
+    B, size, k, n, rounds = FRONT_LIFE
+    obs = Obs()
+    mgr = SessionManager(EngineCache(), batch_max=B, obs=obs)
+    obs.arm_telemetry(manager=mgr, start=False)
+    obs.arm_flight(manager=mgr, anomaly=True)
+    logdir = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    server = make_server(port=0, manager=mgr, profile_dir=logdir)
+    thread = _serving(server)
+    conns = [_connect(server.server_address) for _ in range(B)]
+    try:
+        spec = {"rows": size, "cols": size, "rule": "life", "comm_every": k,
+                "segments": [1, k]}
+        infos = [_http_json(c, "POST", "/sessions", dict(spec, seed=SEED + b))
+                 for b, c in enumerate(conns)]
+        if [i["cache_hit"] for i in infos] != [False] + [True] * (B - 1):
+            fail("the HTTP Life sessions' creates were not one miss and hits")
+        sids = [i["id"] for i in infos]
+        engine = mgr.get(sids[0]).engine
+        if engine.kernel_id != "K1" or engine.device.type != "cuda":
+            fail(f"the HTTP Life sessions run on {engine.kernel_id} on "
+                 f"{engine.device}")
+        _http_rounds(conns, sids, 1, n)     # warms the (n, B) batched step
+        builds = _build.builds
+        st0, c0 = mgr.batcher.stats(), engine.compile_count
+        _reset_launches()
+        cpu0 = time.process_time()
+        wall = _http_rounds(conns, sids, rounds, n)
+        cpu = time.process_time() - cpu0
+        launches = _launches()
+        st1 = mgr.batcher.stats()
+        calls = (st1["coalesced_calls"] - st0["coalesced_calls"]
+                 + st1["solo_steps"] - st0["solo_steps"])
+        warmups = engine.compile_count - c0
+        if launches != {"K1": calls + warmups, "K2": 0, "K3": 0} \
+                or not calls:
+            fail(f"HTTP serving launched {launches} for {calls} steps and "
+                 f"{warmups} warm-ups (one K1 launch each)")
+        if _build.builds != builds:
+            fail("a kernel was built while HTTP served")
+        _no_faults(mgr, "HTTP Life")
+        total = n * (1 + rounds)
+        # every board back as a binary frame, equal to step_batched's and
+        # (the first and last) to the plain version's
+        ref = engine.step_batched(
+            engine.init_grids(seeds=[SEED + b for b in range(B)]), total)
+        plain = torch.stack([init_packed(size, size, SEED + b, device="cuda")
+                             for b in (0, B - 1)])
+        for _ in range(total):
+            plain = bit_step_plain(plain, LIFE, "periodic", 1)
+        frame_bytes = 0
+        for b, (c, sid) in enumerate(zip(conns, sids)):
+            status, headers, raw = _http(
+                c, "GET", f"/sessions/{sid}/snapshot",
+                headers={"Accept": wire.GRID_MEDIA_TYPE})
+            if status != 200 or headers.get("Content-Type") \
+                    != wire.GRID_MEDIA_TYPE:
+                fail(f"the binary snapshot of {sid} answered {status}")
+            frame_bytes += len(raw)
+            got = _frame_cells(raw, total, (size, size))
+            if not torch.equal(got, unpack(ref[b])):
+                fail(f"the HTTP frame of {sid} differs from step_batched's")
+            if b in (0, B - 1) and not torch.equal(
+                    got, unpack(plain[0 if b == 0 else 1])):
+                fail(f"the HTTP frame of {sid} differs from the plain "
+                     f"version's")
+        del ref, plain
+        rps = B * rounds / wall
+        phase6_rps = times["serve", "requests_per_s"]
+        emit({"phase": "front", "part": "threaded_life", "card": card,
+              "kernel": "K1", "sessions": B, "grid": [size, size],
+              "comm_every": k, "generations_a_request": n, "rounds": rounds,
+              "launches": launches, "steps": calls, "warmups": warmups,
+              "avg_occupancy": (st1["batched_boards"]
+                                - st0["batched_boards"]) / max(1, calls),
+              "serving_wall_s": wall, "requests_per_s": rps,
+              "host_cpu_ms_per_request": cpu * 1e3 / (B * rounds),
+              "phase6_in_process_requests_per_s": phase6_rps,
+              "http_over_in_process": rps / phase6_rps,
+              "frames_equal_to_step_batched_and_plain": B,
+              "frame_bytes": frame_bytes, "builds_while_serving": 0})
+        # the endpoints: the reference's families, /usage as the manager
+        # reads it, and the profile capture under the same traffic
+        status, headers, raw = _http(conns[0], "GET", "/metrics")
+        names = _scrape_families(raw.decode())
+        want = (set(FAMILIES["core"]) | set(FAMILIES["slo"])
+                | set(FAMILIES["flight"]))
+        if status != 200 or not want <= names:
+            fail(f"/metrics answered {status} without "
+                 f"{sorted(want - names)}")
+        usage = _http_json(conns[0], "GET", "/usage")
+        if usage != json.loads(json.dumps(mgr.usage())):
+            fail("GET /usage differs from the manager's usage()")
+        prof = _front_profile(conns, sids, n, server.server_address)
+        emit({"phase": "front", "part": "endpoints", "card": card,
+              "metric_families": len(names), "reference_families":
+                  len(want), "usage_equal": True,
+              "usage_totals": usage["totals"], "profile": prof})
+        _front_admission(card, mgr, obs, engine, server.server_address,
+                         size, n)
+        _no_faults(mgr, "HTTP")
+    finally:
+        for c in conns:
+            c.close()
+        _stop_serving(server, thread)
+        mgr.shutdown()
+        obs.close()
+        shutil.rmtree(logdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def _read_chunks(sock, buf: bytearray, frames: list, want: int) -> None:
+    """Read a chunked stream until ``frames`` holds ``want`` frames: every
+    chunk the aio front writes holds one whole frame."""
+    deadline = time.monotonic() + FRONT_WAIT_S
+    while len(frames) < want:
+        i = buf.find(b"\r\n")
+        if i >= 0 and len(buf) >= i + 2 + int(buf[:i], 16) + 2:
+            size = int(buf[:i], 16)
+            got, rest = wire.split_frames(bytes(buf[i + 2:i + 2 + size]))
+            if rest or len(got) != 1:
+                fail(f"a stream chunk held {len(got)} frames and "
+                     f"{len(rest)} bytes more")
+            frames.extend(got)
+            del buf[:i + 2 + size + 2]
+            continue
+        if time.monotonic() > deadline:
+            fail(f"the stream pushed {len(frames)} of {want} frames")
+        data = sock.recv(1 << 20)
+        if not data:
+            fail("the stream closed")
+        buf += data
+
+
+def _front_aio(card: str) -> None:
+    """The aio front: Bosco on K3 and K2 through tickets read by parked
+    waiters, then one stream of a frame a generation."""
+    per, size, depths, cycles = FRONT_LTL
+    mgr = SessionManager(EngineCache())
+    server = make_aio_server(port=0, manager=mgr)
+    thread = _serving(server)
+    conn = _connect(server.server_address)
+    conns = []
+    try:
+        sids = {kid: [_http_json(conn, "POST", "/sessions",
+                                 {"rows": size, "cols": size,
+                                  "rule": "bosco", "comm_every": ce,
+                                  "seed": SEED + i})["id"]
+                      for i in range(per)]
+                for kid, ce in (("K3", 1), ("K2", 3))}
+        for kid, ids in sids.items():
+            eng = mgr.get(ids[0]).engine
+            if eng.kernel_id != kid or eng.device.type != "cuda":
+                fail(f"the aio Bosco sessions meant for {kid} run on "
+                     f"{eng.kernel_id} on {eng.device}")
+        every = sids["K3"] + sids["K2"]
+        conns = [_connect(server.server_address) for _ in every]
+
+        def cycle():
+            errors = []
+
+            def run(c, i, sid):
+                try:
+                    tickets = []
+                    for d in depths[i % len(depths):] \
+                            + depths[:i % len(depths)]:
+                        status, _, raw = _http(
+                            c, "POST", f"/sessions/{sid}/step?async=1",
+                            {"steps": d})
+                        if status != 200:
+                            errors.append((status, raw[:200]))
+                            return
+                        tickets.append(json.loads(raw)["ticket"])
+                    for t in tickets:
+                        status, _, raw = _http(c, "GET",
+                                               f"/result/{t}?wait=1")
+                        if status != 200 or \
+                                json.loads(raw)["status"] != "done":
+                            errors.append((status, raw[:200]))
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=run, args=(c, i, s))
+                       for i, (c, s) in enumerate(zip(conns, every))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(FRONT_WAIT_S)
+            if errors or any(t.is_alive() for t in threads):
+                fail(f"the aio ticket cycle failed: {errors[:3]}")
+
+        cycle()                         # warms the batch widths a cycle meets
+        engines = [mgr.get(ids[0]).engine for ids in sids.values()]
+        builds = _build.builds
+        st0, a0 = mgr.dispatcher.stats(), server.stats()
+        c0 = sum(e.compile_count for e in engines)
+        _reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(cycles):
+            cycle()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        st1, a1 = mgr.dispatcher.stats(), server.stats()
+        unit_rounds = st1["unit_rounds"] - st0["unit_rounds"]
+        warmups = sum(e.compile_count for e in engines) - c0
+        waits = cycles * len(every) * len(depths)
+        if (launches["K1"] or not launches["K3"] or not launches["K2"]
+                or launches["K3"] + launches["K2"] != unit_rounds + warmups
+                or st1["solo_tickets"] != st0["solo_tickets"]):
+            fail(f"the aio ticket rounds launched {launches} for "
+                 f"{unit_rounds} unit rounds and {warmups} warm-ups")
+        if a1["parked_total"] - a0["parked_total"] != waits:
+            fail(f"{a1['parked_total'] - a0['parked_total']} of {waits} "
+                 f"ticket reads parked")
+        if _build.builds != builds:
+            fail("a kernel was built while the aio front served")
+        _no_faults(mgr, "aio ticket")
+        gens = (1 + cycles) * sum(depths)
+        plain = {kid: _ltl_plain(kid, size, [SEED + i for i in range(per)],
+                                 gens) for kid in sids}
+        for kid, ids in sids.items():
+            for i, sid in enumerate(ids):
+                status, _, raw = _http(
+                    conn, "GET", f"/sessions/{sid}/snapshot",
+                    headers={"Accept": wire.GRID_MEDIA_TYPE})
+                got = _frame_cells(raw, gens, (size, size))
+                want = (unpack(plain[kid][i]) if kid == "K3"
+                        else plain[kid][i])
+                if status != 200 or not torch.equal(got, want):
+                    fail(f"the aio {kid} session {sid} differs from the "
+                         f"plain version's")
+        emit({"phase": "front", "part": "aio_tickets", "card": card,
+              "sessions": {kid: per for kid in sids}, "grid": [size, size],
+              "rule": "bosco", "comm_every": {"K3": 1, "K2": 3},
+              "depths": list(depths), "cycles": cycles, "generations": gens,
+              "launches": launches, "unit_rounds": unit_rounds,
+              "warmups": warmups, "parked_waits": waits, "wall_s": wall,
+              "board_generations_per_s":
+                  len(every) * cycles * sum(depths) / wall,
+              "boards_equal_to_plain": True, "aio": server.stats()})
+        # one stream, a frame a generation: each frame the plain board
+        sid = sids["K3"][0]
+        board = plain["K3"][0:1]
+        del plain
+        sock = socket.create_connection(server.server_address[:2],
+                                        timeout=FRONT_WAIT_S)
+        try:
+            sock.sendall(f"GET /stream/{sid}?every=1 HTTP/1.1\r\n"
+                         f"Host: chip\r\n\r\n".encode())
+            buf = bytearray()
+            while b"\r\n\r\n" not in buf:
+                data = sock.recv(65536)
+                if not data:
+                    fail("the stream closed before its head")
+                buf += data
+            head, _, rest = bytes(buf).partition(b"\r\n\r\n")
+            if b"200" not in head.split(b"\r\n")[0] \
+                    or b"chunked" not in head:
+                fail(f"the stream answered {head[:200]!r}")
+            buf = bytearray(rest)
+            frames = []
+            _read_chunks(sock, buf, frames, 1)
+            _reset_launches()
+            for g in range(1, FRONT_FRAMES + 1):
+                _http_json(conn, "POST", f"/sessions/{sid}/step",
+                           {"steps": 1})
+                _read_chunks(sock, buf, frames, g + 1)
+            stream_launches = _launches()
+            for i, (grid, meta) in enumerate(frames):
+                if i:
+                    board = ltl_step_plain(board, BOSCO, "periodic", 1)
+                if meta["generation"] != gens + i or not torch.equal(
+                        torch.from_numpy(np.ascontiguousarray(grid))
+                        .to("cuda"), unpack(board[0])):
+                    fail(f"stream frame {i} (generation "
+                         f"{meta['generation']}) differs from the plain "
+                         f"board at {gens + i}")
+        finally:
+            sock.close()
+        if stream_launches["K3"] < FRONT_FRAMES or stream_launches["K1"] \
+                or stream_launches["K2"]:
+            fail(f"the streamed steps launched {stream_launches}")
+        emit({"phase": "front", "part": "aio_stream", "card": card,
+              "session": sid, "kernel": "K3", "frames": len(frames),
+              "generations": [m["generation"] for _, m in frames],
+              "launches": stream_launches, "frames_equal_to_plain": True,
+              "frames_pushed": server.stats()["frames_pushed"]})
+    finally:
+        for c in conns + [conn]:
+            c.close()
+        _stop_serving(server, thread)
+        mgr.shutdown()
+    torch.cuda.empty_cache()
+
+
+def _await_line(proc, lines, limit_s: float) -> str:
+    """The server process's startup line, read by ``lines``' reader thread
+    within ``limit_s``."""
+    try:
+        while True:
+            line = lines.get(timeout=limit_s)
+            if line is None:
+                fail(f"the server process exited ({proc.poll()}) before "
+                     f"it served")
+            if "serving on http://" in line:
+                return line
+    except queue.Empty:
+        fail(f"the server process did not serve within {limit_s} s")
+
+
+def _server_process(args, err):
+    """A server process on the card (its stderr to the file ``err``), and
+    a queue of its stdout lines."""
+    proc = subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=err, text=True)
+    lines = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    return proc, lines
+
+
+def _front_restart(card: str) -> None:
+    """``python -m mpi_tpu_torch.cli serve`` on the card with a state dir:
+    a 4096² Bosco session on K3 stepped k times, the server SIGKILLed, a
+    second server restoring generation k and stepping on to the plain
+    board at k + m."""
+    size, k, m = FRONT_RESTART
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    state = os.path.join(work, "state")
+    args = [sys.executable, "-m", "mpi_tpu_torch.cli", "serve", "--port",
+            "0", "--state-dir", state, "--checkpoint-every", "1"]
+    spec = {"rows": size, "cols": size, "rule": "bosco", "comm_every": 1,
+            "seed": SEED}
+    walls = {}
+    try:
+        for run in ("first", "restored"):
+            t0 = time.perf_counter()
+            err = open(os.path.join(work, f"{run}.err"), "w+")
+            proc, lines = _server_process(args, err)
+            try:
+                line = _await_line(proc, lines, FRONT_WAIT_S)
+                walls[f"{run}_start_s"] = time.perf_counter() - t0
+                host, port = line.split("http://", 1)[1].split(" ", 1)[0] \
+                    .rsplit(":", 1)
+                conn = http.client.HTTPConnection(host, int(port),
+                                                  timeout=FRONT_WAIT_S)
+                try:
+                    if run == "first":
+                        sid = _http_json(conn, "POST", "/sessions",
+                                         spec)["id"]
+                        for _ in range(k):
+                            _http_json(conn, "POST",
+                                       f"/sessions/{sid}/step", {"steps": 1})
+                        continue
+                    health = _http_json(conn, "GET", "/healthz")
+                    gen = _http_json(conn, "GET",
+                                     f"/sessions/{sid}/density")["generation"]
+                    if health["restored_sessions"] != 1 or gen != k \
+                            or "restored 1" not in line:
+                        fail(f"the restarted server restored "
+                             f"{health['restored_sessions']} sessions at "
+                             f"generation {gen}, not 1 at {k}")
+                    for _ in range(m):
+                        _http_json(conn, "POST", f"/sessions/{sid}/step",
+                                   {"steps": 1})
+                    status, _, raw = _http(
+                        conn, "GET", f"/sessions/{sid}/snapshot",
+                        headers={"Accept": wire.GRID_MEDIA_TYPE})
+                finally:
+                    conn.close()
+            finally:
+                proc.kill()             # SIGKILL: no shutdown, no flush
+                proc.wait(60)
+                proc.stdout.close()
+                err.seek(0)
+                errors = err.read()
+                err.close()
+        board = _ltl_plain("K3", size, [SEED], k + m)[0]
+        if status != 200 or not torch.equal(
+                _frame_cells(raw, k + m, (size, size)), unpack(board)):
+            fail(f"the restored session's board at {k + m} differs from "
+                 f"the plain version's: {errors[-500:]}")
+        emit({"phase": "front", "part": "restart", "card": card,
+              "grid": [size, size], "kernel": "K3", "rule": "bosco",
+              "steps_before_kill": k, "steps_after_restore": m,
+              "restored_generation": k, "board_equal_to_plain": True,
+              **walls})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase8_front(card: str, times: dict) -> None:
+    """The network front on the card (``serve/httpd.py``, ``serve/aio.py``,
+    ``serve/cli.py``, ``admission/``)."""
+    _front_threaded(card, times)
+    _front_aio(card)
+    _front_restart(card)
+
+
 def main() -> int:
     card = phase0_card()
     seconds, t0 = {}, time.perf_counter()
@@ -2744,6 +3411,8 @@ def main() -> int:
     lap("serve")
     phase7_obs(card)
     lap("obs_native")
+    phase8_front(card, times)
+    lap("front")
     emit({"phase": "seconds", **seconds})
     k1 = times["K1", MAIN_GENS]
     k2 = times["K2", DENSE_PATH[2]]

@@ -307,6 +307,9 @@ class Engine:
         self._cost_cards = {}
         self.tuned_plan = None
         self.mi = self.mj = 1
+        # every step consumes its input (the spare of the ping-pong pair),
+        # the reference's donated buffer; flight records report it
+        self.donates_input = True
 
     def _pass(self, src, k, dst):
         if self.bitpacked:

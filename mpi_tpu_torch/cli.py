@@ -10,6 +10,7 @@ Examples::
     python -m mpi_tpu_torch.cli 64 64 10 50 --device cpu --resume NAME@50
     python -m mpi_tpu_torch.cli 65536 65536 0 1000 --sparse 128
     python -m mpi_tpu_torch.cli 2048 2048 10 50 --backend cpp-par --workers 8
+    python -m mpi_tpu_torch.cli serve --port 8000   # sessions over HTTP
 
 ``--backend cuda`` (the default) runs on the GPU through one of three
 kernels (``backends/cuda.py:select_engine``): K1 for radius-1 rules, K3
@@ -26,6 +27,9 @@ host thread and ``cpp-par`` the same engine on a mesh of ``--workers``
 host threads, one ``.gol`` tile per worker (``backends/cpp.py``).
 Every backend writes the same ``.gol`` grids and the same two timing
 reports; the master header counts the tile writers.
+
+``serve`` runs the session service over HTTP instead
+(``serve/cli.py:serve_main``; ``serve --help`` lists its flags).
 """
 
 from __future__ import annotations
@@ -107,6 +111,12 @@ def _log(quiet: bool, msg: str) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "serve":
+        # subcommand dispatch ahead of the positional-args parser (which
+        # would read "serve" as rows); the one-shot contract is untouched
+        from mpi_tpu_torch.serve.cli import serve_main
+
+        return serve_main(argv[1:])
     args = build_parser().parse_args(argv)
     try:
         return _run(args)

@@ -56,6 +56,65 @@ IO_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
               0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
 
 
+# The reference's metric families (``mpi_tpu/analysis/obsreg.py``'s
+# extraction of ``mpi_tpu/``), the scrape's API: the port registers each
+# under the same name, label set and help string.  ``core`` is on every
+# instrumented scrape; the others only where their layer runs or is armed:
+# ``aio`` with the selectors front, ``admission`` with ``--admission``,
+# ``slo`` with ``--telemetry-interval-s``, ``flight`` with
+# ``--flight-recorder``/``--anomaly-detect``.  The reference's cluster
+# families come with ROADMAP queue 1 item 11c.
+FAMILIES: Dict[str, Tuple[str, ...]] = {
+    "core": (
+        "mpi_tpu_active_fraction", "mpi_tpu_active_tiles",
+        "mpi_tpu_batch_occupancy_boards", "mpi_tpu_batch_queue_depth",
+        "mpi_tpu_breaker_signatures", "mpi_tpu_breaker_trips_total",
+        "mpi_tpu_cache_events_total", "mpi_tpu_cache_size",
+        "mpi_tpu_checkpoint_bytes_total", "mpi_tpu_checkpoint_write_seconds",
+        "mpi_tpu_compile_wall_seconds", "mpi_tpu_cost_cards",
+        "mpi_tpu_degraded_sessions", "mpi_tpu_degraded_sessions_total",
+        "mpi_tpu_delta_frames_total", "mpi_tpu_dispatch_latency_seconds",
+        "mpi_tpu_engine_compile_wall_seconds_total",
+        "mpi_tpu_engine_counters_total",
+        "mpi_tpu_engine_failures_observed_total",
+        "mpi_tpu_engine_failures_total", "mpi_tpu_http_bytes_in_total",
+        "mpi_tpu_http_bytes_out_total", "mpi_tpu_http_requests_total",
+        "mpi_tpu_journal_compactions_total", "mpi_tpu_persistence_state",
+        "mpi_tpu_restore_replay_seconds", "mpi_tpu_roofline_efficiency",
+        "mpi_tpu_session_cells_per_second",
+        "mpi_tpu_session_lock_wait_seconds", "mpi_tpu_sessions",
+        "mpi_tpu_shard_fetch_seconds", "mpi_tpu_state_records_corrupt_total",
+        "mpi_tpu_ticket_queue_depth", "mpi_tpu_tickets_completed_total",
+        "mpi_tpu_tickets_pending", "mpi_tpu_trace_spans_total",
+        "mpi_tpu_tuned_plans", "mpi_tpu_unit_rounds_total",
+        "mpi_tpu_usage_cells_total", "mpi_tpu_usage_device_seconds_total",
+        "mpi_tpu_usage_flops_total", "mpi_tpu_usage_generations_total",
+        "mpi_tpu_usage_syncs_total", "mpi_tpu_viewport_bytes_total",
+        "mpi_tpu_watchdog_timeouts_total", "mpi_tpu_wire_decode_seconds",
+        "mpi_tpu_wire_encode_seconds",
+    ),
+    "aio": (
+        "mpi_tpu_aio_active_streams", "mpi_tpu_aio_frames_dropped_total",
+        "mpi_tpu_aio_frames_pushed_total", "mpi_tpu_aio_open_connections",
+        "mpi_tpu_aio_parked_waiters", "mpi_tpu_aio_resolve_queue_depth",
+    ),
+    "admission": (
+        "mpi_tpu_admission_decisions_total", "mpi_tpu_admission_queue_depth",
+        "mpi_tpu_quota_remaining", "mpi_tpu_shed_level",
+    ),
+    "slo": (
+        "mpi_tpu_slo_state", "mpi_tpu_slo_transitions_total",
+        "mpi_tpu_telemetry_samples_total",
+    ),
+    "flight": (
+        "mpi_tpu_anomaly_captures_total", "mpi_tpu_anomaly_state",
+        "mpi_tpu_device_memory_bytes", "mpi_tpu_dispatch_anomalies_total",
+        "mpi_tpu_engine_cache_entries", "mpi_tpu_flight_dropped_total",
+        "mpi_tpu_flight_records_total", "mpi_tpu_halo_exchange_seconds",
+    ),
+}
+
+
 def _fmt(v: float) -> str:
     """Prometheus sample value: integers render bare, floats minimally."""
     if v == int(v) and abs(v) < 1e15:

@@ -38,6 +38,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import tempfile
 import threading
 import time
 from contextvars import ContextVar
@@ -215,6 +216,21 @@ class Tracer:
             fh.flush()
             os.fsync(fh.fileno())
         return len(recs)
+
+    def dump_on_crash(self, note: str = "") -> Optional[str]:
+        """Called from the transport's catch-all 500 handler.  If already
+        streaming to --trace-log the crash marker lands there; otherwise
+        the ring is flushed to a tempdir file so the evidence survives."""
+        self.event("crash_dump", note=note)
+        if self.log_path is not None:
+            return self.log_path
+        path = os.path.join(tempfile.gettempdir(),
+                            f"mpi_tpu_trace_crash_{os.getpid()}.jsonl")
+        try:
+            self.dump(path)
+        except OSError:
+            return None
+        return path
 
     def stats(self) -> Dict[str, Any]:
         recorded = 0

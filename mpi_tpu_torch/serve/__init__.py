@@ -27,12 +27,21 @@ tickets into unit steps so mixed-depth sessions share batched launches.
 
 Sessions may also name the host backends: ``serial`` (the numpy oracle)
 and the native ``cpp``/``cpp-par`` engine.  ``SessionManager(obs=...)``
-takes the observability handle of ``mpi_tpu_torch.obs``.
+takes the observability handle of ``mpi_tpu_torch.obs``, and an armed
+``mpi_tpu_torch.admission.AdmissionControl`` gates steps and creates by
+tenant quota (429 with ``Retry-After``) before any kernel launch.
 
-This is the reference's session core (``mpi_tpu.serve``).  Its network
-fronts (``transport``, ``httpd``, ``aio``, ``serve/cli``, and the
-``/metrics``, ``/usage``, ``/debug/*`` endpoints), admission and cluster
-come with the second half of ROADMAP queue 1 item 11b.
+The network front splits transport from semantics, as the reference's
+(``mpi_tpu.serve``) does: routing, validation and error mapping live in
+the front-end-agnostic :class:`~mpi_tpu_torch.serve.transport.AppCore`;
+``serve/wire.py`` defines the binary grid frame (``application/x-gol-grid``)
+both checkpoint records and the fronts share; and two fronts drive the
+core — the default threaded server (``serve/httpd.py:make_server``) and a
+selectors event loop (``serve/aio.py:make_aio_server``, ``--front aio``)
+that parks idle ticket waiters as sockets and pushes binary frames on
+``GET /stream/<sid>``.  ``python -m mpi_tpu_torch.cli serve`` runs either
+(``serve/cli.py``).  The reference's cluster mode comes with ROADMAP
+queue 1 item 11c.
 """
 
 from mpi_tpu_torch.serve.batch import MicroBatcher
@@ -48,12 +57,14 @@ from mpi_tpu_torch.serve.session import (
 from mpi_tpu_torch.serve.ticket import (
     AsyncDispatcher, Ticket, TicketQueueFullError,
 )
+from mpi_tpu_torch.serve.httpd import make_server
+from mpi_tpu_torch.serve.transport import AppCore
 from mpi_tpu_torch.serve.wire import WireError, decode_frame, encode_frame
 
 __all__ = [
-    "EngineCache", "MicroBatcher", "SessionManager",
+    "EngineCache", "MicroBatcher", "SessionManager", "make_server",
     "StateStore", "FaultInjector", "FaultPlan", "InjectedFault",
     "DeadlineError", "EngineStepError", "EngineUnavailableError",
     "AsyncDispatcher", "Ticket", "TicketQueueFullError",
-    "WireError", "encode_frame", "decode_frame",
+    "AppCore", "WireError", "encode_frame", "decode_frame",
 ]

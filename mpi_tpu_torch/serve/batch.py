@@ -153,6 +153,20 @@ class MicroBatcher:
 
     # -- leader ------------------------------------------------------------
 
+    def reset_stats(self) -> None:
+        """Zero the counters (the batched micro-benchmark warms compiles
+        first, then measures a clean window)."""
+        with self._lock:
+            self.coalesced_calls = 0
+            self.batched_boards = 0
+            self.max_occupancy = 0
+            self.solo_steps = 0
+            self.batched_fallbacks = 0
+            self.batched_step_s = 0.0
+            self.solo_step_s = 0.0
+
+    # -- leader ------------------------------------------------------------
+
     def _run_leader(self, manager, key) -> None:
         """Drain the queue in chunks until it is empty AND removed (the
         removal is atomic with seeing it empty, so a late arrival either
@@ -323,6 +337,7 @@ class MicroBatcher:
                 if ttoken is not None:
                     reset_trace_context(ttoken)
                 reset_request_id(token)
+            manager._notify_step(s)
             e.result = {"id": s.id, "generation": s.generation,
                         "steps": steps, "batched": B}
         manager._mark_dispatch_ok()

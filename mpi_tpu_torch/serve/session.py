@@ -65,8 +65,12 @@ anomaly detector, SLO engine, time series and device-memory sampler.
 Every instrumentation site guards on the handle and only reads what
 happened: ``obs=None`` runs the uninstrumented path, and obs never changes
 which device or engine steps a board.  Autotuned plans are ROADMAP item 12
-(the manager refuses ``tune_cache``); the cluster and admission seams stay
-as the reference has them, no-ops while unset.
+(the manager refuses ``tune_cache``).  Admission
+(``mpi_tpu_torch/admission``, ``AdmissionControl.arm``) sets
+``manager.admission``; the cluster seam (ROADMAP item 11c) stays as the
+reference has it, a no-op while unset.  Step listeners
+(``add_step_listener``, the aio front's streams) run after each committed
+step, once the device has finished it.
 """
 
 from __future__ import annotations
@@ -381,13 +385,18 @@ class SessionManager:
             if async_enabled else None
         )
         self._sessions: Dict[str, Session] = {}
+        # step listeners (the aio front's stream hub): called after every
+        # committed step/board-write, often with the session lock held —
+        # a listener must only flip flags and wake a poller, never block
+        self._step_listeners: list = []
+        self._listeners_lock = threading.Lock()
         self._lock = threading.Lock()
         self._next = 0
-        # cluster membership (the reference's cluster package): None
-        # means single-process mode — every cluster seam below is a no-op
+        # cluster membership (ROADMAP item 11c): None means
+        # single-process mode — every cluster seam below is a no-op
         self.cluster = None
-        # admission control (the reference's admission package): None (the
-        # default) keeps every admission seam a no-op
+        # admission control (mpi_tpu_torch.admission, set by
+        # AdmissionControl.arm): None keeps every admission seam a no-op
         self.admission = None
         # fault tolerance
         self.request_timeout_s = _normalize_timeout(request_timeout_s)
@@ -687,6 +696,32 @@ class SessionManager:
         if session is None:
             raise KeyError(sid)
         return session
+
+    # -- step listeners ----------------------------------------------------
+
+    def add_step_listener(self, fn) -> None:
+        """Register ``fn(session)`` to run after every committed step or
+        board write (all commit paths: solo, microbatch, async ticket).
+        Called with the session lock frequently held — the callback must
+        be non-blocking (set a flag, wake a selector)."""
+        with self._listeners_lock:
+            self._step_listeners.append(fn)
+
+    def remove_step_listener(self, fn) -> None:
+        with self._listeners_lock:
+            try:
+                self._step_listeners.remove(fn)
+            except ValueError:
+                pass
+
+    def _notify_step(self, session: Session) -> None:
+        with self._listeners_lock:
+            listeners = tuple(self._step_listeners)
+        for fn in listeners:
+            try:
+                fn(session)
+            except Exception:  # noqa: BLE001 — a viewer must not fail a step
+                pass
 
     # -- checkpoint / restore ---------------------------------------------
 
@@ -1200,6 +1235,7 @@ class SessionManager:
                               device_s=t1 - t0)
         session.generation += steps
         self._checkpoint(session)
+        self._notify_step(session)
         return {"id": session.id, "generation": session.generation,
                 "steps": steps}
 
@@ -1212,9 +1248,8 @@ class SessionManager:
         request's class (tenant default, header override capped at the
         tenant ceiling), run the shed ladder, and charge the CostCard
         estimate against the tenant's remaining window quota.  Returns
-        the resolved class (None when admission is unarmed, the port's
-        only state until admission is ported).  Raises the admission
-        package's ``AdmissionReject`` (429), or
+        the resolved class (None when admission is unarmed).  Raises
+        ``AdmissionReject`` (429), or
         ``ConfigError`` when the header names a tenant that is not the
         session's owner (accounting must stay honest)."""
         adm = self.admission
@@ -1482,6 +1517,7 @@ class SessionManager:
         if self.obs is not None:
             self.obs.event("board_write", sid=sid,
                            generation=out["generation"])
+        self._notify_step(session)
         return out
 
     def write_window(self, sid: str, x0: int, y0: int, patch,
@@ -1568,6 +1604,7 @@ class SessionManager:
             self.obs.event("board_write", sid=sid,
                            generation=out["generation"], x0=x0, y0=y0,
                            h=int(arr.shape[0]), w=int(arr.shape[1]))
+        self._notify_step(session)
         return out
 
     def density(self, sid: str, timeout_s: Optional[float] = None) -> dict:

@@ -83,7 +83,7 @@ class Ticket:
     __slots__ = ("id", "sid", "steps", "remaining", "deadline", "status",
                  "result", "error", "event", "rid", "tctx",
                  "enqueued_mono", "done_mono", "unit_rounds",
-                 "max_batched", "qos", "cost")
+                 "max_batched", "callbacks", "qos", "cost")
 
     def __init__(self, tid: str, sid: str, steps: int, deadline,
                  qos: str = "standard", cost: float = 0.0):
@@ -107,6 +107,7 @@ class Ticket:
         self.done_mono: Optional[float] = None
         self.unit_rounds = 0            # device rounds this ticket rode in
         self.max_batched = 0            # widest batch it shared (0 = solo)
+        self.callbacks: List = []       # resolution callbacks (aio waiters)
 
 
 class AsyncDispatcher:
@@ -146,7 +147,7 @@ class AsyncDispatcher:
         self._completed_by_sid: Dict[str, int] = {}
         self._next = 0
         # appended to every allocated ticket id ("@<node-tag>" in the
-        # reference's cluster mode, which ROADMAP item 11b brings; empty
+        # reference's cluster mode, which ROADMAP item 11c brings; empty
         # until then)
         self.id_suffix = ""
         self._thread: Optional[threading.Thread] = None
@@ -222,6 +223,18 @@ class AsyncDispatcher:
             return sum(1 for t in self._tickets.values()
                        if t.status == "pending")
 
+    def depth_by_class(self) -> Dict[str, int]:
+        """Waiting tickets per priority class (the admission queue-depth
+        gauge; every ticket is ``standard`` on an unarmed server)."""
+        counts: Dict[str, int] = {}
+        with self._cv:
+            for t in self._inbox:
+                counts[t.qos] = counts.get(t.qos, 0) + 1
+            for q in self._per_session.values():
+                for t in q:
+                    counts[t.qos] = counts.get(t.qos, 0) + 1
+        return counts
+
     def queued_for(self, sid: str) -> int:
         with self._cv:
             return (sum(1 for t in self._inbox if t.sid == sid)
@@ -263,6 +276,18 @@ class AsyncDispatcher:
                 "tickets_retained": len(self._done_order),
             }
 
+    def reset_stats(self) -> None:
+        """Zero the throughput counters (the async bench warms compiles,
+        then measures a clean window).  The ticket table is untouched —
+        resolved tickets must stay resolvable."""
+        with self._cv:
+            self.group_dispatches = 0
+            self.unit_rounds = 0
+            self.board_rounds = 0
+            self.max_occupancy = 0
+            self.solo_tickets = 0
+            self.batched_fallbacks = 0
+
     # -- completion --------------------------------------------------------
 
     def _complete(self, ticket: Ticket, result=None, error=None) -> None:
@@ -278,7 +303,44 @@ class AsyncDispatcher:
                 self._completed_by_sid.get(ticket.sid, 0) + 1)
             self._done_order.append((ticket.id, ticket.done_mono))
             self._evict_locked()
+            callbacks, ticket.callbacks = ticket.callbacks, []
         ticket.event.set()
+        # resolution callbacks fire AFTER the event, outside _cv, possibly
+        # with session locks held (the group commit loop) — a callback
+        # must only flip flags and wake a selector, never block.  This is
+        # how the aio front wakes exactly the sockets parked on this
+        # ticket instead of burning a thread per waiter.
+        for fn in callbacks:
+            try:
+                fn(ticket)
+            except Exception:  # noqa: BLE001 — a waiter must not fail commit
+                pass
+
+    def on_resolve(self, tid: str, fn) -> bool:
+        """Register ``fn(ticket)`` to run when ``tid`` resolves.  If the
+        ticket is already resolved, ``fn`` runs synchronously here and
+        False is returned (nothing was parked); True means parked.
+        Unknown tickets raise ``KeyError`` (the 404-after-restart
+        contract).  Same non-blocking rules as above."""
+        with self._cv:
+            ticket = self._tickets.get(tid)
+            if ticket is None:
+                raise KeyError(tid)
+            if ticket.status == "pending":
+                ticket.callbacks.append(fn)
+                return True
+        fn(ticket)
+        return False
+
+    def cancel_resolve(self, tid: str, fn) -> None:
+        """Best-effort unpark (a waiter's wait budget expired first)."""
+        with self._cv:
+            ticket = self._tickets.get(tid)
+            if ticket is not None:
+                try:
+                    ticket.callbacks.remove(fn)
+                except ValueError:
+                    pass
 
     def _evict_locked(self) -> None:  # lint: disable=lock-discipline -- caller holds _cv (_locked suffix contract)
         """Age out the oldest RESOLVED tickets: anything beyond the
@@ -556,6 +618,7 @@ class AsyncDispatcher:
                     if ttoken is not None:
                         reset_trace_context(ttoken)
                     reset_request_id(token)
+                manager._notify_step(s)
                 t.remaining = 0
                 t.unit_rounds += adv
                 t.max_batched = max(t.max_batched, B if B > 1 else 0)

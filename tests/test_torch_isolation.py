@@ -1,7 +1,9 @@
-"""The port stands alone: no module of ``mpi_tpu_torch`` (its ``obs``
-package and native backends included) and not ``chip_smoke.py`` imports
-JAX or anything of the JAX package ``mpi_tpu``, and no file of the port
-names the reference's native build directory."""
+"""The port stands alone: no module of ``mpi_tpu_torch`` (its ``obs``,
+``admission`` and ``serve`` packages, network fronts and native backends
+included) and not ``chip_smoke.py`` imports JAX or anything of the JAX
+package ``mpi_tpu``, no file of the port names the reference's native
+build directory, and the slices run, the network front served by its CLI
+among them, with neither loaded."""
 
 import ast
 import os
@@ -139,6 +141,65 @@ def test_native_and_obs_run_without_loading_jax(tmp_path):
         "obs.telemetry.sample_once()\n"
         "mgr.usage(); mgr.stats(); mgr.slo(); obs.render_metrics()\n"
         "mgr.shutdown()\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_network_front_serves_without_loading_jax(tmp_path):
+    """``python -m mpi_tpu_torch.cli serve --device cpu`` (run as
+    ``__main__`` in a thread of a subprocess, on the aio front with
+    admission, telemetry and the flight recorder armed) serves a few
+    requests with neither JAX nor ``mpi_tpu`` loaded."""
+    code = (
+        "import http.client, json, runpy, sys, threading\n"
+        "import mpi_tpu_torch.serve.aio as aio\n"
+        "made = []\n"
+        "real = aio.make_aio_server\n"
+        "def spy(*a, **kw):\n"
+        "    made.append(real(*a, **kw))\n"
+        "    return made[-1]\n"
+        "aio.make_aio_server = spy\n"
+        "sys.argv = ['mpi_tpu_torch.cli', 'serve', '--port', '0',"
+        " '--device', 'cpu', '--front', 'aio', '--admission',"
+        " '--telemetry-interval-s', '60', '--flight-recorder',"
+        f" '--state-dir', {str(tmp_path)!r}]\n"
+        "def run():\n"
+        "    try:\n"
+        "        runpy.run_module('mpi_tpu_torch.cli', run_name='__main__')\n"
+        "    except SystemExit:\n"
+        "        pass\n"
+        "t = threading.Thread(target=run, daemon=True)\n"
+        "t.start()\n"
+        "import time\n"
+        "deadline = time.monotonic() + 120\n"
+        "while not made and time.monotonic() < deadline:\n"
+        "    t.join(0.05)\n"
+        "srv = made[0]\n"
+        "c = http.client.HTTPConnection(*srv.server_address[:2], timeout=60)\n"
+        "def rt(m, p, b=None):\n"
+        "    c.request(m, p, body=None if b is None else json.dumps(b))\n"
+        "    r = c.getresponse()\n"
+        "    return r.status, r.read()\n"
+        "st, body = rt('POST', '/sessions', {'rows': 16, 'cols': 64})\n"
+        "assert st == 200, body\n"
+        "sid = json.loads(body)['id']\n"
+        "assert rt('POST', f'/sessions/{sid}/step', {'steps': 3})[0] == 200\n"
+        "st, body = rt('POST', f'/sessions/{sid}/step?async=1', {'steps': 2})\n"
+        "tid = json.loads(body)['ticket']\n"
+        "st, body = rt('GET', f'/result/{tid}?wait=1')\n"
+        "assert json.loads(body)['result']['generation'] == 5, body\n"
+        "for p in ('/metrics', '/usage', '/slo', '/debug/flights'):\n"
+        "    assert rt('GET', p)[0] == 200, p\n"
+        "c.close()\n"
+        "srv.shutdown()\n"
+        "t.join(60)\n"
+        "assert not t.is_alive()\n"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_tpu')]\n"
         "assert not bad, bad\n"

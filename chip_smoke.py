@@ -148,7 +148,36 @@ Phases; any failure exits non-zero before the result line:
    serve --state-dir D --checkpoint-every 1`` (no ``--device``: the
    card) steps a 4096² Bosco session on K3 5 times, is SIGKILLed, and a
    second process restores generation 5 and steps on to the plain board
-   at 8.
+   at 8;
+9. cluster mode on the card: three ``python -m mpi_tpu_torch.cli serve
+   --device cuda`` processes on loopback ports, started together as one
+   cluster (``--peers``) over one shared ``--state-dir`` with
+   ``--checkpoint-every 1`` and the reference's chaos settings (gossip
+   every 0.25 s, a peer down after 1.0 s and dead after 2.5 s, telemetry
+   every 0.25 s), each printing its wrappers' launch counts as it exits.
+   24 sessions of 4096² Life (K1), 4 of Bosco on K3 and 4 on K2 are
+   created through the three fronts in turn and placed by the ring; each
+   steps 8 generations a request in turns through a front that does not
+   hold it (one proxy hop) and through its holder: proxied against
+   direct requests/s and the nodes' CPU ms a hop; every board then comes
+   back as a binary frame through both, byte for byte the same and equal
+   to the plain version's, and each holder's flight records name the
+   session's kernel.  A proxied async step's trace, fetched from the
+   third front, is one tree of two processes' spans; every front's
+   ``/usage`` ``cluster.totals`` converges to the exact sum of the three
+   ledgers, ``/slo`` names all three nodes, ``/metrics`` carries the
+   ``host``/``process`` labels and the cluster families.  The node that
+   holds the most sessions is SIGKILLed (after a ticket on one of its
+   sessions): each survivor confirms it dead, its sessions are adopted
+   from the state dir by replay on the card (``failover_lost`` 0) and
+   answer byte for byte as before the kill (a 503 in the window must
+   carry ``Retry-After``), its ticket answers the structured 404, and
+   each orphan steps on, its adopter's flight record naming its kernel.
+   ``POST /cluster/drain`` on one survivor hands every session to the
+   other with no generation lost; every board steps on equal to the
+   plain version's.  The survivors' launch counts must hold K1, K2 and
+   K3.  Last, ``python -m mpi_tpu_torch.serve.scrub`` verifies the state
+   dir, repairs what the SIGKILL tore and verifies it clean.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -167,6 +196,7 @@ import socket
 import subprocess
 import sys
 import shutil
+import signal
 import tempfile
 import threading
 import time
@@ -3388,6 +3418,567 @@ def phase8_front(card: str, times: dict) -> None:
     _front_restart(card)
 
 
+# phase 9: three `python -m mpi_tpu_torch.cli serve --device cuda`
+# processes on loopback ports as one cluster over one shared state dir,
+# with the chaos settings of the reference's tools/cluster_smoke.py
+CLUSTER_NODES = 3
+CLUSTER_ARGS = ("--device", "cuda", "--checkpoint-every", "1",
+                "--gossip-interval-s", "0.25", "--peer-down-s", "1.0",
+                "--peer-dead-s", "2.5", "--telemetry-interval-s", "0.25",
+                "--flight-recorder")
+# (sessions, size, generations a request, rounds a turn): 4096² Life on
+# K1 (comm_every 8), stepped in turns proxied, direct, direct, proxied
+CLUSTER_LIFE = (24, 4096, 8, 4)
+CLUSTER_LTL = 4         # 4096² Bosco sessions on K3 (comm_every 1), on K2 (3)
+CLUSTER_WAIT_S = 60.0   # the limit of every wait for the group
+# each node runs `python -m mpi_tpu_torch.cli serve ...` as __main__ and,
+# as it exits, prints its wrappers' launch counts (a SIGKILLed node prints
+# none): the counts start at 0 with the process, before any traffic
+CLUSTER_NODE_MAIN = (
+    "import atexit, json, runpy, sys\n"
+    "from mpi_tpu_torch.backends import cuda\n"
+    "atexit.register(lambda: print(json.dumps({'launches': {kid: w.launches"
+    " for kid, w, _ in cuda.KERNELS.values()}}), flush=True))\n"
+    "sys.argv = ['mpi_tpu_torch.cli', *sys.argv[1:]]\n"
+    "runpy.run_module('mpi_tpu_torch.cli', run_name='__main__',"
+    " alter_sys=True)\n"
+)
+
+
+def _free_ports(n: int) -> list:
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _cpu_s(pid: int) -> float:
+    """A process's user + system CPU seconds (``/proc/<pid>/stat``)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _req(addr: str, method: str, path: str, body=None, headers=None):
+    """One request on a connection of its own: (status, headers, bytes)."""
+    host, port = addr.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port),
+                                      timeout=CLUSTER_WAIT_S)
+    try:
+        return _http(conn, method, path, body, headers)
+    finally:
+        conn.close()
+
+
+def _req_json(addr: str, method: str, path: str, body=None, headers=None,
+              want: int = 200):
+    status, _, raw = _req(addr, method, path, body, headers)
+    if status != want:
+        fail(f"{method} {addr}{path} answered {status}, not {want}: "
+             f"{raw[:300]!r}")
+    return json.loads(raw) if raw else None
+
+
+def _poll(fn, label: str, limit_s: float = CLUSTER_WAIT_S):
+    """``fn()`` until it returns a true value, within ``limit_s``: that
+    value and the seconds it took."""
+    t0 = time.perf_counter()
+    while True:
+        out = fn()
+        if out:
+            return out, time.perf_counter() - t0
+        if time.perf_counter() - t0 > limit_s:
+            fail(f"the cluster never {label} within {limit_s} s")
+        time.sleep(0.05)
+
+
+def _frame(addr: str, sid: str):
+    """(status, headers, bytes) of a binary snapshot through ``addr``."""
+    return _req(addr, "GET", f"/sessions/{sid}/snapshot",
+                headers={"Accept": wire.GRID_MEDIA_TYPE})
+
+
+def _holders(addrs, sids) -> dict:
+    """sid -> the node that holds it: a forwarded request is served where
+    it lands, so exactly one node answers 200."""
+    from mpi_tpu_torch.cluster.proxy import FORWARDED_HEADER
+
+    out = {}
+    for sid in sids:
+        held = [a for a in addrs
+                if _req(a, "GET", f"/sessions/{sid}/density",
+                        headers={FORWARDED_HEADER: "probe"})[0] == 200]
+        if len(held) != 1:
+            fail(f"session {sid} is held by {held}, not by one node")
+        out[sid] = held[0]
+    return out
+
+
+class _Plain:
+    """Each session's plain board (K1's, K3's or K2's plain version on
+    the card), advanced as the session's generation moves."""
+
+    def __init__(self, kinds: dict, seeds: dict):
+        size = CLUSTER_LIFE[1]
+        self.kinds, self.state, self.gen = kinds, {}, {}
+        for sid, kid in kinds.items():
+            self.gen[sid] = 0
+            self.state[sid] = (
+                init_dense(size, size, seeds[sid], device="cuda")
+                if kid == "K2" else
+                init_packed(size, size, seeds[sid], device="cuda"))[None]
+
+    def cells(self, sid: str, gen: int) -> torch.Tensor:
+        kid, x, n = self.kinds[sid], self.state[sid], gen - self.gen[sid]
+        if n < 0:
+            fail(f"session {sid} went back to generation {gen}")
+        cap = {"K1": 16, "K3": 1, "K2": 3}[kid]
+        while n:
+            g = min(n, cap)
+            x = (bit_step_plain(x, LIFE, "periodic", g) if kid == "K1"
+                 else ltl_step_plain(x, BOSCO, "periodic", g) if kid == "K3"
+                 else dense_step_plain(x, BOSCO, "periodic", g))
+            n -= g
+        self.state[sid], self.gen[sid] = x, gen
+        return x[0] if kid == "K2" else unpack(x[0])
+
+
+def _cluster_boards(addrs, holder, gens, plain, label) -> None:
+    """Every session's board through a front that does not hold it and
+    through its holder: byte for byte the same binary frame, equal to the
+    plain version's board."""
+    size = CLUSTER_LIFE[1]
+    for sid, owner in holder.items():
+        other = addrs[(addrs.index(owner) + 1) % len(addrs)]
+        st1, _, far = _frame(other, sid)
+        st2, _, near = _frame(owner, sid)
+        if st1 != 200 or st2 != 200 or far != near:
+            fail(f"{label}: the frame of {sid} through {other} ({st1}) and "
+                 f"its holder {owner} ({st2}) differ")
+        if not torch.equal(_frame_cells(far, gens[sid], (size, size)),
+                           plain.cells(sid, gens[sid])):
+            fail(f"{label}: the board of {sid} at {gens[sid]} differs from "
+                 f"the plain version's")
+
+
+def _cluster_turn(fronts: dict, sids, rounds: int, n: int, pids) -> tuple:
+    """``rounds`` steps of ``n`` generations a session, each session's
+    client on one keep-alive connection to ``fronts[sid]``: (wall s, the
+    nodes' CPU s).  The connections open one at a time before the
+    rounds: a node's listen queue holds 5 (``ThreadingHTTPServer``'s
+    default, as in the reference), and 32 clients connecting at once to
+    one node can be reset."""
+    conns = []
+    for sid in sids:
+        host, port = fronts[sid].rsplit(":", 1)
+        conns.append(http.client.HTTPConnection(host, int(port),
+                                                timeout=FRONT_WAIT_S))
+        conns[-1].connect()
+    try:
+        cpu0 = sum(_cpu_s(p) for p in pids)
+        wall = _http_rounds(conns, list(sids), rounds, n)
+        return wall, sum(_cpu_s(p) for p in pids) - cpu0
+    finally:
+        for c in conns:
+            c.close()
+
+
+def _cluster_start(work: str, nodes: list) -> None:
+    """Three nodes started together over one state dir, appended to
+    ``nodes`` as they start (so the caller stops each one whatever
+    fails): each one's address, process, stdout lines, stderr file and
+    seconds to serve."""
+    addrs = [f"127.0.0.1:{p}" for p in _free_ports(CLUSTER_NODES)]
+    state = os.path.join(work, "state")
+    t0 = time.perf_counter()
+    for i, addr in enumerate(addrs):
+        peers = ",".join(a for a in addrs if a != addr)
+        args = [sys.executable, "-c", CLUSTER_NODE_MAIN, "serve", "--host",
+                "127.0.0.1", "--port", addr.rsplit(":", 1)[1],
+                "--state-dir", state, "--peers", peers, *CLUSTER_ARGS]
+        err = open(os.path.join(work, f"node{i}.err"), "w+")
+        proc, lines = _server_process(args, err)
+        nodes.append({"addr": addr, "proc": proc, "lines": lines,
+                      "err": err})
+    from mpi_tpu_torch.cluster import node_tag
+
+    for node in nodes:
+        line = _await_line(node["proc"], node["lines"], FRONT_WAIT_S)
+        node["start_s"] = time.perf_counter() - t0
+        want = f"cluster {node['addr']} tag {node_tag(node['addr'])} peers 2"
+        if want not in line:
+            fail(f"a node's startup line lacks {want!r}: {line!r}")
+
+
+def _cluster_stop(node) -> dict:
+    """SIGINT: the node shuts down and prints its launch counts."""
+    proc = node["proc"]
+    proc.send_signal(signal.SIGINT)
+    try:
+        proc.wait(60)
+    except subprocess.TimeoutExpired:
+        fail(f"the node {node['addr']} did not stop on SIGINT")
+    launches = None
+    while True:
+        try:
+            line = node["lines"].get(timeout=10)
+        except queue.Empty:
+            break
+        if line is None:
+            break
+        if line.startswith('{"launches"'):
+            launches = json.loads(line)["launches"]
+    if proc.returncode != 0 or launches is None:
+        node["err"].seek(0)
+        fail(f"the node {node['addr']} exited {proc.returncode} without "
+             f"its launch counts: {node['err'].read()[-800:]}")
+    return launches
+
+
+def phase9_cluster(card: str) -> None:
+    """Cluster mode on the card: sticky routing and the proxy, the
+    stitched trace, the roll-ups, a SIGKILL failover, a drain and the
+    offline scrub (``mpi_tpu_torch/cluster``, ``serve/transport.py``'s
+    routing, ``serve/cli.py``'s ``--peers``)."""
+    from mpi_tpu_torch.obs.ledger import merge_totals
+
+    n_life, size, n, rounds = CLUSTER_LIFE
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    state = os.path.join(work, "state")
+    nodes = []
+    try:
+        t_phase = time.perf_counter()
+        _cluster_start(work, nodes)
+        addrs = [nd["addr"] for nd in nodes]
+        pids = [nd["proc"].pid for nd in nodes]
+
+        def joined():
+            for a in addrs:
+                peers = _req_json(a, "GET", "/cluster")["peers"]
+                if sorted(peers) != sorted(set(addrs) - {a}) or not all(
+                        p["alive"] for p in peers.values()):
+                    return False
+            return True
+
+        _, join_s = _poll(joined, "joined")
+        # the sessions, created through the three fronts in turn
+        kinds, seeds, specs = {}, {}, []
+        for i in range(n_life):
+            specs.append(("K1", SEED + i, {"rule": "life", "comm_every": 8}))
+        for kid, k in (("K3", 1), ("K2", 3)):
+            for i in range(CLUSTER_LTL):
+                specs.append((kid, SEED + i, {"rule": "bosco",
+                                              "comm_every": k}))
+        t0 = time.perf_counter()
+        for j, (kid, seed, extra) in enumerate(specs):
+            out = _req_json(addrs[j % CLUSTER_NODES], "POST", "/sessions",
+                            {"rows": size, "cols": size, "seed": seed,
+                             **extra})
+            kinds[out["id"]], seeds[out["id"]] = kid, seed
+        create_s = time.perf_counter() - t0
+        sids = list(kinds)
+        holder = _holders(addrs, sids)
+        plain = _Plain(kinds, seeds)
+        gens = {sid: 0 for sid in sids}
+        # 1. sticky routing and the proxy: turns through a front that does
+        # not hold the session and through its holder
+        proxied = {sid: addrs[(addrs.index(h) + 1) % CLUSTER_NODES]
+                   for sid, h in holder.items()}
+        turns = {"proxied": [], "direct": []}
+        for turn in ("proxied", "direct", "direct", "proxied"):
+            fronts = proxied if turn == "proxied" else holder
+            turns[turn].append(_cluster_turn(fronts, sids, rounds, n, pids))
+            for sid in sids:
+                gens[sid] += rounds * n
+        _cluster_boards(addrs, holder, gens, plain, "routing")
+        reqs = len(sids) * rounds
+        rate = {t: reqs * len(v) / sum(w for w, _ in v)
+                for t, v in turns.items()}
+        cpu_ms = {t: 1e3 * sum(c for _, c in v) / (reqs * len(v))
+                  for t, v in turns.items()}
+        flights = {}
+        for sid in sids:
+            recs = _req_json(holder[sid], "GET",
+                             f"/debug/flights?session={sid}")["flights"]
+            got = {r.get("kernel") for r in recs}
+            if got != {kinds[sid]}:
+                fail(f"session {sid} stepped on {got}, not {kinds[sid]}")
+            flights[kinds[sid]] = flights.get(kinds[sid], 0) + len(recs)
+        emit({"phase": "cluster", "part": "routing", "card": card,
+              "nodes": CLUSTER_NODES, "node_start_s":
+                  [nd["start_s"] for nd in nodes], "join_s": join_s,
+              "sessions": {k: sum(v == k for v in kinds.values())
+                           for k in ("K1", "K3", "K2")},
+              "held": {a: sum(h == a for h in holder.values())
+                       for a in addrs},
+              "grid": [size, size], "generations_a_request": n,
+              "requests_a_turn": reqs, "create_s": create_s,
+              "proxied_requests_per_s": rate["proxied"],
+              "direct_requests_per_s": rate["direct"],
+              "proxied_over_direct": rate["proxied"] / rate["direct"],
+              "node_cpu_ms_per_request": cpu_ms,
+              "host_cpu_ms_a_hop": cpu_ms["proxied"] - cpu_ms["direct"],
+              "turn_walls_s": {t: [w for w, _ in v]
+                               for t, v in turns.items()},
+              "flight_records_by_kernel": flights,
+              "frames_equal_to_holder_and_plain": len(sids)})
+        # 2. the stitched trace: a proxied async step, fetched from the
+        # third front
+        sid = sids[0]
+        owner = holder[sid]
+        f1 = proxied[sid]
+        f3 = next(a for a in addrs if a not in (owner, f1))
+        status, headers, raw = _req(f1, "POST",
+                                    f"/sessions/{sid}/step?async=1",
+                                    {"steps": n})
+        tp = headers.get("X-Gol-Traceparent", "")
+        if status != 200 or len(tp.split("-")) != 4:
+            fail(f"the proxied async step answered {status}, {tp!r}")
+        ticket = json.loads(raw)["ticket"]
+        res = _req_json(f1, "GET", f"/result/{ticket}?wait=1")
+        if res["status"] != "done":
+            fail(f"the proxied ticket {ticket} did not finish: {res}")
+        gens[sid] += n
+        tid = tp.split("-")[1]
+        doc = _req_json(f3, "GET", f"/debug/trace/{tid}")
+
+        def tree_nodes(node, acc):
+            acc.add(node["node"])
+            for c in node["children"]:
+                tree_nodes(c, acc)
+            return acc
+
+        names = {s["name"] for s in doc["spans"]}
+        span_nodes = {s["node"] for s in doc["spans"]}
+        if not doc["complete"] or span_nodes != {f1, owner} or not any(
+                len(tree_nodes(r, set())) == 2 for r in doc["tree"]) \
+                or not {"http_request", "proxy_hop"} <= names:
+            fail(f"the trace fetched from {f3} is not one tree of {f1} and "
+                 f"{owner}: {sorted(names)}, {sorted(span_nodes)}")
+        emit({"phase": "cluster", "part": "trace", "card": card,
+              "fetched_from": f3, "front": f1, "owner": owner,
+              "ticket": ticket, "spans": len(doc["spans"]),
+              "span_names": sorted(names), "nodes": doc["nodes"],
+              "complete": True})
+        # 3. the roll-ups: /usage totals, /slo, /metrics, polled from the
+        # last request on
+        def usage_converged():
+            usages = {a: _req_json(a, "GET", "/usage") for a in addrs}
+            local = {a: u["totals"] for a, u in usages.items()}
+            for a, u in usages.items():
+                cl = u["cluster"]
+                if cl["nodes_reporting"] != CLUSTER_NODES \
+                        or cl["by_node"] != local \
+                        or cl["totals"] != merge_totals(
+                            list(cl["by_node"].values())):
+                    return None
+            return local
+
+        local, usage_s = _poll(usage_converged, "converged on /usage")
+
+        def slo_named():
+            for a in addrs:
+                cl = _req_json(a, "GET", "/slo")["cluster"]
+                if sorted(cl["by_node"]) != sorted(addrs) \
+                        or cl["nodes_reporting"] != CLUSTER_NODES:
+                    return False
+            return True
+
+        _, slo_s = _poll(slo_named, "named every node on /slo")
+        for a in addrs:
+            status, _, raw = _req(a, "GET", "/metrics")
+            text = raw.decode()
+            missing = set(FAMILIES["cluster"]) - _scrape_families(text)
+            if status != 200 or missing or f'process="{a}"' not in text \
+                    or 'host="' not in text:
+                fail(f"the /metrics of {a} lacks {sorted(missing)} or its "
+                     f"host/process labels")
+        emit({"phase": "cluster", "part": "rollups", "card": card,
+              "usage_converged_s": usage_s, "slo_named_s": slo_s,
+              "totals": merge_totals(list(local.values())),
+              "per_node_generations": {a: t["generations"]
+                                       for a, t in local.items()},
+              "metrics_cluster_families": len(FAMILIES["cluster"])})
+        # 4. a SIGKILL failover: the node that holds the most sessions
+        counts = Counter(holder.values())
+        victim = max(addrs, key=lambda a: (counts[a], a))
+        survivors = [a for a in addrs if a != victim]
+        orphans = sorted(s for s, h in holder.items() if h == victim)
+        status, _, raw = _req(survivors[0], "POST",
+                              f"/sessions/{orphans[0]}/step?async=1",
+                              {"steps": n})
+        vticket = json.loads(raw)["ticket"] if status == 200 else None
+        if vticket is None or _req_json(
+                survivors[0], "GET",
+                f"/result/{vticket}?wait=1")["status"] != "done":
+            fail(f"the ticket on the victim's session answered {status}")
+        gens[orphans[0]] += n
+        pre = {}
+        for sid in orphans:
+            status, _, raw = _frame(victim, sid)
+            if status != 200:
+                fail(f"the pre-kill snapshot of {sid} answered {status}")
+            pre[sid] = raw
+        vnode = nodes[addrs.index(victim)]
+        t_kill = time.perf_counter()
+        vnode["proc"].kill()
+        vnode["proc"].wait(60)
+        window = Counter()
+        served = {}
+        pending = set(orphans)
+        while pending:
+            if time.perf_counter() - t_kill > CLUSTER_WAIT_S:
+                fail(f"orphans {sorted(pending)} were never served")
+            for i, sid in enumerate(sorted(pending)):
+                status, headers, raw = _frame(survivors[i % 2], sid)
+                if status == 200:
+                    if raw != pre[sid]:
+                        fail(f"the adopted {sid} differs from its "
+                             f"pre-kill snapshot")
+                    served[sid] = time.perf_counter() - t_kill
+                    pending.discard(sid)
+                elif status == 503:
+                    ra = headers.get("Retry-After", "")
+                    if not ra.isdigit() or int(ra) < 1:
+                        fail(f"a 503 in the failover window lacks "
+                             f"Retry-After: {headers}")
+                    window[503] += 1
+                elif status == 404:
+                    window[404] += 1    # routed to an adopter not done yet
+                else:
+                    fail(f"an orphan answered {status}: {raw[:300]!r}")
+            time.sleep(0.05)
+
+        def confirmed():
+            infos = [_req_json(a, "GET", "/cluster") for a in survivors]
+            if not all(i["peers"].get(victim, {}).get("state") == "dead"
+                       for i in infos):
+                return None
+            adopted = sum(i["failover"]["adopted"] for i in infos)
+            lost = sum(i["failover"]["lost"] for i in infos)
+            return (adopted, lost) if adopted >= len(orphans) else None
+
+        (adopted, lost), _ = _poll(confirmed, "confirmed the victim dead")
+        if adopted != len(orphans) or lost:
+            fail(f"failover adopted {adopted} and lost {lost} of "
+                 f"{len(orphans)} orphans")
+        dead = _req_json(survivors[1], "GET", f"/result/{vticket}",
+                         want=404)
+        if dead != {"error": f"no ticket {vticket!r}", "peer": victim}:
+            fail(f"the dead node's ticket answered {dead}")
+        # the adopted sessions step on the card: one step each through the
+        # other survivor, its adopter's flight record naming its kernel
+        adopters = _holders(survivors, orphans)
+        for sid in orphans:
+            other = next(a for a in survivors if a != adopters[sid])
+            out = _req_json(other, "POST", f"/sessions/{sid}/step",
+                            {"steps": n})
+            gens[sid] += n
+            if out["generation"] != gens[sid]:
+                fail(f"the adopted {sid} stepped to {out['generation']}")
+            rec = _req_json(adopters[sid], "GET",
+                            f"/debug/flights?session={sid}&limit=1")
+            if [r.get("kernel") for r in rec["flights"]] != [kinds[sid]]:
+                fail(f"the adopted {sid} did not step on {kinds[sid]}")
+        holder = _holders(survivors, sids)
+        _cluster_boards(survivors, holder, gens, plain, "failover")
+        emit({"phase": "cluster", "part": "failover", "card": card,
+              "victim": victim, "orphans": len(orphans),
+              "orphans_by_kernel": dict(Counter(kinds[s] for s in orphans)),
+              "kill_to_last_served_s": max(served.values()),
+              "kill_to_first_served_s": min(served.values()),
+              "failover_adopted": adopted, "failover_lost": lost,
+              "window_answers": {str(k): v for k, v in window.items()},
+              "dead_ticket_404": True,
+              "frames_equal_to_pre_kill": len(orphans)})
+        # 5. a drain: one survivor hands every session to the other
+        src, dst = survivors
+        before = {sid: gens[sid] for sid in sids}
+        t0 = time.perf_counter()
+        out = _req_json(src, "POST", "/cluster/drain")
+        drain_s = time.perf_counter() - t0
+        moved = sum(h == src for h in holder.values())
+        if not out["ok"] or out["handed_off"] != moved:
+            fail(f"the drain handed off {out['handed_off']} of {moved}: "
+                 f"{out['errors']}")
+        holder = _holders(survivors, sids)
+        lost_gens = 0
+        for sid in sids:
+            got = _req_json(src, "GET", f"/sessions/{sid}/density")
+            lost_gens += before[sid] - got["generation"]
+        if lost_gens or set(holder.values()) != {dst}:
+            fail(f"the drain lost {lost_gens} generations or left "
+                 f"sessions on {src}")
+        wall, _ = _cluster_turn({s: dst for s in sids}, sids, 1, n,
+                                [nodes[addrs.index(dst)]["proc"].pid])
+        for sid in sids:
+            gens[sid] += n
+        _cluster_boards([dst, src], holder, gens, plain, "drain")
+        launches = {a: _cluster_stop(nodes[addrs.index(a)])
+                    for a in survivors}
+        total = Counter()
+        for c in launches.values():
+            total.update(c)
+        if not all(total[k] for k in ("K1", "K2", "K3")):
+            fail(f"the surviving nodes launched {dict(total)}")
+        emit({"phase": "cluster", "part": "drain", "card": card,
+              "from": src, "to": dst, "handed_off": moved,
+              "drain_s": drain_s, "lost_generations": 0,
+              "steps_after_drain_wall_s": wall,
+              "boards_equal_to_plain": len(sids),
+              "survivor_launches": launches})
+        # the offline scrub over the shared state dir: verify, repair,
+        # verify clean
+        scrub = [sys.executable, "-m", "mpi_tpu_torch.serve.scrub", state]
+        first = subprocess.run(scrub, cwd=ROOT, capture_output=True,
+                               text=True, timeout=300)
+        repaired = None
+        if first.returncode == 1:
+            repaired = subprocess.run(scrub + ["--repair"], cwd=ROOT,
+                                      capture_output=True, text=True,
+                                      timeout=300)
+            if repaired.returncode != 0:
+                fail(f"the scrub could not repair the state dir: "
+                     f"{repaired.stdout[-800:]}")
+        elif first.returncode != 0:
+            fail(f"the scrub failed: {first.stderr[-800:]}")
+        final = subprocess.run(scrub + ["--json"], cwd=ROOT,
+                               capture_output=True, text=True, timeout=300)
+        report = json.loads(final.stdout) if final.returncode == 0 else {}
+        if not report.get("clean"):
+            fail(f"the state dir is not clean after the scrub: "
+                 f"{final.stdout[-800:]}")
+        emit({"phase": "cluster", "part": "scrub", "card": card,
+              "first_exit": first.returncode,
+              "first_issues": first.stdout.count("issue:"),
+              "repaired": (repaired.stdout.count("repaired:")
+                           if repaired is not None else 0),
+              "records_ok": report["records_ok"],
+              "journals_ok": report["journals_ok"], "clean": True,
+              "phase_s": time.perf_counter() - t_phase})
+    except SystemExit:
+        for node in nodes:             # what the nodes said, for the failure
+            node["err"].seek(0)
+            print(f"chip_smoke: node {node['addr']} stderr: "
+                  f"{node['err'].read()[-1500:]}", file=sys.stderr)
+        raise
+    finally:
+        for node in nodes:
+            if node["proc"].poll() is None:
+                node["proc"].kill()
+                node["proc"].wait(60)
+            node["proc"].stdout.close()
+            node["err"].close()
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     card = phase0_card()
     seconds, t0 = {}, time.perf_counter()
@@ -3413,6 +4004,8 @@ def main() -> int:
     lap("obs_native")
     phase8_front(card, times)
     lap("front")
+    phase9_cluster(card)
+    lap("cluster")
     emit({"phase": "seconds", **seconds})
     k1 = times["K1", MAIN_GENS]
     k2 = times["K2", DENSE_PATH[2]]

@@ -22,7 +22,8 @@ Decision flow for one step request, armed:
    ceiling) and calls ``manager.admission_check``;
 2. the shedder answers first (a critical SLO drops low classes before
    quota math runs), then the quota gate charges the CostCard
-   *estimate* against the window's *settled* spend;
+   *estimate* against the window's *settled* spend — cluster-wide when
+   gossiping;
 3. a rejection raises :class:`AdmissionReject` before any device work:
    no ``device_dispatch`` span, no ledger debit, a 429 with Retry-After
    and an ``admission_reject`` trace event;
@@ -31,14 +32,14 @@ Decision flow for one step request, armed:
 
 The estimate is the port's own: the engine's cost cards count K1-K3's
 instructions (``obs/cost.py:capture_card``), divided by the card's int32
-instruction rate (``obs/cost.py:roof_ops_per_s``).  Off the card, with
-``MPI_TPU_ROOF_OPS_PER_S`` unset, there is no roof, and the estimate is 0
-device-seconds, as for an engine with no card yet: an unknown cost admits
-rather than guessing.  No TPU roof is carried over as a default.
+instruction rate (``obs/cost.py:roof_ops_per_s``: ``MPI_TPU_ROOF_OPS_PER_S``,
+else the card's own rate, else the H100 roof this repo measured).  An
+engine with no card yet has no cost card, and its estimate is 0
+device-seconds: an unknown cost admits rather than guessing.
 
-Cluster-wide quotas (``attach_cluster``, gossiped window snapshots) come
-with the cluster package (ROADMAP queue 1 item 11c); until then
-``QuotaGate.remote_spend`` stays None and every quota is this process's.
+In cluster mode (``attach_cluster``) each quota gates against the
+cluster-wide spend: this process's books plus the peers' gossiped window
+snapshots.
 """
 
 from __future__ import annotations
@@ -113,13 +114,9 @@ class AdmissionControl:
 
     def estimate(self, session, steps: int) -> Tuple[float, int]:
         """(device-seconds, cells) the request is expected to cost: the
-        cards' instructions over the card's roof.  With no roof (off the
-        card, ``MPI_TPU_ROOF_OPS_PER_S`` unset) the device-seconds are 0
-        — unknown, so admitted (see the module doc)."""
+        cards' instructions over the roof (see the module doc)."""
         est_cells = int(steps) * session.config.cells
-        roof = roof_ops_per_s()
-        ops = self.estimate_ops(session, steps)
-        est_device_s = ops / roof if roof and ops else 0.0
+        est_device_s = self.estimate_ops(session, steps) / roof_ops_per_s()
         return est_device_s, est_cells
 
     # -- decisions ---------------------------------------------------
@@ -204,6 +201,14 @@ class AdmissionControl:
             self.bind_metrics(self.obs.metrics)
 
     # -- read-outs ---------------------------------------------------
+
+    def attach_cluster(self, node) -> None:
+        """Quotas become cluster-wide: admit against local + gossiped
+        peer window spend (exact sums — latest snapshot per node)."""
+        self.gate.remote_spend = node.tenant_spend
+
+    def window_snapshot(self) -> Dict[str, dict]:
+        return self.gate.window_snapshot()
 
     def bind_metrics(self, m) -> None:
         """The four admission families, registered only when armed (an

@@ -1,4 +1,4 @@
-"""Sliding-window quota accounting in ledger currency .
+"""Sliding-window quota accounting in ledger currency.
 
 The ``QuotaGate`` answers one question — *may this tenant spend an
 estimated (device-seconds, cells) right now?* — against what the tenant
@@ -8,12 +8,14 @@ charge (so the window holds real spend, not guesses).  Rejections carry
 a Retry-After computed from the window itself: the instant at which
 enough settled charges age out for the estimate to fit.
 
-Cluster mode (ROADMAP queue 1 item 11c) will add the peers' gossiped
-spend through ``remote_spend``; until then it is None and ``admit``
-charges this process's spend only.
+Cluster mode: each node gossips its local window snapshot (exact sums,
+the ``merge_totals`` discipline — latest snapshot per node, never
+deltas), and ``admit`` charges the estimate against *cluster-wide*
+spend by adding a remote-spend callable the cluster node installs.
 
 Thread-safety: one lock around the books.  ``charge`` runs on dispatch
-threads (via the ledger hook), ``admit`` on request threads.
+threads (via the ledger hook), ``admit`` on request threads, and
+``window_snapshot`` on the gossip thread.
 """
 
 from __future__ import annotations
@@ -59,8 +61,8 @@ class QuotaGate:
         self._totals: Dict[str, list] = {}      # tenant -> [device_s, cells]
         # sid -> tenant, for session caps and settlement attribution
         self._sid_tenant: Dict[str, str] = {}
-        # cluster hook (item 11c): tenant -> (device_s, cells, sessions)
-        # across peers; None in a single process
+        # cluster hook: tenant -> (device_s, cells, sessions) across
+        # peers; None in a single process
         self.remote_spend: Optional[Callable[[str], Tuple[float, int, int]]] \
             = None
 
@@ -188,3 +190,25 @@ class QuotaGate:
                 if freed_s >= need_device_s and freed_cells >= need_cells:
                     return max(0.0, t + window_s - now)
         return window_s
+
+    # -- gossip ------------------------------------------------------
+
+    def window_snapshot(self) -> Dict[str, dict]:
+        """This node's current window spend per tenant, for the gossip
+        digest.  A full (absolute) snapshot, not a delta — peers keep
+        only the latest per node, so sums stay exact under replay."""
+        now = self.clock()
+        out: Dict[str, dict] = {}
+        with self._lock:
+            live: Dict[str, int] = {}
+            for t in self._sid_tenant.values():
+                live[t] = live.get(t, 0) + 1
+            for tenant in set(self._events) | set(live):
+                self._prune(tenant, now)
+                tot = self._totals.get(tenant) or (0.0, 0)
+                out[tenant] = {
+                    "device_s": tot[0],
+                    "cells": tot[1],
+                    "sessions": live.get(tenant, 0),
+                }
+        return out

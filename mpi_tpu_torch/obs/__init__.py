@@ -458,8 +458,6 @@ class Obs:
             )
 
             roof = roof_ops_per_s()
-            if roof is None:
-                return []           # off the card there is no roof
             rows = ledger.signature_rows()
             out = []
             seen = set()

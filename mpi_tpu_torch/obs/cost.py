@@ -65,18 +65,26 @@ def device_roof_ops_per_s(index: int = 0) -> Optional[float]:
     return float(props.multi_processor_count * lanes * khz * 1e3)
 
 
-def roof_ops_per_s() -> Optional[float]:
+# the roof off the card (or on an architecture missing from
+# INT32_LANES_PER_SM): the int32 rate chip_smoke.py phase 7 read on an
+# NVIDIA H100 80GB HBM3 at a 700 W power limit, 132 SMs x 64 lanes x
+# 1.98 GHz.  A CPU readout then reads as a fraction of that card's roof.
+DEFAULT_ROOF_OPS_PER_S = 16727040000000.0
+
+
+def roof_ops_per_s() -> float:
     """The ops/s roof the live roofline-efficiency readout divides by:
     ``MPI_TPU_ROOF_OPS_PER_S`` when set (a roof measured for THIS box),
-    else the card's int32 instruction rate (:func:`device_roof_ops_per_s`);
-    None off the card, where the readouts that need it are left out."""
+    else the card's int32 instruction rate (:func:`device_roof_ops_per_s`),
+    else :data:`DEFAULT_ROOF_OPS_PER_S`."""
     raw = os.environ.get("MPI_TPU_ROOF_OPS_PER_S")
     if raw:
         try:
             return float(raw)
         except ValueError:
             pass
-    return device_roof_ops_per_s()
+    roof = device_roof_ops_per_s()
+    return roof if roof is not None else DEFAULT_ROOF_OPS_PER_S
 
 
 @dataclass(frozen=True)

@@ -62,8 +62,8 @@ IO_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
 # instrumented scrape; the others only where their layer runs or is armed:
 # ``aio`` with the selectors front, ``admission`` with ``--admission``,
 # ``slo`` with ``--telemetry-interval-s``, ``flight`` with
-# ``--flight-recorder``/``--anomaly-detect``.  The reference's cluster
-# families come with ROADMAP queue 1 item 11c.
+# ``--flight-recorder``/``--anomaly-detect``, ``cluster`` in cluster mode
+# (``--peers``, ``mpi_tpu_torch/cluster/node.py:_bind_metrics``).
 FAMILIES: Dict[str, Tuple[str, ...]] = {
     "core": (
         "mpi_tpu_active_fraction", "mpi_tpu_active_tiles",
@@ -111,6 +111,13 @@ FAMILIES: Dict[str, Tuple[str, ...]] = {
         "mpi_tpu_device_memory_bytes", "mpi_tpu_dispatch_anomalies_total",
         "mpi_tpu_engine_cache_entries", "mpi_tpu_flight_dropped_total",
         "mpi_tpu_flight_records_total", "mpi_tpu_halo_exchange_seconds",
+    ),
+    "cluster": (
+        "mpi_tpu_cluster_drain_sessions_total", "mpi_tpu_cluster_epoch",
+        "mpi_tpu_cluster_failover_sessions_total",
+        "mpi_tpu_cluster_gossip_total",
+        "mpi_tpu_cluster_membership_changes_total", "mpi_tpu_cluster_peers",
+        "mpi_tpu_routing_table_resets_total",
     ),
 }
 

@@ -40,8 +40,10 @@ core — the default threaded server (``serve/httpd.py:make_server``) and a
 selectors event loop (``serve/aio.py:make_aio_server``, ``--front aio``)
 that parks idle ticket waiters as sockets and pushes binary frames on
 ``GET /stream/<sid>``.  ``python -m mpi_tpu_torch.cli serve`` runs either
-(``serve/cli.py``).  The reference's cluster mode comes with ROADMAP
-queue 1 item 11c.
+(``serve/cli.py``); with ``--peers`` several such processes serve as one
+cluster (``mpi_tpu_torch/cluster``: sticky routing, one proxy hop,
+gossip, failover and drain over a shared ``--state-dir``), and
+``python -m mpi_tpu_torch.serve.scrub`` verifies a state dir offline.
 """
 
 from mpi_tpu_torch.serve.batch import MicroBatcher

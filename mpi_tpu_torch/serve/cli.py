@@ -24,9 +24,15 @@ The flags and their help are the reference's (``mpi_tpu/serve/cli.py``),
 with ``--device {cuda,cpu}`` in place of its platform override: sessions
 step on the card (K1-K3) unless ``--device cpu`` asks for the kernels'
 plain versions, and a box without CUDA refuses to serve rather than fall
-back.  Two groups of flags are kept but refused with exit status 2 until
-their packages are ported: ``--tune-cache`` (ROADMAP queue 1 item 12) and
-the cluster flags (``--peers`` ... ``--proxy-timeout-s``, item 11c).
+back.  ``--tune-cache`` is kept but refused with exit status 2 until the
+tuner is ported (ROADMAP queue 1 item 12).
+
+Cluster mode (``--peers`` / ``--peers-file``) is the reference's: N
+processes, each on the card, serve as one logical service over a shared
+``--state-dir``::
+
+    python -m mpi_tpu_torch.cli serve --port 8001 --state-dir D \
+        --peers 127.0.0.1:8002,127.0.0.1:8003
 """
 
 from __future__ import annotations
@@ -35,13 +41,6 @@ import argparse
 import os
 import sys
 from typing import List, Optional
-
-
-# the reference's cluster flags (ROADMAP queue 1 item 11c): kept so a
-# reference command line parses, refused with exit status 2 when given
-CLUSTER_FLAGS = ("peers", "peers_file", "advertise", "gossip_interval_s",
-                 "peer_timeout_s", "peer_down_s", "peer_dead_s",
-                 "proxy_retries", "proxy_backoff_ms", "proxy_timeout_s")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -227,43 +226,39 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-socket write-buffer bound for /stream "
                    "consumers; a slower consumer gets drop-to-latest "
                    "frames instead of an unbounded queue")
-    g = p.add_argument_group(
-        "cluster", "the reference's cluster mode; not in this port yet "
-        "(ROADMAP queue 1 item 11c): giving any of these exits with "
-        "status 2")
-    g.add_argument("--peers", default=None, metavar="HOST:PORT,...",
+    p.add_argument("--peers", default=None, metavar="HOST:PORT,...",
                    help="comma-separated peer serving addresses; setting "
                    "this (or --peers-file) turns on cluster mode: sticky "
                    "session routing, gossip, and cluster roll-ups on "
                    "/usage and /healthz.  Unset: single-process serving, "
                    "bit-identical to pre-cluster builds")
-    g.add_argument("--peers-file", default=None, metavar="PATH",
+    p.add_argument("--peers-file", default=None, metavar="PATH",
                    help="seed-peer file, one host:port per line "
                    "('#' comments allowed); merged with --peers")
-    g.add_argument("--advertise", default=None, metavar="HOST:PORT",
+    p.add_argument("--advertise", default=None, metavar="HOST:PORT",
                    help="the address peers reach THIS process at (the "
                    "node id); defaults to the bound host:port, which is "
                    "only right when peers share the host")
-    g.add_argument("--gossip-interval-s", type=float, default=None,
+    p.add_argument("--gossip-interval-s", type=float, default=1.0,
                    help="seconds between gossip rounds; peer-down and "
                    "breaker-quarantine TTL default to 3x this")
-    g.add_argument("--peer-timeout-s", type=float, default=None,
+    p.add_argument("--peer-timeout-s", type=float, default=5.0,
                    help="socket timeout for proxied requests and gossip "
                    "sends to a peer")
-    g.add_argument("--peer-down-s", type=float, default=None,
+    p.add_argument("--peer-down-s", type=float, default=None,
                    help="heartbeat silence before a peer is reported "
                    "down/suspect (default 3x the gossip interval)")
-    g.add_argument("--peer-dead-s", type=float, default=None,
+    p.add_argument("--peer-dead-s", type=float, default=None,
                    help="heartbeat silence before a peer is CONFIRMED "
                    "dead: removed from the ring, its sessions adopted "
                    "from the shared --state-dir (default 3x --peer-down-s)")
-    g.add_argument("--proxy-retries", type=int, default=None,
+    p.add_argument("--proxy-retries", type=int, default=2,
                    help="retries (doubling backoff) for an unreachable "
                    "peer on idempotent proxied verbs (GET); "
                    "non-idempotent verbs always fail fast")
-    g.add_argument("--proxy-backoff-ms", type=float, default=None,
+    p.add_argument("--proxy-backoff-ms", type=float, default=50.0,
                    help="initial proxy retry backoff, doubling per attempt")
-    g.add_argument("--proxy-timeout-s", type=float, default=None,
+    p.add_argument("--proxy-timeout-s", type=float, default=None,
                    help="socket timeout per proxy hop attempt "
                    "(default: --peer-timeout-s)")
     return p
@@ -275,11 +270,6 @@ def _refusal(args) -> Optional[str]:
     if args.tune_cache is not None:
         return ("--tune-cache: autotuned plans are not in this port yet "
                 "(ROADMAP queue 1 item 12)")
-    given = [f for f in CLUSTER_FLAGS if getattr(args, f) is not None]
-    if given:
-        names = ", ".join("--" + f.replace("_", "-") for f in given)
-        return (f"{names}: cluster mode is not in this port yet "
-                f"(ROADMAP queue 1 item 11c)")
     return None
 
 
@@ -301,6 +291,7 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     faults = args.inject_faults or os.environ.get("MPI_TPU_FAULTS") or None
+    cluster_mode = (args.peers is not None or args.peers_file is not None)
     obs = None
     if not args.no_obs:
         from mpi_tpu_torch.obs import Obs
@@ -332,6 +323,9 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
             faults=faults,
             obs=obs,
             device=args.device,
+            # cluster mode shares --state-dir across nodes: restore is
+            # deferred to attach_cluster, which takes only owned records
+            defer_restore=cluster_mode and args.state_dir is not None,
         )
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
@@ -408,6 +402,49 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
                              profile_dir=args.profile_dir,
                              max_body=args.http_max_body)
     host, port = server.server_address[:2]
+    node = None
+    if cluster_mode:
+        import socket
+
+        from mpi_tpu_torch.cluster import ClusterNode
+
+        peers: List[str] = []
+        if args.peers:
+            peers += [a.strip() for a in args.peers.split(",") if a.strip()]
+        if args.peers_file:
+            try:
+                with open(args.peers_file) as f:
+                    for line in f:
+                        line = line.split("#", 1)[0].strip()
+                        if line:
+                            peers.append(line)
+            except OSError as e:
+                print(f"error: --peers-file: {e}", file=sys.stderr)
+                server.server_close()
+                return 2
+        advertise = args.advertise or f"{host}:{port}"
+        try:
+            node = ClusterNode(advertise, peers, manager,
+                               interval_s=args.gossip_interval_s,
+                               timeout_s=args.peer_timeout_s,
+                               down_after_s=args.peer_down_s,
+                               dead_after_s=args.peer_dead_s,
+                               proxy_retries=args.proxy_retries,
+                               proxy_backoff_s=args.proxy_backoff_ms / 1e3,
+                               proxy_timeout_s=args.proxy_timeout_s,
+                               state_dir=args.state_dir, obs=obs)
+        except ValueError as e:        # ConfigError included
+            print(f"error: {e}", file=sys.stderr)
+            server.server_close()
+            return 2
+        manager.attach_cluster(node)
+        server.core.cluster = node
+        if obs is not None:
+            # cluster scrapes are federated: every sample carries the
+            # process identity (single-process mode never sets these)
+            obs.metrics.set_const_labels(
+                {"host": socket.gethostname(), "process": advertise})
+        node.start()
     batch = ("off" if args.no_batch else
              f"window {args.batch_window_ms}ms max {args.batch_max}")
     extras = []
@@ -440,6 +477,9 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
         extras.append(f"device {args.device}")
     if args.front != "threaded":
         extras.append(f"front {args.front} ({args.aio_workers} workers)")
+    if node is not None:
+        extras.append(f"cluster {node.id} tag {node.tag} "
+                      f"peers {len(node.peers)}")
     extra = (", " + ", ".join(extras)) if extras else ""
     print(f"[mpi_tpu] serving on http://{host}:{port} "
           f"(cache size {args.cache_size}, batch {batch}{extra})", flush=True)
@@ -448,6 +488,8 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
     except KeyboardInterrupt:
         print("[mpi_tpu] shutting down", flush=True)
     finally:
+        if node is not None:
+            node.stop()
         server.server_close()
         if obs is not None:
             obs.close()                 # flush + fsync the trace log

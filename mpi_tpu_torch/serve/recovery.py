@@ -880,6 +880,13 @@ class StateStore:
             self.delete(sid)
             self._io_ok(None)
 
+    def forget(self, sid: str) -> None:
+        """Drop in-memory chain state without touching disk (the drain
+        handoff: the successor restores from the durable record)."""
+        with self._lock:
+            self._jrn.pop(sid, None)
+            self._pending.discard(sid)
+
     # -- read path ---------------------------------------------------------
 
     def _quarantine(self, path: str, sid: str, reason: str) -> None:
@@ -1080,3 +1087,184 @@ def _sid_ordinal(sid: str) -> int:
     m = re.match(r"s(\d+)", sid)
     return int(m.group(1)) if m else 1 << 30
 
+
+# -- offline verification (python -m mpi_tpu_torch.serve.scrub) --------
+
+
+def _snapshot_issue(rec: dict) -> Optional[str]:
+    """Validate a decoded record's snapshot payload beyond the CRC —
+    in particular the shard-dimension layout (each shard's base64
+    packed bytes must match its declared geometry), so a scrub of a
+    post-kill state dir verifies per-shard records all the way down."""
+    snap = rec.get("snapshot")
+    if snap is None:
+        return None
+    try:
+        rows, cols = int(snap["rows"]), int(snap["cols"])
+        if "shards" in snap:
+            for sh in snap["shards"]:
+                r0, c0 = int(sh["r0"]), int(sh["c0"])
+                tr, tc = int(sh["rows"]), int(sh["cols"])
+                if tr < 1 or tc < 1 or r0 + tr > rows or c0 + tc > cols:
+                    return (f"shard {tr}x{tc}@({r0},{c0}) escapes the "
+                            f"{rows}x{cols} board")
+                need = (tr * tc + 7) // 8
+                got = len(base64.b64decode(sh["packed"]))
+                if got != need:
+                    return (f"shard @({r0},{c0}) packed length {got} "
+                            f"disagrees with geometry {tr}x{tc} "
+                            f"(expected {need})")
+        else:
+            need = (rows * cols + 7) // 8
+            got = len(base64.b64decode(snap["packed"]))
+            if got != need:
+                return (f"snapshot packed length {got} disagrees with "
+                        f"geometry {rows}x{cols} (expected {need})")
+    except (KeyError, TypeError, ValueError) as e:
+        return f"malformed snapshot: {e}"
+    return None
+
+
+def _journal_entry_issue(kind: int, payload: bytes) -> Optional[str]:
+    """Shape-validate one CRC-verified journal entry the way replay
+    would — scrub's structural check over the shard-aware kinds."""
+    if kind == _J_SHARD:
+        if len(payload) < _SHARD_HEAD.size:
+            return "shard entry shorter than its head"
+        brows, bcols, r0, c0, srows, scols = _SHARD_HEAD.unpack_from(payload)
+        nbytes = (srows * scols + 7) // 8
+        if srows < 1 or scols < 1 or r0 + srows > brows or c0 + scols > bcols:
+            return (f"shard entry {srows}x{scols}@({r0},{c0}) escapes the "
+                    f"{brows}x{bcols} board")
+        if len(payload) != _SHARD_HEAD.size + nbytes:
+            return (f"shard entry payload {len(payload)} disagrees with "
+                    f"geometry {srows}x{scols}")
+    elif kind not in _J_KINDS:
+        return f"unknown journal entry kind {kind}"
+    return None
+
+
+def scan_state_dir(state_dir: str, repair: bool = False) -> dict:
+    """Walk every record (head + ancestors) and journal under
+    ``state_dir``, verify each CRC frame, and report.  ``repair=True``
+    truncates torn journal tails back to the last durable entry and
+    quarantines corrupt records to ``<sid>.corrupt-<n>``.  The offline
+    half of the durability story — ``mpi_tpu_torch/serve/scrub.py`` is
+    its CLI."""
+    report = {
+        "state_dir": state_dir,
+        "records_ok": 0,
+        "records_corrupt": 0,
+        "journals_ok": 0,
+        "journal_entries": 0,
+        "shard_entries": 0,
+        "torn_tails": 0,
+        "stale_tmp": 0,
+        "quarantined": [],
+        "repaired": [],
+        "issues": [],
+    }
+    try:
+        names = sorted(os.listdir(state_dir))
+    except FileNotFoundError:
+        report["issues"].append(f"state dir {state_dir} does not exist")
+        return report
+    for name in names:
+        path = os.path.join(state_dir, name)
+        if ".tmp" in name:
+            report["stale_tmp"] += 1
+            report["issues"].append(f"{name}: stale tmp file")
+            if repair:
+                try:
+                    os.remove(path)
+                    report["repaired"].append(name)
+                except OSError:
+                    pass
+            continue
+        if name.startswith("routing-") and name.endswith(".json"):
+            # per-node routing tables share the dir but are plain JSON
+            # owned by the cluster layer (which self-heals a corrupt
+            # one by rebuilding from gossip) — verify parseability,
+            # never judge them against the record envelope
+            try:
+                with open(path, "rb") as f:
+                    json.loads(f.read().decode("utf-8"))
+            except OSError as e:
+                report["issues"].append(f"{name}: unreadable ({e})")
+            except (ValueError, UnicodeDecodeError):
+                report["issues"].append(
+                    f"{name}: unparseable routing table (the serving "
+                    f"node rebuilds it from gossip; --repair "
+                    f"quarantines it)")
+                if repair:
+                    qname = f"{name}.corrupt"
+                    try:
+                        os.replace(path, os.path.join(state_dir, qname))
+                        report["repaired"].append(f"{name} -> {qname}")
+                    except OSError:
+                        pass
+            continue
+        if name.endswith(".json") or re.search(r"\.json\.\d+$", name):
+            try:
+                with open(path, "rb") as f:
+                    rec = _rec_decode(f.read())
+                issue = _snapshot_issue(rec)
+                if issue is not None:
+                    raise RecordCorrupt(issue)
+                report["records_ok"] += 1
+            except OSError as e:
+                report["issues"].append(f"{name}: unreadable ({e})")
+            except RecordCorrupt as e:
+                report["records_corrupt"] += 1
+                report["issues"].append(f"{name}: {e}")
+                if repair:
+                    base = re.sub(r"\.json(\.\d+)?$", "", name)
+                    n = 1
+                    while os.path.exists(
+                            os.path.join(state_dir,
+                                         f"{base}.corrupt-{n}")):
+                        n += 1
+                    qname = f"{base}.corrupt-{n}"
+                    try:
+                        os.replace(path,
+                                   os.path.join(state_dir, qname))
+                        report["quarantined"].append(name)
+                        report["repaired"].append(f"{name} -> {qname}")
+                    except OSError:
+                        pass
+        elif name.endswith(".journal") or re.search(r"\.journal\.\d+$",
+                                                    name):
+            try:
+                with open(path, "rb") as f:
+                    raw = f.read()
+            except OSError as e:
+                report["issues"].append(f"{name}: unreadable ({e})")
+                continue
+            entries, good, torn = _jrn_scan(raw)
+            report["journal_entries"] += len(entries)
+            for kind, _gen, payload in entries:
+                if kind == _J_SHARD:
+                    report["shard_entries"] += 1
+                issue = _journal_entry_issue(kind, payload)
+                if issue is not None:
+                    report["issues"].append(f"{name}: {issue}")
+            if torn:
+                report["torn_tails"] += 1
+                report["issues"].append(
+                    f"{name}: torn tail ({len(raw) - good} bytes after "
+                    f"entry {len(entries)})")
+                if repair:
+                    try:
+                        with open(path, "r+b") as f:
+                            f.seek(good)
+                            f.truncate()
+                            f.flush()
+                            os.fsync(f.fileno())
+                        report["repaired"].append(
+                            f"{name}: truncated to {good} bytes")
+                    except OSError:
+                        pass
+            else:
+                report["journals_ok"] += 1
+    report["clean"] = not report["issues"]
+    return report

@@ -67,8 +67,9 @@ happened: ``obs=None`` runs the uninstrumented path, and obs never changes
 which device or engine steps a board.  Autotuned plans are ROADMAP item 12
 (the manager refuses ``tune_cache``).  Admission
 (``mpi_tpu_torch/admission``, ``AdmissionControl.arm``) sets
-``manager.admission``; the cluster seam (ROADMAP item 11c) stays as the
-reference has it, a no-op while unset.  Step listeners
+``manager.admission``; cluster mode (``attach_cluster``,
+``mpi_tpu_torch/cluster``) sets ``manager.cluster``, and every cluster
+seam is a no-op while it is unset.  Step listeners
 (``add_step_listener``, the aio front's streams) run after each committed
 step, once the device has finished it.
 """
@@ -363,6 +364,7 @@ class SessionManager:
                  faults=None,
                  obs=None,
                  tune_cache=None,
+                 defer_restore: bool = False,
                  device=None):
         self.obs = obs                  # mpi_tpu_torch.obs.Obs or None (off)
         if tune_cache is not None:
@@ -392,8 +394,9 @@ class SessionManager:
         self._listeners_lock = threading.Lock()
         self._lock = threading.Lock()
         self._next = 0
-        # cluster membership (ROADMAP item 11c): None means
-        # single-process mode — every cluster seam below is a no-op
+        # cluster membership (mpi_tpu_torch/cluster): None means
+        # single-process mode — every cluster seam below is a no-op and
+        # the behavior is bit-identical to the single-process stack
         self.cluster = None
         # admission control (mpi_tpu_torch.admission, set by
         # AdmissionControl.arm): None keeps every admission seam a no-op
@@ -448,10 +451,98 @@ class SessionManager:
         self._last_dispatch_ok: Optional[float] = None
         if self.obs is not None:
             self.obs.bind_manager(self)
-        if self.store is not None:
+        # defer_restore: cluster mode shares --state-dir across nodes, so
+        # boot must NOT slurp every record — attach_cluster restores only
+        # the sessions this node owns under the current ring
+        if self.store is not None and not defer_restore:
             self._restore_all()
 
     # -- lifecycle ---------------------------------------------------------
+
+    def attach_cluster(self, node) -> None:
+        """Join a cluster (``mpi_tpu_torch/cluster``): session ids and
+        ticket ids gain the node's tag so any front can route them, and
+        ``usage()``/``slo()``/``health()`` grow their ``cluster`` roll-up
+        blocks.  Called once at serve startup, before traffic."""
+        self.cluster = node
+        if self.dispatcher is not None:
+            self.dispatcher.id_suffix = f"@{node.tag}"
+        if self.admission is not None:
+            # quotas become cluster-wide: admit against gossiped peer
+            # window spend, not this node's slice
+            self.admission.attach_cluster(node)
+        if self.store is not None:
+            self._restore_owned(node)
+            node.sync_local_sessions()
+
+    def _restore_owned(self, node) -> None:
+        """The cluster half of boot restore (the state dir is shared):
+        restore only the records this node owns — its own tag's sids
+        plus anything the ring or a learned route places here.  Runs
+        before traffic, so placement cannot move mid-restore."""
+        held = set(self.session_ids())
+        for rec in self.store.load_records():
+            sid = rec["id"]
+            if sid in held or node.owner_addr(sid) != node.id:
+                continue
+            try:
+                self._restore_one(rec)
+            except Exception as e:  # noqa: BLE001 — salvage the rest
+                self.restore_errors += 1
+                print(f"note: could not restore session {sid!r}: "
+                      f"{type(e).__name__}: {e}", file=sys.stderr)
+        if self.restored_sessions:
+            print(f"[mpi_tpu_torch] restored {self.restored_sessions} "
+                  f"session(s) from {self.store.state_dir}", file=sys.stderr)
+
+    def adopt_session(self, sid: str) -> bool:
+        """Failover/drain adoption: restore one session from the shared
+        state dir via the deterministic replay path (on the card for a
+        ``cuda`` session: the replay steps K1-K3).  True when the
+        session is (now) live here; False when there is nothing to adopt
+        (no record — the session was closed, or its checkpoint was lost
+        with the dead node's local disk) or the replay failed."""
+        with self._lock:
+            if sid in self._sessions:
+                return True             # already here (re-delivered adopt)
+        if self.store is None:
+            return False
+        rec = self.store.load_record(sid)
+        if rec is None:
+            return False
+        try:
+            t0 = time.perf_counter()
+            self._restore_one(rec)
+            if self.obs is not None:
+                self.obs.event("session_adopt",
+                               time.perf_counter() - t0, t0, sid=sid,
+                               generation=int(rec["generation"]))
+        except Exception as e:  # noqa: BLE001 — count, report un-adopted
+            self.restore_errors += 1
+            print(f"note: could not adopt session {sid!r}: "
+                  f"{type(e).__name__}: {e}", file=sys.stderr)
+            return False
+        return True
+
+    def release(self, sid: str) -> None:
+        """Drop a session locally WITHOUT deleting its durable record —
+        the drain handoff: the successor restores from that record, so
+        close()'s delete would lose the session.  Raises ``KeyError``
+        for unknown sids."""
+        with self._lock:
+            session = self._sessions.pop(sid, None)
+        if session is None:
+            raise KeyError(sid)
+        with session.lock:
+            session.closed = True
+            session.grid = None
+            session.engine = None
+        if self.admission is not None:
+            self.admission.gate.drop_session(sid)
+        if self.store is not None:
+            # drop in-memory journal state only — the durable chain is
+            # the successor's restore source
+            self.store.forget(sid)
 
     def shutdown(self, timeout_s: float = 30.0) -> None:
         """Stop the async dispatch loop and wait (up to ``timeout_s`` in
@@ -466,7 +557,8 @@ class SessionManager:
 
     def checkpoint_now(self, sid: str) -> None:
         """Force a full-snapshot checkpoint at the session's CURRENT
-        generation (the degraded store's retry path).  Raises
+        generation (the drain path: the adopter must replay zero
+        generations; and the degraded store's retry path).  Raises
         ``KeyError`` for unknown sids."""
         session = self.get(sid)
         if self.store is None:
@@ -483,8 +575,8 @@ class SessionManager:
                 grid_np = session.engine.fetch(session.grid)
             else:
                 grid_np = np.asarray(session.grid, dtype=np.uint8)
-            # a recovery checkpoint MUST land or visibly fail: the
-            # caller keeps the session pending until it does
+            # a drain/recovery checkpoint MUST land or visibly fail —
+            # the caller decides whether to hand the session off
             self._persist(session, grid_np, raise_errors=True)
 
     def persistence_retry(self) -> None:
@@ -1725,8 +1817,8 @@ class SessionManager:
         """The usage payload (the reference's ``GET /usage``): ledger
         totals, per-session rows, and per-signature rows joined with each
         live engine's cost cards and a roofline readout (achieved cells/s
-        over the cost-model bound, present only where there is a roof:
-        on the card, or with ``MPI_TPU_ROOF_OPS_PER_S``).  Raises
+        over the cost-model bound; ``obs/cost.py:roof_ops_per_s`` always
+        has a roof).  Raises
         :class:`RuntimeError` when obs is off.
 
         The ledger is process-local: a restart (or restore-from-
@@ -1755,8 +1847,7 @@ class SessionManager:
                     cards, eng.config.cells)
                 if getattr(eng, "tuned_plan", None):
                     row["tuned_plan"] = dict(eng.tuned_plan)
-                if (roof is not None and ops_per_cell is not None
-                        and row["device_s"] > 0):
+                if ops_per_cell is not None and row["device_s"] > 0:
                     bound = roof / ops_per_cell
                     achieved = row["cells"] / row["device_s"]
                     row["roofline"] = {

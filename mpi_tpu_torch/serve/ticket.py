@@ -146,9 +146,9 @@ class AsyncDispatcher:
         self._done_order: deque = deque()           # resolved-ticket eviction
         self._completed_by_sid: Dict[str, int] = {}
         self._next = 0
-        # appended to every allocated ticket id ("@<node-tag>" in the
-        # reference's cluster mode, which ROADMAP item 11c brings; empty
-        # until then)
+        # appended to every allocated ticket id ("@<node-tag>" in
+        # cluster mode, set by SessionManager.attach_cluster; empty in a
+        # single process)
         self.id_suffix = ""
         self._thread: Optional[threading.Thread] = None
         self._stopping = False

@@ -35,16 +35,18 @@ over the bound answers a structured 413 *before any body byte is read*,
 and the connection is closed (the unread body makes keep-alive framing
 unrecoverable).
 
-The reference's cluster routing (sticky session placement, proxy hops,
-``/cluster/*`` and the trace fan-out to peers) comes with ROADMAP queue 1
-item 11c; until then ``AppCore.cluster`` stays None and every request is
-served by this process.
+In cluster mode (``AppCore.cluster``, set by the serve CLI after the
+socket binds) the core routes as the reference's does: sticky session
+placement, one proxy hop to the owner, ``/cluster/*`` and the trace
+fan-out to peers.  With ``cluster`` None every request is served by this
+process, byte for byte as without the cluster package.
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import sys
 import tempfile
@@ -54,6 +56,9 @@ from typing import Callable, List, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
 from mpi_tpu_torch.admission.quota import AdmissionReject, retry_after_header
+from mpi_tpu_torch.cluster.proxy import (
+    FORWARDED_HEADER, SESSION_ID_HEADER, PeerUnreachable, proxy_request,
+)
 from mpi_tpu_torch.config import ConfigError
 from mpi_tpu_torch.obs.trace import reset_request_id, set_request_id
 from mpi_tpu_torch.obs.tracectx import (
@@ -163,8 +168,9 @@ class AppCore:
         self.max_body = int(max_body)
         self.request_ids = itertools.count(1)
         self.obs = self.manager.obs
-        # cluster membership (ROADMAP queue 1 item 11c); None routes
-        # every request locally
+        # cluster membership (mpi_tpu_torch/cluster), attached by
+        # serve_main after the socket binds; None routes every request
+        # locally — the single-process behavior, byte-for-byte
         self.cluster = None
 
     # -- byte accounting (fronts call count_out for stream pushes too) -----
@@ -334,6 +340,13 @@ class AppCore:
             return "anomalies", None, None
         if len(parts) == 3 and parts[:2] == ["debug", "trace"]:
             return "trace", parts[2], None      # parts[2] is the trace id
+        if parts and parts[0] == "cluster":
+            # served only in cluster mode (self.cluster set); otherwise
+            # falls through _handle to the usual structured 404
+            if len(parts) == 1:
+                return "cluster", None, None
+            if len(parts) == 2:
+                return "cluster", None, parts[1]
         if len(parts) == 2 and parts[0] == "result":
             return "result", parts[1], None     # parts[1] is the ticket id
         if len(parts) == 2 and parts[0] == "stream":
@@ -460,6 +473,21 @@ class AppCore:
                          f"at most {self.max_body} (--http-max-body)",
                 "max_body": self.max_body,
             }, close=True)
+        cluster = self.cluster
+        forced_sid = None
+        if cluster is not None:
+            if kind == "cluster":
+                return self._cluster_endpoint(req, method, verb, transport)
+            if req.headers.get(FORWARDED_HEADER):
+                # one hop max: a forwarded request is served HERE even
+                # if routing views disagree — a stale table can cost a
+                # 404, never a proxy loop
+                forced_sid = req.headers.get(SESSION_ID_HEADER)
+            else:
+                routed, forced_sid = self._cluster_route(
+                    req, transport, kind, sid, method)
+                if routed is not None:
+                    return routed
         if kind == "metrics" and method == "GET":
             if obs is None:
                 return json_response(404, {
@@ -543,8 +571,11 @@ class AppCore:
                 # concurrency cap inside the manager
                 tenant = mgr.admission.resolve(
                     req.headers.get(TENANT_HEADER))
-            return json_response(200, mgr.create(body, timeout_s=timeout_s,
-                                                 tenant=tenant))
+            out = mgr.create(body, timeout_s=timeout_s, sid=forced_sid,
+                             tenant=tenant)
+            if cluster is not None:
+                cluster.record_route(out["id"])
+            return json_response(200, out)
         if kind == "result" and method == "GET" and sid is not None:
             result = mgr.ticket_result(
                 sid, wait=self._query_flag(req, "wait"),
@@ -641,6 +672,159 @@ class AppCore:
                     sid, timeout_s=self._timeout_override(req, {})))
         return json_response(404, {"error": f"no route {method} {req.path}"})
 
+    # -- cluster routing (mpi_tpu_torch/cluster; self.cluster is None outside
+    # cluster mode and none of this runs) ----------------------------------
+
+    def _cluster_endpoint(self, req: Request, method: str,
+                          verb: Optional[str], transport: str) -> Response:
+        cluster = self.cluster
+        if verb == "gossip" and method == "POST":
+            if cluster.inbound_cut("gossip"):
+                # the inbound half of an injected partition: refuse the
+                # digest exactly as a severed link would
+                return json_response(503, {
+                    "error": "gossip partition injected", "ok": False})
+            applied = cluster.apply_digest(self._body(req, transport))
+            # push-pull: the reply carries OUR digest, so one initiated
+            # round synchronizes both directions
+            return json_response(200, {"ok": True, "applied": applied,
+                                       "digest": cluster.digest()})
+        if verb == "join" and method == "POST":
+            addr = self._body(req, transport).get("node")
+            if not isinstance(addr, str) or not addr.strip():
+                raise ConfigError("join body needs a 'node' address")
+            try:
+                return json_response(200, cluster.handle_join(addr))
+            except ValueError as e:
+                raise ConfigError(f"bad join address {addr!r}: {e}")
+        if verb == "adopt" and method == "POST":
+            sids = self._body(req, transport).get("sids")
+            if not isinstance(sids, list):
+                raise ConfigError("adopt body needs a 'sids' list")
+            return json_response(200, cluster.handle_adopt(sids))
+        if verb == "drain" and method == "POST":
+            return json_response(200, cluster.drain())
+        if verb is None and method == "GET":
+            return json_response(200, cluster.info())
+        return json_response(404, {"error": f"no route {method} {req.path}"})
+
+    def _cluster_route(self, req: Request, transport: str, kind: str,
+                       sid: Optional[str], method: str):
+        """(response, forced_sid): a :class:`Response` when the request
+        belongs to a peer (proxied, or its failure mapped), else None
+        with the locally-allocated session id for the create path."""
+        cluster = self.cluster
+        if kind == "sessions" and method == "POST":
+            # the receiving front allocates the id, THEN places it — so
+            # the id's owner and the serving process always agree
+            new_sid = cluster.new_session_id()
+            owner = cluster.owner_addr(new_sid)
+            if owner == cluster.id:
+                return None, new_sid
+            resp = self._proxy_to(owner, req, transport,
+                                  extra={SESSION_ID_HEADER: new_sid},
+                                  missing=("session", new_sid))
+            if resp.code == 200:
+                # the placement decision was made HERE — record it here
+                # too, so the route outlives an owner that dies before
+                # its first gossip round spreads it (failover adoption
+                # scans the survivors' tables for the dead node's sids)
+                cluster.record_route(new_sid, owner)
+            return resp, None
+        if kind in ("session", "stream") and sid is not None:
+            owner = cluster.owner_addr(sid)
+            if owner == cluster.id:
+                return None, None
+            if kind == "stream":
+                # an open-ended push stream cannot be relayed hop-by-hop
+                # without a parked thread per frame; redirect the client
+                # to the owner instead
+                return Response(
+                    307, b"", "application/json",
+                    headers=[("Location",
+                              f"http://{owner}{req.path}")]), None
+            return self._proxy_to(owner, req, transport,
+                                  missing=("session", sid)), None
+        if kind == "result" and sid is not None:
+            owner = cluster.ticket_owner_addr(sid)
+            if owner is not None:
+                return self._proxy_to(owner, req, transport,
+                                      missing=("ticket", sid)), None
+            dead = cluster.dead_ticket_addr(sid)
+            if dead is not None:
+                # tickets are process-local and died with their owner;
+                # answer the exact structured 404 without a doomed hop
+                # (failover adoption restores sessions, never tickets)
+                return json_response(404, {"error": f"no ticket {sid!r}",
+                                           "peer": dead}), None
+        return None, None
+
+    def _proxy_to(self, owner: str, req: Request, transport: str,
+                  extra: Optional[dict] = None,
+                  missing: Optional[Tuple[str, str]] = None) -> Response:
+        """Forward one request to ``owner`` and relay its response
+        verbatim (the peer's structured errors ARE the answer)."""
+        cluster = self.cluster
+        raw = self._raw_body(req, transport)
+        headers = {FORWARDED_HEADER: cluster.id}
+        for name in ("Content-Type", "Accept", TENANT_HEADER, CLASS_HEADER):
+            # tenancy must survive the hop: the owning node runs the
+            # admission decision, and it needs the caller's headers
+            value = req.headers.get(name)
+            if value:
+                headers[name] = value
+        if raw:
+            headers["Content-Length"] = str(len(raw))
+        headers.update(extra or {})
+        if self.obs is not None:
+            # the hop is itself a span; the traceparent sent carries ITS
+            # id, so the owner's http_request stitches under this hop
+            with self.obs.span("proxy_hop", peer=owner, method=req.method,
+                               path=req.path) as sp:
+                ctx = current_trace_context()
+                if ctx is not None:
+                    headers[TRACEPARENT_HEADER] = format_traceparent(ctx)
+                resp = self._proxy_send(owner, req, raw, headers, missing)
+                sp.tag(code=resp.code)
+            return resp
+        return self._proxy_send(owner, req, raw, headers, missing)
+
+    def _proxy_send(self, owner: str, req: Request, raw: bytes,
+                    headers: dict,
+                    missing: Optional[Tuple[str, str]]) -> Response:
+        """One proxy hop, hardened: idempotent verbs (GET — snapshots,
+        ticket reads) retry ``--proxy-retries`` times with doubling
+        backoff before giving up; non-idempotent ones fail after the
+        first attempt (a retried step could double-commit).  The final
+        503 carries ``Retry-After`` sized to the gossip interval — by
+        then either the peer answered a heartbeat or failover has begun
+        re-homing its sessions."""
+        cluster = self.cluster
+        attempts = 1 + (cluster.proxy_retries if req.method == "GET" else 0)
+        err: Optional[PeerUnreachable] = None
+        for attempt in range(attempts):
+            if attempt:
+                time.sleep(cluster.proxy_backoff_s * (2 ** (attempt - 1)))
+            try:
+                cluster.net_fault("proxy", owner)
+                status, ctype, data = proxy_request(
+                    owner, req.method, req.path, raw, headers,
+                    timeout_s=cluster.proxy_timeout_s)
+                return Response(status, data, ctype)
+            except PeerUnreachable as e:
+                err = e
+        what, ident = missing or ("resource", "?")
+        if what == "ticket":
+            # the 404-after-restart ticket contract extended across
+            # the slice: a dead owner's tickets answer the same
+            # structured 404 a restarted single process would
+            return json_response(404, {"error": f"no ticket {ident!r}",
+                                       "peer": owner})
+        resp = json_response(503, {"error": str(err), "peer": owner})
+        resp.headers = [("Retry-After",
+                         str(max(1, math.ceil(cluster.interval_s))))]
+        return resp
+
     # -- telemetry history (GET /debug/timeseries) -------------------------
 
     def _timeseries(self, req: Request, tel) -> Response:
@@ -713,33 +897,63 @@ class AppCore:
     # -- distributed trace assembly (GET /debug/trace/<trace_id>) ----------
 
     def _trace_fragment(self, trace_id: str) -> List[dict]:
-        """This process's spans for one trace, node-stamped (``local``)
-        so stitched output says where each span ran.  Shared dispatch
-        rounds carry riders as ``links`` (``trace_id:span_id``), not
-        parents — a round linked to this trace is part of the story, so
-        it rides along (it stitches as a root: related, unparented)."""
+        """This process's spans for one trace, node-stamped so stitched
+        output says where each span ran.  Shared dispatch rounds carry
+        riders as ``links`` (``trace_id:span_id``), not parents — a
+        round linked to this trace is part of the story, so it rides
+        along (it stitches as a root: related, unparented)."""
+        node = self.cluster.id if self.cluster is not None else "local"
         prefix = trace_id + ":"
         out = []
         for rec in self.obs.tracer.snapshot():
             if rec.get("trace_id") == trace_id or any(
                     link.startswith(prefix)
                     for link in rec.get("links") or ()):
-                rec["node"] = "local"
+                rec["node"] = node
                 out.append(rec)
         return out
 
     def _trace_fetch(self, req: Request, trace_id: str) -> Response:
-        """Assemble one trace from this process's spans, stitched into one
-        wall-clock-ordered tree (the reference's cluster fan-out to peers
-        comes with ROADMAP queue 1 item 11c; ``partial`` is empty)."""
-        with self.obs.span("trace_fetch", target=trace_id, fanout=False):
+        """Assemble one trace: the local fragment, plus (in cluster
+        mode, when this request was not itself a fan-out hop) each live
+        peer's fragment, stitched into one wall-clock-ordered tree.  A
+        peer that is down — or dies mid-fetch — lands in ``partial``;
+        the fetch itself never fails on a dead peer."""
+        cluster = self.cluster
+        forwarded = bool(req.headers.get(FORWARDED_HEADER))
+        fanout = cluster is not None and not forwarded
+        with self.obs.span("trace_fetch", target=trace_id, fanout=fanout):
             spans = self._trace_fragment(trace_id)
+            nodes = [self.cluster.id if cluster is not None else "local"]
+            partial: List[str] = []
+            if fanout:
+                for addr, state in cluster.health_block()["peers"].items():
+                    if (not state["alive"]
+                            and state["last_seen_age_s"] is not None):
+                        # known-dead by heartbeat age: report, don't wait
+                        # on a connect timeout
+                        partial.append(addr)
+                        continue
+                    try:
+                        status, _, data = proxy_request(
+                            addr, "GET", f"/debug/trace/{trace_id}", b"",
+                            {FORWARDED_HEADER: cluster.id},
+                            timeout_s=cluster.timeout_s)
+                        frag = json.loads(data) if status == 200 else None
+                    except (PeerUnreachable, ValueError):
+                        frag = None
+                    if not isinstance(frag, dict):
+                        partial.append(addr)
+                        continue
+                    spans.extend(s for s in frag.get("spans", [])
+                                 if isinstance(s, dict))
+                    nodes.append(addr)
             ordered, roots = stitch_spans(spans)
         return json_response(200, {
             "trace_id": trace_id,
-            "nodes": ["local"],
-            "partial": [],
-            "complete": True,
+            "nodes": nodes,
+            "partial": partial,
+            "complete": not partial,
             "spans": ordered,
             "tree": roots,
         })

@@ -1,8 +1,8 @@
 """The port's multi-tenant admission control (``mpi_tpu_torch.admission``)
 on the CPU: the scenarios of the reference's ``tests/test_admission.py``,
-without its cluster-wide quota (ROADMAP queue 1 item 11c), plus the
-port's own estimate: the engine's cost cards (K1-K3's instruction counts)
-over the card's roof, and 0 device-seconds with no roof.
+its cluster-wide quota included, plus the port's own estimate: the
+engine's cost cards (K1-K3's instruction counts) over the roof, which off
+the card is the H100 roof this repo measured.
 
 Six contracts:
 
@@ -27,9 +27,8 @@ Six contracts:
   shared portion, and its trace stream never mentions admission.
 
 Managers run on the CPU (``device="cpu"``); every manager and server is
-shut down by the test that made it.  Where a test needs a device-seconds
-estimate it sets ``MPI_TPU_ROOF_OPS_PER_S`` (off the card there is no
-roof).
+shut down by the test that made it.  Where a test needs a round
+device-seconds estimate it sets ``MPI_TPU_ROOF_OPS_PER_S``.
 """
 
 import http.client
@@ -49,6 +48,7 @@ from mpi_tpu_torch.admission.shed import LoadShedder
 from mpi_tpu_torch.admission.tenants import (
     TenantRegistry, load_tenants_file, normalize_tenants,
 )
+from mpi_tpu_torch.cluster import ClusterNode
 from mpi_tpu_torch.config import ConfigError
 from mpi_tpu_torch.obs import Obs
 from mpi_tpu_torch.obs.metrics import FAMILIES
@@ -110,6 +110,14 @@ class _Node:
         self.thread = threading.Thread(target=self.srv.serve_forever,
                                        daemon=True)
         self.thread.start()
+        self.node = None
+
+    def join(self, peers):
+        self.node = ClusterNode(self.addr, peers, self.mgr,
+                                interval_s=3600.0, obs=self.obs)
+        self.mgr.attach_cluster(self.node)
+        self.srv.core.cluster = self.node
+        return self.node
 
     def close(self):
         self.srv.shutdown()
@@ -436,7 +444,7 @@ def test_estimate_vs_settle_reconciliation_on_a_device_engine(monkeypatch):
     equal the ledger row to the float, and the pre-dispatch estimate is
     the kernel's cost card over the roof: K1's ``word_ops`` per word per
     generation, times words and steps, over ``MPI_TPU_ROOF_OPS_PER_S``
-    (set here: off the card there is no roof), live from the first
+    (set here for a round figure), live from the first
     request (the engine's warm-up captures the depth-1 card)."""
     from mpi_tpu_torch.models.rules import LIFE
     from mpi_tpu_torch.ops.bitlife import word_ops
@@ -493,24 +501,34 @@ def test_estimate_from_each_kernels_card_over_the_roof(monkeypatch, backend,
 
 
 def test_no_roof_estimates_zero_device_seconds_and_admits(monkeypatch):
-    """Off the card with ``MPI_TPU_ROOF_OPS_PER_S`` unset there is no
-    roof (no TPU figure is carried over): the device-seconds estimate is
-    0, and a tenant with a tiny device-seconds quota is admitted, not
-    refused and not a TypeError."""
+    """Off the card with ``MPI_TPU_ROOF_OPS_PER_S`` unset the roof is
+    the H100's measured one (``DEFAULT_ROOF_OPS_PER_S``; no TPU figure
+    is carried over), so the estimate is never a silent 0 any more: it
+    is the card's instructions over that roof, a tenant with a tiny
+    device-seconds quota is refused (no TypeError), and one with room
+    is admitted and steps."""
     monkeypatch.delenv("MPI_TPU_ROOF_OPS_PER_S", raising=False)
-    from mpi_tpu_torch.obs.cost import roof_ops_per_s
+    from mpi_tpu_torch.obs.cost import DEFAULT_ROOF_OPS_PER_S, roof_ops_per_s
 
-    assert roof_ops_per_s() is None
+    assert roof_ops_per_s() == DEFAULT_ROOF_OPS_PER_S == 132 * 64 * 1.98e9
     obs, mgr, adm = _manager(specs=normalize_tenants(
-        [{"name": "t", "device_s_per_window": 1e-12}]))
+        [{"name": "t", "device_s_per_window": 1e-12},
+         {"name": "roomy"}]))
     sid = mgr.create({"rows": 16, "cols": 64, "backend": "cuda"},
                      tenant="t")["id"]
     session = mgr.get(sid)
-    assert adm.estimate_ops(session, 4) > 0.0
-    assert adm.estimate(session, 4) == (0.0, 4 * 1024)
-    assert mgr.admission_check(sid, 4) == "standard"
-    mgr.step(sid, 4)
-    assert mgr.get(sid).generation == 4
+    ops = adm.estimate_ops(session, 4)
+    assert ops > 0.0
+    assert adm.estimate(session, 4) == (ops / DEFAULT_ROOF_OPS_PER_S,
+                                        4 * 1024)
+    with pytest.raises(QuotaExceeded):
+        mgr.admission_check(sid, 4)
+    assert mgr.get(sid).generation == 0
+    sid2 = mgr.create({"rows": 16, "cols": 64, "backend": "cuda"},
+                      tenant="roomy")["id"]
+    assert mgr.admission_check(sid2, 4) == "standard"
+    mgr.step(sid2, 4)
+    assert mgr.get(sid2).generation == 4
 
 
 def test_session_caps_gate_create_and_release_on_close():
@@ -681,3 +699,57 @@ def test_unarmed_manager_has_no_admission_surface():
     # async tickets default to standard without banking any admission
     # state (depth_by_class is the gauge's only consumer)
     assert mgr.dispatcher.depth_by_class() == {}
+
+
+# ------------------------------------------------ cluster-wide quotas
+
+
+def test_cluster_quota_counts_gossiped_remote_spend():
+    """Tenant 'capped' spends its whole 432-cell window on node a; after
+    one gossip exchange node b rejects the tenant's next step with zero
+    local spend — the only way the math works is the gossiped snapshot.
+    Session caps are cluster-wide the same way."""
+    specs = normalize_tenants([
+        {"name": "capped", "cells_per_window": 432, "window_s": 300.0},
+        {"name": "solo", "max_sessions": 1}])
+    a, b = _Node(specs=specs), _Node(specs=specs)
+    try:
+        a.join([b.addr])
+        b.join([a.addr])
+        spec = {"rows": 12, "cols": 12, "backend": "serial"}
+        sid_a = a.mgr.create(spec, tenant="capped")["id"]
+        a.mgr.step(sid_a, 3)                 # 3 x 144 = the whole window
+        assert a.adm.gate.spent("capped") == (0.0, 432)
+        a.mgr.create(spec, tenant="solo")
+        b.node.gossip_now()                  # b now holds a's snapshot
+        assert b.node.tenant_spend("capped") == (0.0, 432, 1)
+        # b's own books are empty, yet the admit must reject: the spent
+        # figure in the message is the cluster-wide sum
+        assert b.adm.gate.spent("capped") == (0.0, 0)
+        sid_b = b.mgr.create(spec, tenant="capped")["id"]
+        with pytest.raises(QuotaExceeded,
+                           match=r"432 spent \+ 144 estimated > 432"):
+            b.mgr.admission_check(sid_b, 1)
+        # local history cannot free remote spend: honest full window
+        try:
+            b.mgr.admission_check(sid_b, 1)
+        except QuotaExceeded as e:
+            assert e.retry_after_s == 300.0
+        # the session cap counts a's live session too
+        with pytest.raises(QuotaExceeded,
+                           match=r"at max_sessions \(1 live, cap 1\)"):
+            b.mgr.create(spec, tenant="solo")
+        # a session the gossip hasn't carried yet is still local-only:
+        # the unlimited default tenant is unaffected throughout
+        b.mgr.create(spec)
+        # /usage on b shows b's LOCAL books (the roll-up is the
+        # cluster block's job; quota decisions are where the cluster
+        # sum applies)
+        st, usage, _ = _req(b.addr, "GET", "/usage")
+        assert st == 200
+        assert usage["tenants"]["by_tenant"]["capped"]["cells"] == 0
+        assert usage["tenants"]["by_tenant"]["capped"]["decisions"][
+            "quota"] == 2
+    finally:
+        a.close()
+        b.close()

@@ -1,9 +1,9 @@
 """The port stands alone: no module of ``mpi_tpu_torch`` (its ``obs``,
-``admission`` and ``serve`` packages, network fronts and native backends
-included) and not ``chip_smoke.py`` imports JAX or anything of the JAX
-package ``mpi_tpu``, no file of the port names the reference's native
-build directory, and the slices run, the network front served by its CLI
-among them, with neither loaded."""
+``admission``, ``serve`` and ``cluster`` packages, network fronts and
+native backends included) and not ``chip_smoke.py`` imports JAX or
+anything of the JAX package ``mpi_tpu``, no file of the port names the
+reference's native build directory, and the slices run, the network front
+served by its CLI and a cluster pair among them, with neither loaded."""
 
 import ast
 import os
@@ -200,6 +200,72 @@ def test_network_front_serves_without_loading_jax(tmp_path):
         "srv.shutdown()\n"
         "t.join(60)\n"
         "assert not t.is_alive()\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cluster_files_are_scanned():
+    scanned = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in ("__init__", "gossip", "node", "proxy", "ring"):
+        assert os.path.join("mpi_tpu_torch", "cluster",
+                            f"{name}.py") in scanned
+
+
+def test_cluster_pair_serves_without_loading_jax(tmp_path):
+    """Two port servers joined as a cluster over one state dir: a create
+    placed on the peer, a proxied step and snapshot, a gossip round, a
+    drain and the offline scrub, with neither JAX nor ``mpi_tpu``
+    loaded."""
+    code = (
+        "import http.client, json, sys, threading\n"
+        "from mpi_tpu_torch.cluster import ClusterNode\n"
+        "from mpi_tpu_torch.serve import SessionManager\n"
+        "from mpi_tpu_torch.serve.httpd import make_server\n"
+        "from mpi_tpu_torch.serve.recovery import scan_state_dir\n"
+        f"state = {str(tmp_path)!r}\n"
+        "nodes = []\n"
+        "for _ in range(2):\n"
+        "    mgr = SessionManager(device='cpu', state_dir=state,"
+        " batching=False, defer_restore=True)\n"
+        "    srv = make_server('127.0.0.1', 0, mgr)\n"
+        "    threading.Thread(target=srv.serve_forever, daemon=True).start()\n"
+        "    nodes.append((mgr, srv, '%s:%d' % srv.server_address[:2]))\n"
+        "for i, (mgr, srv, addr) in enumerate(nodes):\n"
+        "    node = ClusterNode(addr, [nodes[1 - i][2]], mgr,"
+        " interval_s=3600.0, state_dir=state)\n"
+        "    mgr.attach_cluster(node)\n"
+        "    srv.core.cluster = node\n"
+        "def rt(addr, m, p, b=None):\n"
+        "    c = http.client.HTTPConnection(*addr.split(':'), timeout=60)\n"
+        "    c.request(m, p, body=None if b is None else json.dumps(b))\n"
+        "    r = c.getresponse()\n"
+        "    out = r.status, r.read()\n"
+        "    c.close()\n"
+        "    return out\n"
+        "a, b = nodes[0][2], nodes[1][2]\n"
+        "sids = [json.loads(rt(a, 'POST', '/sessions',"
+        " {'rows': 16, 'cols': 64, 'seed': s})[1])['id'] for s in range(6)]\n"
+        "assert set(nodes[0][0].session_ids()) | set(nodes[1][0].session_ids())"
+        " == set(sids)\n"
+        "for sid in sids:\n"
+        "    st, body = rt(b, 'POST', f'/sessions/{sid}/step', {'steps': 3})\n"
+        "    assert st == 200 and json.loads(body)['generation'] == 3, body\n"
+        "nodes[0][1].core.cluster.gossip_now()\n"
+        "st, body = rt(a, 'POST', '/cluster/drain')\n"
+        "assert st == 200 and json.loads(body)['ok'], body\n"
+        "assert not nodes[0][0].session_ids()\n"
+        "assert sorted(nodes[1][0].session_ids()) == sorted(sids)\n"
+        "assert scan_state_dir(state)['clean']\n"
+        "for mgr, srv, _ in nodes:\n"
+        "    srv.shutdown()\n"
+        "    srv.server_close()\n"
+        "    mgr.shutdown()\n"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_tpu')]\n"
         "assert not bad, bad\n"

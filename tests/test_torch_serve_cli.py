@@ -1,13 +1,16 @@
 """The port's ``serve`` verb (``python -m mpi_tpu_torch.cli serve``,
-``mpi_tpu_torch/serve/cli.py``) on the CPU: its refusals (``--tune-cache``
-and the cluster flags exit with status 2, naming their ROADMAP item), its
-default device (no CUDA: it refuses to serve rather than fall back to the
-CPU), its startup line; the reference's server-subprocess SIGKILL restores
+``mpi_tpu_torch/serve/cli.py``) on the CPU: its refusal (``--tune-cache``
+exits with status 2, naming its ROADMAP item), its cluster flags (the
+reference's, with the reference's defaults), its default device (no CUDA:
+it refuses to serve rather than fall back to the CPU), its startup line,
+cluster mode's startup line and refusals; the reference's
+server-subprocess SIGKILL restores
 (``tests/test_serve_recovery.py``, ``test_serve_async.py``,
 ``test_serve_durability.py``) against ``--device cpu``; and the
 reference's watch tools (``tools/usage_top.py``, ``slo_watch.py``,
 ``flight_view.py``, which import nothing of ``mpi_tpu``) reading the
-port's server.
+port's server, ``usage_top.py`` also against a ``serve --device cpu``
+process with no roof set (the roof off the card is the default one).
 
 Every subprocess is killed and reaped in ``finally``, every server thread
 joined; each wait for a server has its own time limit.
@@ -33,6 +36,7 @@ import torch
 
 from mpi_tpu.backends.serial_np import evolve_np
 from mpi_tpu.models.rules import LIFE
+from mpi_tpu.serve import cli as ref_serve_cli
 from mpi_tpu.utils.hashinit import init_tile_np
 from mpi_tpu_torch.obs import Obs
 from mpi_tpu_torch.serve import cli as serve_cli
@@ -109,10 +113,55 @@ def _server_process(args):
     (["--proxy-timeout-s", "1"], "item 11c"),
 ])
 def test_unported_flags_exit_2_naming_their_item(flags, item, capsys):
+    """``--tune-cache`` (item 12) is still refused: exit status 2 naming
+    its item.  The cluster flags (item 11c) were refused the same way
+    until cluster mode was ported; each now parses to the reference's
+    value and nothing refuses it."""
+    if item == "item 12":
+        assert serve_cli.serve_main(["--port", "0", "--device", "cpu",
+                                     *flags]) == 2
+        err = capsys.readouterr().err
+        assert flags[0] in err and item in err and "ROADMAP" in err
+        return
+    ours = serve_cli.build_parser().parse_args(["--port", "0", *flags])
+    ref = ref_serve_cli.build_parser().parse_args(["--port", "0", *flags])
+    dest = flags[0].lstrip("-").replace("-", "_")
+    assert getattr(ours, dest) == getattr(ref, dest)
+    assert serve_cli._refusal(ours) is None
+
+
+def test_cluster_flags_keep_the_references_defaults_and_help():
+    ours = serve_cli.build_parser()
+    ref = ref_serve_cli.build_parser()
+    names = ("peers", "peers_file", "advertise", "gossip_interval_s",
+             "peer_timeout_s", "peer_down_s", "peer_dead_s",
+             "proxy_retries", "proxy_backoff_ms", "proxy_timeout_s")
+    a, b = ours.parse_args([]), ref.parse_args([])
+    assert {n: getattr(a, n) for n in names} == \
+        {n: getattr(b, n) for n in names}
+    helps = {act.dest: act.help for act in ours._actions}
+    ref_helps = {act.dest: act.help for act in ref._actions}
+    assert {n: helps[n] for n in names} == {n: ref_helps[n] for n in names}
+
+
+def test_cluster_mode_refusals_exit_2(tmp_path, capsys):
+    """A missing --peers-file, a junk peer address and dead-after under
+    down-after each exit with status 2 and name the fault, as in the
+    reference; no gossip thread is left behind."""
     assert serve_cli.serve_main(["--port", "0", "--device", "cpu",
-                                 *flags]) == 2
-    err = capsys.readouterr().err
-    assert flags[0] in err and item in err and "ROADMAP" in err
+                                 "--peers-file",
+                                 str(tmp_path / "missing.txt")]) == 2
+    assert "--peers-file" in capsys.readouterr().err
+    assert serve_cli.serve_main(["--port", "0", "--device", "cpu",
+                                 "--peers", "junk"]) == 2
+    assert "error:" in capsys.readouterr().err
+    assert serve_cli.serve_main(["--port", "0", "--device", "cpu",
+                                 "--peers", "127.0.0.1:1",
+                                 "--peer-down-s", "2",
+                                 "--peer-dead-s", "1"]) == 2
+    assert "must be >= down-after" in capsys.readouterr().err
+    assert not [t for t in threading.enumerate()
+                if t.name == "mpi_tpu-gossip"]
 
 
 def test_without_cuda_the_default_device_refuses_to_serve(monkeypatch,
@@ -162,6 +211,63 @@ def test_cli_serves_on_the_cpu_with_its_startup_line(front, tmp_path):
         assert usage["tenants"]["by_tenant"]["default"]["sessions"] == 1
         assert _http(host, port, "GET", "/slo")["worst"] in (
             "ok", "warning", "critical")
+
+
+def test_cli_cluster_mode_startup_line_and_routes(tmp_path):
+    """``--peers`` and ``--peers-file`` merge; the startup line names the
+    node, its tag and its peer count; ``/cluster`` answers, ``/healthz``
+    carries the cluster block, and ``/metrics`` carries the
+    ``host``/``process`` labels and the cluster families."""
+    peers = tmp_path / "peers.txt"
+    peers.write_text("# seed peers\n127.0.0.1:1\n\n127.0.0.1:2  # two\n")
+    args = SERVE + ["--peers", "127.0.0.1:3", "--peers-file", str(peers),
+                    "--gossip-interval-s", "3600"]
+    with _server_process(args) as (_p, host, port, line):
+        me = f"{host}:{port}"
+        from mpi_tpu_torch.cluster import node_tag
+
+        assert f"cluster {me} tag {node_tag(me)} peers 3" in line
+        info = _http(host, port, "GET", "/cluster")
+        assert info["node"] == me and sorted(info["peers"]) == [
+            "127.0.0.1:1", "127.0.0.1:2", "127.0.0.1:3"]
+        assert _http(host, port, "GET", "/healthz")["cluster"]["tag"] == \
+            node_tag(me)
+        with urllib.request.urlopen(f"http://{me}/metrics",
+                                    timeout=60) as resp:
+            text = resp.read().decode()
+        assert f'process="{me}"' in text and 'host="' in text
+        assert "mpi_tpu_cluster_peers" in text
+
+
+def test_usage_top_without_a_roof_set_reads_a_float_roof(tmp_path):
+    """The roof off the card: ``serve --device cpu`` with
+    ``MPI_TPU_ROOF_OPS_PER_S`` unset answers ``/usage`` with the default
+    roof as a float and a roofline block on every row, and the
+    reference's ``usage_top.py --once`` exits 0 against it."""
+    env = {k: v for k, v in ENV.items() if k != "MPI_TPU_ROOF_OPS_PER_S"}
+    proc = subprocess.Popen(SERVE, stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True, env=env,
+                            cwd=ROOT)
+    try:
+        host, port, _line = _wait_for_serving(proc)
+        sid = _http(host, port, "POST", "/sessions",
+                    {"rows": 32, "cols": 64, "seed": 2})["id"]
+        _http(host, port, "POST", f"/sessions/{sid}/step", {"steps": 1})
+        usage = _http(host, port, "GET", "/usage")
+        assert isinstance(usage["roof_ops_per_s"], float)
+        assert usage["roof_ops_per_s"] == 132 * 64 * 1.98e9
+        assert usage["signatures"] and all(
+            "roofline" in row for row in usage["signatures"])
+        top = subprocess.run(
+            [sys.executable, os.path.join(TOOLS, "usage_top.py"), "--url",
+             f"{host}:{port}", "--once"], capture_output=True, text=True,
+            timeout=120, cwd=ROOT, env=env)
+        assert top.returncode == 0, top.stderr
+        assert "32x64/cuda/periodic" in top.stdout
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+        proc.stdout.close()
 
 
 # ------------------------------------------------- SIGKILL restores
@@ -251,11 +357,9 @@ def test_sigkill_with_journal_and_torn_tail_restores_last_durable(tmp_path):
 @pytest.fixture(scope="module")
 def watched_server():
     """A port server with telemetry and the flight recorder armed, two
-    card-engine sessions stepped, sampled twice; shut down after.  Off
-    the card there is no roof, and ``usage_top`` renders the roof, so the
-    fixture sets ``MPI_TPU_ROOF_OPS_PER_S`` (the server reads it per
-    request)."""
-    os.environ["MPI_TPU_ROOF_OPS_PER_S"] = "1e12"
+    card-engine sessions stepped, sampled twice; shut down after.
+    ``usage_top`` renders the roof, which off the card is the default
+    (``MPI_TPU_ROOF_OPS_PER_S`` is not set)."""
     obs = Obs()
     mgr = SessionManager(device="cpu", obs=obs)
     obs.arm_telemetry(interval_s=5.0, manager=mgr, start=False)
@@ -279,7 +383,6 @@ def watched_server():
         thread.join(timeout=10)
         mgr.shutdown()
         obs.close()
-        os.environ.pop("MPI_TPU_ROOF_OPS_PER_S", None)
 
 
 def _tool(name, *args):

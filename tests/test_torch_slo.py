@@ -5,15 +5,20 @@ window expiry and ring wrap, the burn-rate state machine, objective
 validation with the port's ``ConfigError``, default-off purity), the
 manager's ``slo()`` and ``health()`` (the reference's ``GET /slo`` and
 ``/healthz``), and the same digests and SLO snapshots as the reference's
-modules for the same feeds."""
+modules for the same feeds; and the reference's three cluster ``/slo``
+roll-up cases on an in-process pair of the port's servers."""
 
+import http.client
 import json
+import threading
+import time
 
 import numpy as np
 import pytest
 
 from mpi_tpu.obs import Obs as JaxObs
 from mpi_tpu.obs.timeseries import WindowedDigest as JaxDigest
+from mpi_tpu_torch.cluster import ClusterNode
 from mpi_tpu_torch.config import ConfigError
 from mpi_tpu_torch.obs import Obs
 from mpi_tpu_torch.obs.slo import (
@@ -21,6 +26,7 @@ from mpi_tpu_torch.obs.slo import (
 )
 from mpi_tpu_torch.obs.timeseries import TelemetryRecorder, WindowedDigest
 from mpi_tpu_torch.serve import EngineCache, SessionManager
+from mpi_tpu_torch.serve.httpd import make_server
 
 ARMED_FAMILIES = (
     "mpi_tpu_slo_state",
@@ -492,3 +498,128 @@ def test_engine_accepts_raw_objectives_and_snapshot_shape():
     compact = eng.compact()
     assert compact["worst"] == "ok" and compact["transitions"] == 0
     assert set(compact["windows"]) == {"dispatch", "http", "ticket_wait"}
+
+
+# ------------------------------------------------ in-process cluster
+
+
+class _Node:
+    """One in-process serving node (the ``tests/test_torch_cluster.py``
+    harness, reduced): manager + threaded server + ClusterNode with the
+    gossip timer effectively disabled — tests drive ``gossip_now``."""
+
+    def __init__(self, armed=True):
+        self.obs = Obs()
+        self.mgr = SessionManager(EngineCache(max_size=4), batching=False,
+                                  obs=self.obs, device="cpu")
+        if armed:
+            self.obs.arm_telemetry(interval_s=5.0, manager=self.mgr,
+                                   start=False)
+        self.srv = make_server("127.0.0.1", 0, self.mgr)
+        host, port = self.srv.server_address[:2]
+        self.addr = f"{host}:{port}"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.node = None
+
+    def join(self, peers, down_after_s=None):
+        self.node = ClusterNode(self.addr, peers, self.mgr,
+                                interval_s=3600.0,
+                                down_after_s=down_after_s, obs=self.obs)
+        self.mgr.attach_cluster(self.node)
+        self.srv.core.cluster = self.node
+        return self.node
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(timeout=10)
+        self.mgr.shutdown()
+
+
+def _req(addr, method, path):
+    conn = http.client.HTTPConnection(addr, timeout=30)
+    conn.request(method, path)
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    try:
+        return resp.status, json.loads(data)
+    except (ValueError, UnicodeDecodeError):
+        return resp.status, data
+
+
+def _force_critical(node):
+    node.obs.telemetry.sample_once()
+    node.obs.http_requests.inc(30, method="POST", path="/step", code="500")
+    node.obs.telemetry.sample_once()
+    assert node.obs.slo.worst() == "critical"
+
+
+def test_cluster_slo_rollup_sums_transitions_exactly():
+    a, b = _Node(), _Node()
+    try:
+        a.join([b.addr])
+        b.join([a.addr])
+        _force_critical(b)
+        a.node.gossip_now()
+        st, doc = _req(a.addr, "GET", "/slo")
+        assert st == 200
+        cl = doc["cluster"]
+        assert cl["nodes"] == 2 and cl["nodes_reporting"] == 2
+        assert cl["complete"] and cl["partial"] == []
+        # cumulative per-node counts sum exactly (ledger discipline)
+        assert cl["transitions_total"] == (
+            a.obs.slo.transitions_total() + b.obs.slo.transitions_total())
+        assert cl["transitions_total"] == 1
+        assert cl["worst"] == "critical"
+        assert cl["burning"] == {"availability": "critical"}
+        assert (cl["by_node"][b.addr]["states"]
+                == b.obs.slo.compact()["states"])
+        assert cl["by_node"][a.addr]["worst"] == "ok"
+    finally:
+        a.close()
+        b.close()
+
+
+def test_cluster_slo_rollup_flags_dead_peer_partial():
+    a, b = _Node(), _Node()
+    try:
+        a.join([b.addr], down_after_s=0.2)
+        b.join([a.addr])
+        _force_critical(b)
+        a.node.gossip_now()              # a holds b's snapshot, b fresh
+        time.sleep(0.3)                  # ... until the heartbeat ages out
+        st, doc = _req(a.addr, "GET", "/slo")
+        assert st == 200
+        cl = doc["cluster"]
+        assert cl["partial"] == [b.addr] and not cl["complete"]
+        # the stale snapshot stays visible — the roll-up just admits
+        # it is incomplete
+        assert cl["by_node"][b.addr]["worst"] == "critical"
+        assert cl["nodes_reporting"] == 2
+        assert cl["transitions_total"] == 1
+    finally:
+        a.close()
+        b.close()
+
+
+def test_cluster_unarmed_peer_counts_as_not_reporting():
+    a, b = _Node(), _Node(armed=False)
+    try:
+        a.join([b.addr])
+        b.join([a.addr])
+        a.node.gossip_now()
+        st, doc = _req(a.addr, "GET", "/slo")
+        assert st == 200
+        cl = doc["cluster"]
+        assert cl["nodes"] == 2 and cl["nodes_reporting"] == 1
+        assert cl["by_node"][b.addr] is None
+        assert cl["complete"]            # b is alive, just unarmed
+        # the unarmed peer's own endpoint answers the 404 naming the flag
+        st, err = _req(b.addr, "GET", "/slo")
+        assert st == 404 and "--telemetry-interval-s" in err["error"]
+    finally:
+        a.close()
+        b.close()

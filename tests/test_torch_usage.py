@@ -379,17 +379,26 @@ def test_usage_payload_shape_and_roofline(make_manager, monkeypatch):
 
 
 def test_no_roof_off_the_card_and_no_tpu_default(make_manager, monkeypatch):
+    """Off the card with ``MPI_TPU_ROOF_OPS_PER_S`` unset the roof is
+    the H100 roof this repo measured (132 SMs x 64 lanes x 1.98 GHz),
+    never the reference's TPU figure, and it is a float as in the
+    reference: ``/usage`` carries it and every row its roofline block,
+    and the scrape its efficiency gauge."""
     monkeypatch.delenv("MPI_TPU_ROOF_OPS_PER_S", raising=False)
-    assert not hasattr(cost, "DEFAULT_ROOF_OPS_PER_S")
-    assert cost.roof_ops_per_s() is None
+    assert cost.DEFAULT_ROOF_OPS_PER_S == 132 * 64 * 1.98e9
+    assert cost.DEFAULT_ROOF_OPS_PER_S != 1.95e12
+    assert cost.roof_ops_per_s() == cost.DEFAULT_ROOF_OPS_PER_S
     obs = Obs()
     mgr = make_manager(EngineCache(max_size=4), obs=obs)
     sid = mgr.create(dict(CUDA_SPEC, seed=22))["id"]
     mgr.step(sid, 2)
     usage = mgr.usage()
-    assert usage["roof_ops_per_s"] is None
-    assert "roofline" not in usage["signatures"][0]
-    assert "mpi_tpu_roofline_efficiency{" not in obs.render_metrics()
+    assert isinstance(usage["roof_ops_per_s"], float)
+    assert usage["roof_ops_per_s"] == cost.DEFAULT_ROOF_OPS_PER_S
+    (row,) = usage["signatures"]
+    assert row["roofline"]["bound_cells_per_s"] == pytest.approx(
+        cost.DEFAULT_ROOF_OPS_PER_S / row["roofline"]["ops_per_cell"])
+    assert "mpi_tpu_roofline_efficiency{" in obs.render_metrics()
 
 
 def test_card_roof_from_the_device_properties(monkeypatch):
@@ -409,7 +418,8 @@ def test_card_roof_from_the_device_properties(monkeypatch):
         assert cost.roof_ops_per_s() == 132 * 64 * 1.98e9
         Props.major = 5                 # an architecture the table lacks
         cost.device_roof_ops_per_s.cache_clear()
-        assert cost.roof_ops_per_s() is None
+        assert cost.device_roof_ops_per_s() is None
+        assert cost.roof_ops_per_s() == cost.DEFAULT_ROOF_OPS_PER_S
     finally:
         cost.device_roof_ops_per_s.cache_clear()
 

@@ -177,7 +177,25 @@ Phases; any failure exits non-zero before the result line:
    other with no generation lost; every board steps on equal to the
    plain version's.  The survivors' launch counts must hold K1, K2 and
    K3.  Last, ``python -m mpi_tpu_torch.serve.scrub`` verifies the state
-   dir, repairs what the SIGKILL tore and verifies it clean.
+   dir, repairs what the SIGKILL tore and verifies it clean;
+10. the plan tuner (``mpi_tpu_torch/tune``) on the card: every CTA tile
+   ``tune.candidates`` proposes for Life, Bosco and R2,B10-13,S8-12 at
+   2048² and 4096² (K1 ``[rows, words a lane]``, K3 ``[rows]``) built in
+   one ``build_rules`` call per kernel and held against the plain version
+   exactly (both boundaries at gens 1 and the deepest depth, a batch, a
+   padded grid); each tile timed against the default build in turns at
+   2048² and 65536², with its bound; ``tune_plan`` over the reference's
+   tuning regime (2048² Life, one blinker in ~1% of the 128² tiles, 200
+   generations after 32, best of 2), every measured probe's board equal
+   to the default plan's; the cache reloaded from disk by a fresh
+   ``SessionManager(tune_cache=...)`` (the best measured candidate written
+   in when the default won), whose first session's engine holds the
+   plan, whose second same-spec session compiles nothing, both boards
+   equal to the default plan's and the plain version's; and ``python -m
+   mpi_tpu_torch.cli 4096 4096 0 64 --profile DIR`` on the card, whose
+   Chrome trace holds K1 records equal to the K1 launches the process
+   counted (the trace rule, one retake).  The speedup is printed, not
+   judged.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -209,14 +227,14 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from mpi_tpu_torch import golio  # noqa: E402
+from mpi_tpu_torch import golio, tune  # noqa: E402
 from mpi_tpu_torch.admission import AdmissionControl  # noqa: E402
 from mpi_tpu_torch.admission.tenants import normalize_tenants  # noqa: E402
 from mpi_tpu_torch.backends import cuda as backend  # noqa: E402
 from mpi_tpu_torch.backends.cpp import plan_tiles  # noqa: E402
 from mpi_tpu_torch.backends.serial_np import evolve_np  # noqa: E402
 from mpi_tpu_torch.cli import main as cli_main  # noqa: E402
-from mpi_tpu_torch.config import WORD, GolConfig  # noqa: E402
+from mpi_tpu_torch.config import WORD, GolConfig, apply_plan  # noqa: E402
 from mpi_tpu_torch.interop import grid_from_numpy  # noqa: E402
 from mpi_tpu_torch.models.rules import (  # noqa: E402
     BOSCO, DAY_AND_NIGHT, HIGHLIFE, LIFE, SEEDS, Rule, rule_from_name,
@@ -3979,6 +3997,308 @@ def phase9_cluster(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 10: the plan tuner ------------------------------------------------
+
+# the sizes and rules whose CTA-tile variants (tune/space.py) phase 10
+# builds and holds against the plain versions
+TUNE_SIZES = (2048, 4096)
+TUNE_RULES = (("life", LIFE), ("bosco", BOSCO), ("r2", R2))
+# the reference's tuning regime (bench.py:2101-2118): 2048² Life with one
+# blinker in each of ~1% of the 128² tiles, 200 timed generations after 32
+# untimed ones, best of 2
+TUNE_REGIME = (2048, 128, 0.01, 200, 2, 32)
+# the one-shot CLI under --profile: rows, cols, gap, iterations
+PROFILE_RUN = ("4096", "4096", "0", "64")
+# the application check: generations a session steps
+TUNE_SESSION_STEPS = 40
+
+
+def _tile_variants() -> dict:
+    """Every CTA tile ``tune.candidates`` proposes on the card for
+    TUNE_RULES at TUNE_SIZES, as {engine kind: {rule label: [tile, ...]}}
+    (kind "bit" is K1, "ltl" K3)."""
+    out = {"bit": {}, "ltl": {}}
+    for size in TUNE_SIZES:
+        for label, rule in TUNE_RULES:
+            config = GolConfig(rows=size, cols=size, steps=0, rule=rule)
+            for cand in tune.candidates(config, (1, 1)):
+                tile = cand.plan.get("blocks")
+                if tile is None:
+                    continue
+                kind = backend.plan_engine(apply_plan(config, cand.plan))[0]
+                tiles = out[kind].setdefault(label, [])
+                if list(tile) not in tiles:
+                    tiles.append(list(tile))
+    return out
+
+
+def _variant_exact(rng, kind: str, rule, tile) -> tuple:
+    """(cases, max |variant - plain|) of one tile variant of K1 or K3: both
+    boundaries at gens 1 and the deepest depth on the tuner's grid (2048
+    rows, 64 words) and a ragged one (300 x 67 words), a batch of 3
+    boards, and a padded grid (``col_limit``)."""
+    wrapper, plain, deepest = {
+        "bit": (cuda_bit_step, bit_step_plain, 16),
+        "ltl": (cuda_ltl_step, ltl_step_plain, max_gens(rule.radius)),
+    }[kind]
+    defines = backend.BLOCK_DEFINES[kind](tile)
+
+    def variant(x, rule, boundary, gens, **kw):
+        return wrapper(x, rule, boundary, gens, defines=defines, **kw)
+
+    variant.__name__ = f"{wrapper.__name__}[{tile}]"
+    cases, err = 0, 0
+    for shape in ((2048, 64), (300, 67)):
+        for boundary in ("periodic", "dead"):
+            for gens in sorted({1, deepest}):
+                err = max(err, _compare(variant, plain, _words(rng, shape),
+                                        rule, boundary, gens))
+                cases += 1
+    err = max(err, _compare(variant, plain, _words(rng, (3, 130, 33)), rule,
+                            "periodic", deepest))
+    x = _words(rng, (200, 40))
+    x[:, -1] &= (1 << 7) - 1                 # the pad starts dead
+    err = max(err, _compare(variant, plain, x, rule, "dead", deepest,
+                            col_limit=32 * 39 + 7))
+    return cases + 2, err
+
+
+def _variant_times(card: str, variants: dict) -> list:
+    """Each tile variant against the default build, ms per pass in turns,
+    at 2048² and 65536²: K1 (Life) at gens 1 and 8, K3 at Bosco's gens 1
+    and R2's gens 1 and 4, with the bound of phase 4."""
+    rows = []
+    rules = dict(TUNE_RULES)
+    for size in (2048, FLAGSHIP):
+        x = init_packed(size, size, SEED, device="cuda")
+        words = x.numel()
+        out = torch.empty_like(x)
+        t_bytes = 8 * words / HBM_BYTES_PER_S * 1e3
+        for kind, by_rule in variants.items():
+            wrapper = cuda_bit_step if kind == "bit" else cuda_ltl_step
+            for label, tiles in by_rule.items():
+                rule = rules[label]
+                if kind == "bit":
+                    depths, per_word = (1, MAIN_GENS), word_ops(rule)
+                else:
+                    depths = sorted({1, max_gens(rule.radius)})
+                    per_word = ltl_word_ops_lower(rule)
+                for gens in depths:
+                    fns = {"default": lambda w=wrapper, r=rule, g=gens:
+                           w(x, r, "periodic", g, out=out)}
+                    for tile in tiles:
+                        d = backend.BLOCK_DEFINES[kind](tile)
+                        fns["x".join(map(str, tile))] = (
+                            lambda w=wrapper, r=rule, g=gens, d=d:
+                            w(x, r, "periodic", g, out=out, defines=d))
+                    ms = _turns(fns)
+                    t_ops = gens * words * per_word / INT32_OPS_PER_S * 1e3
+                    row = {"phase": "tile_times", "card": card,
+                           "kernel": "K1" if kind == "bit" else "K3",
+                           "rule": label, "grid": [size, size],
+                           "gens": gens, "ms": ms,
+                           "fastest": min(ms, key=lambda n: sum(ms[n])),
+                           "bound_ms": max(t_bytes, t_ops),
+                           "bound_by": ("bytes" if t_bytes >= t_ops
+                                        else "operations")}
+                    emit(row)
+                    rows.append(row)
+        del x, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _tune_board() -> np.ndarray:
+    """The reference's tuning board (bench.py:2107-2118): a horizontal
+    blinker at the middle of each of the first ~1% of the 128² tiles of a
+    square block."""
+    N, T, share = TUNE_REGIME[:3]
+    board = np.zeros((N, N), dtype=np.uint8)
+    k = max(int(round(share * (N // T) ** 2)), 1)
+    side = int(np.ceil(np.sqrt(k)))
+    for p in range(k):
+        r, c = (p // side) * T + T // 2, (p % side) * T + T // 2
+        board[r, c - 1:c + 2] = 1
+    return board
+
+
+def _tune_apply(card: str, path: str, config: GolConfig, res) -> dict:
+    """The cache on disk, reloaded by a fresh ``SessionManager``: the
+    first session's engine holds the entry's plan, a second same-spec
+    session compiles nothing, and both boards equal the default plan's
+    and the plain version's.  An empty winner is replaced by the best
+    measured other candidate, so that a plan is applied."""
+    cache = tune.TuneCache(path)
+    entry = cache.get(res.key)
+    if entry is None:
+        fail(f"the tune cache at {path} lacks the sweep's key {res.key}")
+    plan, forced = entry["plan"], False
+    if not plan:
+        others = [p for p in res.probes
+                  if p.status == "measured" and p.plan and p.parity
+                  and "batch" not in p.plan]
+        if not others:
+            fail("the sweep measured no candidate besides the default")
+        best = max(others, key=lambda p: p.cells_per_s)
+        plan, forced = dict(best.plan), True
+        cache.record(config, (1, 1), plan, {"forced_by": "chip_smoke.py"})
+        cache.save()
+    n = TUNE_SESSION_STEPS
+    mgr = SessionManager(tune_cache=path, batching=False,
+                         async_enabled=False)
+    try:
+        spec = {"rows": config.rows, "cols": config.cols, "seed": SEED}
+        s1 = mgr.create(spec)
+        engine = mgr.get(s1["id"]).engine
+        if engine.tuned_plan != plan or s1.get("tuned_plan") != plan:
+            fail(f"the first session's engine holds {engine.tuned_plan}, "
+                 f"the cache {plan}")
+        mgr.step(s1["id"], n)
+        compiles = engine.compile_count
+        s2 = mgr.create(spec)
+        mgr.step(s2["id"], n)
+        if (not s2["cache_hit"] or mgr.get(s2["id"]).engine is not engine
+                or engine.compile_count != compiles):
+            fail(f"the second same-spec session compiled: hit "
+                 f"{s2['cache_hit']}, compiles {compiles} -> "
+                 f"{engine.compile_count}")
+        boards = [mgr.snapshot_array(s["id"])[0] for s in (s1, s2)]
+        entries = len(mgr.tune_cache)
+    finally:
+        mgr.shutdown()
+    default = backend.build_engine(config)
+    want = default.fetch(default.step(default.init_grid(seed=SEED), n))
+    plain = unpack(_plain_final("bit", config.rows, config.cols, LIFE, n)
+                   ).cpu().numpy()
+    if not (np.array_equal(want, plain)
+            and all(np.array_equal(b, want) for b in boards)):
+        fail(f"the tuned sessions' boards differ from the default plan's "
+             f"or the plain version's (plan {plan})")
+    return {"plan": plan, "forced_from_best_measured": forced,
+            "engine_kind": engine.kind, "engine_blocks": engine.blocks,
+            "first_compiles": compiles, "second_compiles": 0,
+            "cache_entries": entries, "generations": n,
+            "boards_equal_to_default_and_plain": 2}
+
+
+def _tune_profile(card: str) -> dict:
+    """``python -m mpi_tpu_torch.cli ... --profile DIR`` on the card, as a
+    subprocess that prints its wrappers' launch counts as it exits: the
+    Chrome trace it writes holds K1 records equal to its K1 launches (the
+    trace rule, one retake)."""
+    def attempt():
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) \
+                as d:
+            logdir = os.path.join(d, "profile")
+            proc = subprocess.run(
+                [sys.executable, "-c", CLUSTER_NODE_MAIN, *PROFILE_RUN,
+                 "--profile", logdir, "--out-dir", d, "--quiet"],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"the CLI under --profile exited {proc.returncode}: "
+                     f"{proc.stderr[-1500:]}")
+            counts = [json.loads(line)["launches"]
+                      for line in proc.stdout.splitlines()
+                      if line.startswith('{"launches"')]
+            traces = sorted(Path(logdir).glob("trace-*.json"))
+            if len(counts) != 1 or len(traces) != 1:
+                fail(f"the CLI under --profile printed {counts} and wrote "
+                     f"{traces}")
+            counted = counts[0]
+            if counted["K2"] or counted["K3"] or not counted["K1"]:
+                fail(f"the profiled Life run launched {counted}")
+            with open(traces[0]) as fh:
+                events = json.load(fh)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            in_trace = {kid: sum(1 for e in kernels
+                                 if any(nm in e.get("name", "")
+                                        for nm in names))
+                        for kid, names in KERNEL_NAMES.items()}
+            return ({"K1": counted["K1"]}, {"K1": in_trace["K1"]},
+                    {"k1_launches": counted["K1"], "trace_kernels": in_trace,
+                     "trace_events": len(events),
+                     "trace_bytes": traces[0].stat().st_size,
+                     "exit": proc.returncode})
+
+    result, takes, lost = _trace_holds_launches("--profile", attempt)
+    return {**result, "takes": takes, "records_lost_on_retaken": lost}
+
+
+def phase10_tune(card: str, errs: dict) -> dict:
+    """The plan tuner on the card: every CTA tile it can propose built in
+    one ``build_rules`` call per kernel and held against the plain
+    version, exact; each timed against the default build in turns; the
+    reference's tuning regime swept with every measured probe's parity;
+    the winner (or the best measured candidate) applied from disk by a
+    fresh ``SessionManager``; and the one-shot CLI's ``--profile``.
+    Returns the tile variants by kernel id."""
+    t_phase = time.perf_counter()
+    variants = _tile_variants()
+    t0 = time.perf_counter()
+    rules = dict(TUNE_RULES)
+    for kind, by_rule in variants.items():
+        todo = [(rules[label], backend.BLOCK_DEFINES[kind](tile))
+                for label, tiles in by_rule.items() for tile in tiles]
+        _build.build_rules(kind, [r for r, _ in todo], [d for _, d in todo])
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 10)
+    out = {}
+    for kind, by_rule in variants.items():
+        kid = "K1" if kind == "bit" else "K3"
+        cases, err = 0, 0
+        for label, tiles in by_rule.items():
+            for tile in tiles:
+                c, e = _variant_exact(rng, kind, rules[label], tile)
+                cases, err = cases + c, max(err, e)
+        out[kid] = {lbl: ["x".join(map(str, t)) for t in tiles]
+                    for lbl, tiles in by_rule.items()}
+        emit({"phase": "variant_vs_plain", "kernel": kid, "cases": cases,
+              "max_abs_err": err, "variants": out[kid],
+              "build_seconds_all_variants": build_s})
+        errs[kid] = max(errs[kid], err)
+        if err:
+            fail(f"a {kid} tile variant disagrees with its plain version "
+                 f"(tolerance: exact)")
+    torch.cuda.synchronize()
+    _variant_times(card, variants)
+
+    size, _, _, steps, reps, settle = TUNE_REGIME
+    config = GolConfig(rows=size, cols=size, steps=0, seed=SEED)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "tune_cache.json")
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = tune.tune_plan(config, board=_tune_board(), steps=steps,
+                             reps=reps, settle=settle,
+                             cache=tune.TuneCache(path))
+        sweep_s = time.perf_counter() - t0
+        launches = _launches()
+        measured = [p for p in res.probes if p.status == "measured"]
+        bad = [p.label for p in measured if p.parity is not True]
+        emit({"phase": "tune", "card": card, "grid": [size, size],
+              "steps": steps, "reps": reps, "settle": settle,
+              "oracle": res.oracle, "sweep_s": sweep_s,
+              "launches": launches, "winner": res.winner,
+              "winner_label": res.winner_label, "speedup": res.speedup,
+              "default_cells_per_s": res.default_cells_per_s,
+              "tuned_cells_per_s": res.tuned_cells_per_s,
+              "pruned": res.pruned,
+              "probes": [[p.label, p.status, p.cells_per_s, p.ops_per_cell,
+                          p.parity, p.detail] for p in res.probes]})
+        if bad or not launches["K1"]:
+            fail(f"tune probes without parity: {bad}; launches {launches}")
+        failed = [p.as_dict() for p in res.probes if p.status == "failed"]
+        if failed:
+            fail(f"tune probes failed: {failed}")
+        applied = _tune_apply(card, path, config, res)
+    emit({"phase": "tune_apply", "card": card, **applied})
+    profile = _tune_profile(card)
+    emit({"phase": "tune_profile", "card": card,
+          "run": " ".join(PROFILE_RUN), **profile,
+          "phase_s": time.perf_counter() - t_phase})
+    return out
+
+
 def main() -> int:
     card = phase0_card()
     seconds, t0 = {}, time.perf_counter()
@@ -4006,6 +4326,8 @@ def main() -> int:
     lap("front")
     phase9_cluster(card)
     lap("cluster")
+    tiles = phase10_tune(card, errs)
+    lap("tune")
     emit({"phase": "seconds", **seconds})
     k1 = times["K1", MAIN_GENS]
     k2 = times["K2", DENSE_PATH[2]]
@@ -4018,7 +4340,7 @@ def main() -> int:
          "launches": launches["K1"], "max_abs_err": errs["K1"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "tile_variants": tiles["K1"]},
         {"name": "K2 dense_step", "route": "cuda",
          "source": "mpi_tpu_torch/csrc/stencil.cu",
          "replaces": "mpi_tpu/ops/pallas_stencil.py:285",
@@ -4033,7 +4355,7 @@ def main() -> int:
          "max_abs_err": errs["K3"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "tile_variants": tiles["K3"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -56,6 +56,7 @@ without that request they raise.
 
 from __future__ import annotations
 
+import functools
 import sys
 import threading
 import time
@@ -87,6 +88,46 @@ KERNELS = {
     "ltl": ("K3", cuda_bitltl.cuda_ltl_step, cuda_bitltl.refusal),
     "dense": ("K2", cuda_stencil.cuda_dense_step, cuda_stencil.refusal),
 }
+
+
+# engine -> the macros of its kernel's build with a given CTA tile, for the
+# engines whose kernel takes one (K2 lives in the common library: no tile)
+BLOCK_DEFINES = {"bit": cuda_bitlife.block_defines,
+                 "ltl": cuda_bitltl.block_defines}
+
+
+def check_blocks(config: GolConfig, kind: str, device: torch.device,
+                 blocks) -> None:
+    """Raise :class:`ConfigError` unless the CTA tile ``blocks`` ([rows,
+    words a lane] for K1, [rows] for K3) can run ``config`` on engine
+    ``kind``: a tile is never quietly ignored, so K2, the host backends
+    and the CPU (whose plain versions have no tile) refuse one."""
+    if config.backend != "cuda":
+        raise ConfigError(f"blocks {list(blocks)}: backend "
+                          f"{config.backend!r} runs no kernel of the card")
+    if device.type != "cuda":
+        raise ConfigError(f"blocks {list(blocks)}: a CTA tile needs the "
+                          f"card; the plain versions on the CPU have none")
+    if kind not in BLOCK_DEFINES:
+        raise ConfigError(f"blocks {list(blocks)}: kernel "
+                          f"{KERNELS[kind][0]} takes no CTA tile (K1 and K3 "
+                          f"do)")
+    vals = [int(v) for v in blocks]
+    if kind == "bit":
+        ok = len(vals) == 2 and cuda_bitlife.blocks_ok(
+            vals[0], vals[1], config.rows)
+        want = (f"[rows, words a lane], rows in "
+                f"{cuda_bitlife.BLOCK_ROWS}, words in "
+                f"{cuda_bitlife.BLOCK_WPL}, within "
+                f"{cuda_bitlife.SMEM_OPTIN_BYTES} bytes of shared memory")
+    else:
+        ok = len(vals) == 1 and cuda_bitltl.blocks_ok(
+            vals[0], config.rule.radius, config.rows)
+        want = (f"[rows], rows in {cuda_bitltl.BLOCK_ROWS}, within the "
+                f"kernel's shared memory")
+    if not ok:
+        raise ConfigError(f"blocks {vals}: kernel {KERNELS[kind][0]} takes "
+                          f"{want}")
 
 
 def plan_pad_width(config: GolConfig) -> Tuple[int, int]:
@@ -258,7 +299,8 @@ class Engine:
     def __init__(self, config: GolConfig, device: torch.device, kind: str,
                  depths=(1,), cols_eff: Optional[int] = None,
                  pad_bits: int = 0, notes=(), depth: Optional[int] = None,
-                 sparse_plan: Optional[activity.TilePlan] = None):
+                 sparse_plan: Optional[activity.TilePlan] = None,
+                 blocks=None):
         self.config = config
         self.device = device
         self.kind = kind
@@ -266,6 +308,12 @@ class Engine:
         self.depth = config.comm_every if depth is None else depth
         self.bitpacked = kind != "dense"
         self.kernel_id, self._kernel, _ = KERNELS[kind]
+        # a CTA tile other than the default build's: every launch of the
+        # engine goes to that build of K1 or K3
+        self.blocks = None if blocks is None else [int(v) for v in blocks]
+        if self.blocks is not None:
+            self._kernel = functools.partial(
+                self._kernel, defines=BLOCK_DEFINES[kind](self.blocks))
         self.cols_eff = config.cols if cols_eff is None else cols_eff
         self.pad_bits = pad_bits
         self.col_limit = config.cols if pad_bits else None
@@ -305,6 +353,7 @@ class Engine:
         # card from the kernel's own counts (obs/cost.py)
         self.obs = None
         self._cost_cards = {}
+        # the tune-cache plan build_engine applied (tune/), or None
         self.tuned_plan = None
         self.mi = self.mj = 1
         # every step consumes its input (the spare of the ping-pong pair),
@@ -762,13 +811,29 @@ class Engine:
         return [int(v) for v in counts.cpu()]
 
 
-def build_engine(config: GolConfig, device=None, depths=None) -> Engine:
+def build_engine(config: GolConfig, device=None, depths=None, tune=None,
+                 blocks=None) -> Engine:
     """The engine for ``config`` on ``device`` (the GPU when None).
     ``depths``: the pass depths that will run (default 1 to the pass
     depth); each must be one the chosen kernel serves.  A sparse engine
     runs depth 1 and its dense chunks' depth, and its stripes at every
-    rung.  Planning notes print to stderr and stay on ``Engine.notes``."""
+    rung.  Planning notes print to stderr and stay on ``Engine.notes``.
+
+    ``tune``: an opt-in :class:`~mpi_tpu_torch.tune.TuneCache` (or its
+    path): a winner cached for this (device, requested plan) replaces the
+    requested knobs before planning and is kept on ``Engine.tuned_plan``;
+    None never reads a cache.  ``blocks``: the CTA tile of K1 ([rows,
+    words a lane]) or K3 ([rows]), a build variant of the kernel (the
+    tuner probes them; a cached winner's arrives through ``tune``); any
+    other route raises :class:`ConfigError`."""
     dev = resolve_device(device)
+    tuned_plan = None
+    if tune is not None:
+        from mpi_tpu_torch.tune import resolve_tuned
+
+        config, tuned_plan = resolve_tuned(config, (1, 1), tune, device=dev)
+        if tuned_plan is not None and blocks is None:
+            blocks = tuned_plan.get("blocks")
     kind, cols_eff, pad_bits, notes = plan_engine(config)
     notes = list(notes)
     kernel_id, _, refusal = KERNELS[kind]
@@ -798,6 +863,13 @@ def build_engine(config: GolConfig, device=None, depths=None) -> Engine:
             f"with launches per board")
     elif depths is None:
         depths = range(1, depth + 1)
+    if blocks is not None:
+        check_blocks(config, kind, dev, blocks)
+        notes.append(f"kernel {kernel_id} built with CTA tile "
+                     f"{[int(v) for v in blocks]}")
+    if tuned_plan is not None:
+        notes.append(f"autotuned plan applied: {tuned_plan} (tune cache "
+                     f"winner for this signature)")
     for msg in notes:
         print(f"note: {msg}", file=sys.stderr)
     depths = [k for k in depths if k > 0]
@@ -809,8 +881,10 @@ def build_engine(config: GolConfig, device=None, depths=None) -> Engine:
             raise ConfigError(f"kernel {kernel_id} cannot run {rule} "
                               f"at depth {k} on a {shape[0]}x{shape[1]} "
                               f"grid: {reason}")
-    return Engine(config, dev, kind, depths, cols_eff, pad_bits, notes,
-                  depth=depth, sparse_plan=sparse_plan)
+    engine = Engine(config, dev, kind, depths, cols_eff, pad_bits, notes,
+                    depth=depth, sparse_plan=sparse_plan, blocks=blocks)
+    engine.tuned_plan = tuned_plan
+    return engine
 
 
 def run_cuda(

@@ -10,6 +10,7 @@ Examples::
     python -m mpi_tpu_torch.cli 64 64 10 50 --device cpu --resume NAME@50
     python -m mpi_tpu_torch.cli 65536 65536 0 1000 --sparse 128
     python -m mpi_tpu_torch.cli 2048 2048 10 50 --backend cpp-par --workers 8
+    python -m mpi_tpu_torch.cli 4096 4096 0 64 --profile /tmp/trace
     python -m mpi_tpu_torch.cli serve --port 8000   # sessions over HTTP
 
 ``--backend cuda`` (the default) runs on the GPU through one of three
@@ -21,7 +22,8 @@ serves), and K2 for every other width or depth, in passes of at most
 ⌊16/r⌋ generations; ``--comm-every auto`` picks the depth
 (``parallel/policy.py``); ``--sparse T`` steps only the T x T tiles that
 can change (``ops/activity.py``); ``--device cpu`` runs the kernel's plain
-PyTorch version instead.
+PyTorch version instead; ``--profile DIR`` writes one Chrome trace of the
+run (``torch.profiler``, the host and the card) into DIR.
 ``serial`` runs the numpy oracle, ``cpp`` the native C++ engine on one
 host thread and ``cpp-par`` the same engine on a mesh of ``--workers``
 host threads, one ``.gol`` tile per worker (``backends/cpp.py``).
@@ -35,6 +37,7 @@ reports; the master header counts the tile writers.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time as _time
@@ -100,8 +103,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=None, metavar="NAME@ITER",
                    help="resume from snapshot ITER of run NAME; 'iterations' "
                    "then counts additional steps")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="cuda backend: capture a torch.profiler trace of "
+                   "the run (CPU activity, and the card's with --device "
+                   "cuda) into DIR as one Chrome trace, "
+                   "trace-<pid>-<ns>.json")
     p.add_argument("--quiet", action="store_true")
     return p
+
+
+@contextlib.contextmanager
+def profile_run(logdir: str, device: str):
+    """``torch.profiler`` around the body, exported into ``logdir`` as one
+    Chrome trace named as ``obs/profile.py:run_profile`` names its
+    captures (``trace-<pid>-<ns>.json``).  On the card the trace must hold
+    the card's activity: a profiler without CUDA activity raises rather
+    than write a trace of the host alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda":
+        if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+            raise RuntimeError(
+                "--profile on the card: this torch.profiler has no CUDA "
+                "activity, so the trace would hold the host alone")
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, f"trace-{os.getpid()}-{_time.time_ns()}.json")
+    with profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(path)
 
 
 def _log(quiet: bool, msg: str) -> None:
@@ -128,6 +160,10 @@ def main(argv: Optional[List[str]] = None) -> int:
 def _run(args) -> int:
     rule = rule_from_name(args.rule)
     auto_comm = args.comm_every == "auto"
+    if args.profile and args.backend != "cuda":
+        raise ConfigError(
+            f"--profile traces the cuda backend's run, not --backend "
+            f"{args.backend}")
     if auto_comm and args.backend != "cuda":
         raise ConfigError("--comm-every auto applies to the cuda backend only")
     try:
@@ -229,14 +265,20 @@ def _run(args) -> int:
     if config.backend == "cuda":
         from mpi_tpu_torch.backends.cuda import run_cuda
 
-        final = run_cuda(
-            config,
-            timer=timer,
-            snapshot_cb=snapshot if args.save else None,
-            initial=initial,
-            start_iteration=start_iter,
-            device=args.device,
-        )
+        profile_ctx = contextlib.nullcontext()
+        if args.profile:
+            profile_ctx = profile_run(args.profile, args.device)
+        with profile_ctx as trace_path:
+            final = run_cuda(
+                config,
+                timer=timer,
+                snapshot_cb=snapshot if args.save else None,
+                initial=initial,
+                start_iteration=start_iter,
+                device=args.device,
+            )
+        if trace_path:
+            _log(args.quiet, f"profile: {trace_path}")
     else:
         if config.backend == "serial":
             from mpi_tpu_torch.backends.serial_np import evolve_np

@@ -167,6 +167,39 @@ SIGNATURE_FIELDS = (
 )
 
 
+# Config fields the autotuner (``mpi_tpu_torch/tune``) may override when
+# applying a cached winner: each re-validates through GolConfig's
+# __post_init__ on application, and neither changes what the run computes
+# (comm_every and sparse_tile are bit-identical execution strategies; the
+# tuner's parity check holds them to that).  Plan entries may also carry
+# the knobs in PLAN_ONLY_KEYS (K1's or K3's CTA tile, the serving batch
+# hint), which never reach GolConfig.
+TUNABLE_FIELDS = ("comm_every", "sparse_tile")
+PLAN_ONLY_KEYS = ("blocks", "batch")
+
+
+def apply_plan(config: GolConfig, plan: dict) -> GolConfig:
+    """``config`` with a tune-cache plan's overrides applied.
+
+    Unknown keys raise :class:`ConfigError` (a cache written by a newer
+    tuner fails loudly, never half-applies); the replaced config re-runs
+    full validation, so a stale plan that no longer satisfies current
+    rules raises too: the serving path catches it and keeps the untuned
+    plan, ``python -m mpi_tpu_torch.tune --check`` reports it."""
+    import dataclasses
+
+    bad = [k for k in plan if k not in TUNABLE_FIELDS + PLAN_ONLY_KEYS]
+    if bad:
+        raise ConfigError(
+            f"tune plan carries unknown override(s) {sorted(bad)} "
+            f"(tunable: {list(TUNABLE_FIELDS)}, "
+            f"plan-only: {list(PLAN_ONLY_KEYS)})")
+    overrides = {k: plan[k] for k in TUNABLE_FIELDS if k in plan}
+    if not overrides:
+        return config
+    return dataclasses.replace(config, **overrides)
+
+
 def plan_segments(steps: int, snapshot_every: int) -> List[int]:
     """Split ``steps`` into evolution-segment lengths between snapshot
     points (the same plan as the reference, so snapshot series align)."""

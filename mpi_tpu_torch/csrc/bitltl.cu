@@ -76,6 +76,12 @@
 #ifndef LTL_HSUM
 #define LTL_HSUM 1
 #endif
+// rows a CTA writes: the CTA tile, a build variant the plan tuner searches
+// (mpi_tpu_torch/tune/space.py); a tile of more than 128 rows opts in to
+// more than the 48 KB of shared memory a kernel gets unasked
+#ifndef K3_ROWS
+#define K3_ROWS 128
+#endif
 #define LTL_STR2(x) #x
 #define LTL_STR(x) LTL_STR2(x)
 #include LTL_STR(LTL_RULE_HEADER)  // LTL_RULE_PLANES, ltl_rule(T, mid)
@@ -86,7 +92,7 @@ constexpr int R = LTL_RADIUS;
 constexpr int N = 2 * R + 1;           // rows and columns of a neighbourhood
 constexpr int kLanes = 32;             // words per tile row, ghosts included
 constexpr int kOwned = kLanes - 2;     // words a CTA writes per row
-constexpr int kRows = 128;             // rows a CTA writes
+constexpr int kRows = K3_ROWS;         // rows a CTA writes
 constexpr int kWarps = 8;
 constexpr unsigned kAll = 0xFFFFFFFFu;
 static_assert(R >= 2 && R <= 7, "K3 serves radius 2..7");
@@ -400,6 +406,14 @@ int gol_ltl_step(const void* in, void* out, int B, int H, int NW, int radius,
     return (int)cudaErrorInvalidConfiguration;
   const size_t smem =
       2u * (kRows + 2 * gens * R + 1) * kLanes * sizeof(uint32_t);
+#if K3_ROWS > 128
+  // the deepest pass's share, once per library
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      ltl_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(2u * (kRows + 2 * (8 / R > 1 ? 8 / R : 1) * R + 1) * kLanes *
+            sizeof(uint32_t)));
+  if (allowed != cudaSuccess) return (int)allowed;
+#endif
   ltl_step_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), H, NW,
       gens, periodic, col_limit);

@@ -107,6 +107,18 @@ def write_tile_packed(
     return path
 
 
+def read_tile_header(path: str) -> Tuple[int, int, int, int]:
+    """Just the ``(firstRow, lastRow, firstCol, lastCol)`` metadata of a
+    tile of either format, without reading its body."""
+    with open(path, "rb") as f:
+        first = f.readline()
+        if first == GOLP_MAGIC:
+            first = f.readline()
+        r0, r1 = map(int, first.split())
+        c0, c1 = map(int, f.readline().split())
+    return r0, r1, c0, c1
+
+
 def read_tile(path: str) -> Tuple[np.ndarray, Tuple[int, int, int, int]]:
     """Either tile format, sniffed by its magic."""
     with open(path, "rb") as f:
@@ -134,7 +146,18 @@ def read_tile(path: str) -> Tuple[np.ndarray, Tuple[int, int, int, int]]:
     return tile, (r0, r1, c0, c1)
 
 
+def list_snapshot_iterations(out_dir: str, name: str) -> List[int]:
+    """The iterations of run ``name`` that have tile files (pid 0's)."""
+    pat = re.compile(re.escape(name) + r"_(\d+)_0\.golp?$")
+    return sorted({
+        int(m.group(1))
+        for fn in os.listdir(out_dir or ".")
+        if (m := pat.match(fn))
+    })
+
+
 def iteration_tile_pids(out_dir: str, name: str, iteration: int) -> List[int]:
+    """The pids of the tile files present for one iteration."""
     pat = re.compile(re.escape(name) + "_" + str(iteration) + r"_(\d+)\.golp?$")
     return sorted({
         int(m.group(1))
@@ -143,25 +166,47 @@ def iteration_tile_pids(out_dir: str, name: str, iteration: int) -> List[int]:
     })
 
 
-def load_snapshot(out_dir: str, name: str, iteration: int) -> np.ndarray:
-    """The global grid saved at ``iteration``, stitched from its tiles;
-    raises if the tiles do not cover the grid."""
+def assemble(out_dir: str, name: str, iteration: int) -> np.ndarray:
+    """The global grid saved at ``iteration``, stitched from the tile files
+    present (a resumed run may have written another tile count than the
+    master header records); raises if they do not cover the grid."""
     rows, cols, _, _, _ = read_master(master_path(out_dir, name))
+    return assemble_region(out_dir, name, iteration, 0, rows, 0, cols)
+
+
+def load_snapshot(out_dir: str, name: str, iteration: int) -> np.ndarray:
+    """The checkpoint-restart entry: :func:`assemble`."""
+    return assemble(out_dir, name, iteration)
+
+
+def assemble_region(out_dir: str, name: str, iteration: int,
+                    r0: int, r1: int, c0: int, c1: int) -> np.ndarray:
+    """Rows ``[r0, r1)`` and columns ``[c0, c1)`` of a saved iteration,
+    reading the body of only the tiles that intersect them (their headers
+    say which); raises if the tiles do not cover the region."""
     pids = iteration_tile_pids(out_dir, name, iteration)
     if not pids:
         raise ValueError(f"snapshot {name}@{iteration}: no tile files found")
-    grid = np.zeros((rows, cols), dtype=np.uint8)
-    seen = np.zeros(grid.shape, dtype=bool)
+    region = np.zeros((r1 - r0, c1 - c0), dtype=np.uint8)
+    seen = np.zeros(region.shape, dtype=bool)
     for pid in pids:
-        tile, (r0, r1, c0, c1) = read_tile(find_tile_path(out_dir, name, iteration, pid))
-        grid[r0:r1 + 1, c0:c1 + 1] = tile
-        seen[r0:r1 + 1, c0:c1 + 1] = True
+        path = find_tile_path(out_dir, name, iteration, pid)
+        tr0, tr1, tc0, tc1 = read_tile_header(path)
+        ir0, ir1 = max(r0, tr0), min(r1, tr1 + 1)
+        ic0, ic1 = max(c0, tc0), min(c1, tc1 + 1)
+        if ir0 >= ir1 or ic0 >= ic1:
+            continue
+        tile, _ = read_tile(path)
+        region[ir0 - r0:ir1 - r0, ic0 - c0:ic1 - c0] = tile[
+            ir0 - tr0:ir1 - tr0, ic0 - tc0:ic1 - tc0]
+        seen[ir0 - r0:ir1 - r0, ic0 - c0:ic1 - c0] = True
     if not seen.all():
         raise ValueError(
             f"snapshot {name}@{iteration}: tiles cover only "
-            f"{int(seen.sum())}/{seen.size} cells"
+            f"{int(seen.sum())}/{seen.size} cells of region "
+            f"[{r0}:{r1}, {c0}:{c1}]"
         )
-    return grid
+    return region
 
 
 def remove_stale_tiles(out_dir: str, name: str, iteration: int, keep_pids) -> None:

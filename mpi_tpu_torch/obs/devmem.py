@@ -126,8 +126,12 @@ class DevMemSampler:
             if mgr is None:
                 return []
             st = mgr.cache.stats()
-            return [({"cache": "engine"}, st["size"]),
-                    ({"cache": "batched"}, st["batched"]["size"])]
+            out = [({"cache": "engine"}, st["size"]),
+                   ({"cache": "batched"}, st["batched"]["size"])]
+            tc = getattr(mgr, "tune_cache", None)
+            if tc is not None:
+                out.append(({"cache": "tune"}, len(tc)))
+            return out
 
         m.gauge_fn("mpi_tpu_engine_cache_entries",
                    "Compiled-engine, batched-stepper, and tune-cache "

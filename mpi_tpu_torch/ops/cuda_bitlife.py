@@ -31,6 +31,43 @@ from mpi_tpu_torch.ops._launch import (
 from mpi_tpu_torch.ops.bitlife import WORD, bit_step, mask_pad, packable
 
 MAX_GENS = 16
+# the CTA tile a build takes from -DK1_ROWS and -DK1_WPL (csrc/bitlife.cu):
+# rows a CTA writes, and words a lane holds (a tile row is 32 lanes wide)
+BLOCK_ROWS = (512, 256, 128, 64, 32)
+BLOCK_WPL = (4, 2, 1)
+# the dynamic shared memory one CTA may take on an H100 once the kernel
+# opts in (cudaFuncAttributeMaxDynamicSharedMemorySize): 227 KB
+SMEM_OPTIN_BYTES = 227 * 1024
+
+
+def rows_for(gens: int) -> int:
+    """Rows a CTA of the default build writes in a pass of ``gens``
+    generations (``csrc/bitlife.cu:rows_for``): 64 at gens 1, else 128."""
+    return 64 if gens == 1 else 128
+
+
+def max_tile_bytes(rows: int, wpl: int) -> int:
+    """Shared memory of the deepest pass of a build whose CTA writes
+    ``rows`` rows with ``wpl`` words a lane (``csrc/bitlife.cu:
+    max_tile_bytes``): ``(rows + 2 gens) x 32 wpl`` words, the most over
+    gens <= 16.  The library opts in to it once, for every pass, so a
+    build over the card's limit fails at every launch."""
+    return max((rows + 2 * g) * 32 * wpl * 4 for g in range(1, MAX_GENS + 1))
+
+
+def blocks_ok(rows: int, wpl: int, H: int = 1) -> bool:
+    """Whether a build with a CTA tile of ``rows`` rows and ``wpl`` words a
+    lane can run on an H grid: a tile the kernel compiles, within the
+    card's shared memory, and at most 65535 row tiles."""
+    return (rows in BLOCK_ROWS and wpl in BLOCK_WPL
+            and max_tile_bytes(rows, wpl) <= SMEM_OPTIN_BYTES
+            and -(-H // rows) <= 65535)
+
+
+def block_defines(blocks) -> dict:
+    """The macros of the build with CTA tile ``blocks`` = [rows, wpl]."""
+    rows, wpl = (int(v) for v in blocks)
+    return {"K1_ROWS": rows, "K1_WPL": wpl}
 
 
 def refusal(shape, rule: Rule, gens: int = 1,
@@ -86,7 +123,8 @@ def bit_step_plain(packed: torch.Tensor, rule: Rule = LIFE,
 def cuda_bit_step(packed: torch.Tensor, rule: Rule = LIFE,
                   boundary: str = "periodic", gens: int = 1,
                   out: Optional[torch.Tensor] = None,
-                  col_limit: Optional[int] = None) -> torch.Tensor:
+                  col_limit: Optional[int] = None,
+                  defines: Optional[dict] = None) -> torch.Tensor:
     """``gens`` generations of ``rule`` on the packed int32 grid ``packed``,
     (H, NW), or on each board of a (B, H, NW) batch in one launch.
 
@@ -96,7 +134,10 @@ def cuda_bit_step(packed: torch.Tensor, rule: Rule = LIFE,
     dtype and device, not overlapping ``packed``: the kernel cannot run in
     place, because neighbouring blocks read each other's rows); otherwise it
     is allocated.  The launch goes to the current stream and does not
-    synchronise.  ``cuda_bit_step.launches`` counts kernel launches."""
+    synchronise.  ``defines``: the macros of a build variant, e.g. a CTA
+    tile from :func:`block_defines` (None: the default build; the plain
+    version on the CPU has no tile).  ``cuda_bit_step.launches`` counts
+    kernel launches."""
     _check(packed, rule, boundary, gens, col_limit)
     if out is not None:
         check_out(out, packed, "K1")
@@ -108,8 +149,8 @@ def cuda_bit_step(packed: torch.Tensor, rule: Rule = LIFE,
 
     if out is None:
         out = torch.empty_like(packed)
-    launch(load_rule_library("bit", rule), packed, out, boundary, gens,
-           col_limit)
+    launch(load_rule_library("bit", rule, defines), packed, out, boundary,
+           gens, col_limit)
     cuda_bit_step.launches += 1
     return out
 

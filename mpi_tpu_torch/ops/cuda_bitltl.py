@@ -31,11 +31,44 @@ from mpi_tpu_torch.ops.bitlife import WORD, mask_pad
 from mpi_tpu_torch.ops.bitltl import ltl_step
 
 HALO = 8  # rows of halo per side: gens · radius may not exceed it
+# rows a CTA writes, from -DK3_ROWS (csrc/bitltl.cu; 128 by default)
+BLOCK_ROWS = (256, 128, 64, 32)
+DEFAULT_ROWS = 128
+# a kernel's dynamic shared memory without opting in, and with (H100);
+# a build of more than DEFAULT_ROWS rows opts in
+SMEM_DEFAULT_BYTES = 48 * 1024
+SMEM_OPTIN_BYTES = 227 * 1024
 
 
 def max_gens(radius: int) -> int:
     """Deepest temporal blocking the 8-row halo admits: ⌊8/r⌋."""
     return max(1, HALO // radius)
+
+
+def max_tile_bytes(rows: int, radius: int) -> int:
+    """Shared memory of the deepest pass of a build whose CTA writes
+    ``rows`` rows, for a radius-``radius`` rule (``csrc/bitltl.cu``): two
+    ping-pong buffers of ``rows + 2 gens r + 1`` rows of 32 words, the
+    most over gens <= ⌊8/r⌋."""
+    return max(2 * (rows + 2 * g * radius + 1) * 32 * 4
+               for g in range(1, max_gens(radius) + 1))
+
+
+def blocks_ok(rows: int, radius: int, H: int = 1) -> bool:
+    """Whether a build with a CTA of ``rows`` rows can run a radius-r rule
+    on an H grid: a tile the kernel compiles, within the shared memory it
+    may take (builds above 128 rows opt in to the card's 227 KB), and at
+    most 65535 row tiles."""
+    limit = SMEM_OPTIN_BYTES if rows > DEFAULT_ROWS else SMEM_DEFAULT_BYTES
+    return (rows in BLOCK_ROWS and 2 <= radius <= 7
+            and max_tile_bytes(rows, radius) <= limit
+            and -(-H // rows) <= 65535)
+
+
+def block_defines(blocks) -> dict:
+    """The macros of the build with CTA tile ``blocks`` = [rows]."""
+    (rows,) = (int(v) for v in blocks)
+    return {"K3_ROWS": rows}
 
 
 def refusal(shape, rule: Rule, gens: int = 1,
@@ -94,7 +127,8 @@ def ltl_step_plain(packed: torch.Tensor, rule: Rule,
 def cuda_ltl_step(packed: torch.Tensor, rule: Rule,
                   boundary: str = "periodic", gens: int = 1,
                   out: Optional[torch.Tensor] = None,
-                  col_limit: Optional[int] = None) -> torch.Tensor:
+                  col_limit: Optional[int] = None,
+                  defines: Optional[dict] = None) -> torch.Tensor:
     """``gens`` generations of the radius-r ``rule`` on the packed int32
     grid ``packed``, (H, NW), or on each board of a (B, H, NW) batch in one
     launch.
@@ -104,7 +138,10 @@ def cuda_ltl_step(packed: torch.Tensor, rule: Rule,
     generation.  ``out``, when given, receives the result (same shape,
     dtype and device, not overlapping ``packed``); otherwise it is
     allocated.  The launch goes to the current stream and does not
-    synchronise.  ``cuda_ltl_step.launches`` counts kernel launches."""
+    synchronise.  ``defines``: the macros of a build variant, e.g. a CTA
+    tile from :func:`block_defines` (None: the default build; the plain
+    version on the CPU has no tile).  ``cuda_ltl_step.launches`` counts
+    kernel launches."""
     _check(packed, rule, boundary, gens, col_limit)
     if out is not None:
         check_out(out, packed, "K3")
@@ -116,8 +153,8 @@ def cuda_ltl_step(packed: torch.Tensor, rule: Rule,
 
     if out is None:
         out = torch.empty_like(packed)
-    launch(load_rule_library("ltl", rule), packed, out, rule, boundary, gens,
-           col_limit)
+    launch(load_rule_library("ltl", rule, defines), packed, out, rule,
+           boundary, gens, col_limit)
     cuda_ltl_step.launches += 1
     return out
 

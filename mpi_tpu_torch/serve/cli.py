@@ -24,8 +24,8 @@ The flags and their help are the reference's (``mpi_tpu/serve/cli.py``),
 with ``--device {cuda,cpu}`` in place of its platform override: sessions
 step on the card (K1-K3) unless ``--device cpu`` asks for the kernels'
 plain versions, and a box without CUDA refuses to serve rather than fall
-back.  ``--tune-cache`` is kept but refused with exit status 2 until the
-tuner is ported (ROADMAP queue 1 item 12).
+back.  ``--tune-cache PATH|auto`` applies the tuner's cached winners
+(``mpi_tpu_torch/tune``) on every engine build miss.
 
 Cluster mode (``--peers`` / ``--peers-file``) is the reference's: N
 processes, each on the card, serve as one logical service over a shared
@@ -138,9 +138,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "(testing; env fallback MPI_TPU_FAULTS)")
     p.add_argument("--tune-cache", default=None, metavar="PATH",
                    help="apply autotuned plan winners from this tune "
-                   "cache on every engine build miss; not in this port "
-                   "yet (ROADMAP queue 1 item 12): giving it exits with "
-                   "status 2")
+                   "cache on every engine build miss (written by 'python "
+                   "-m mpi_tpu_torch.tune'); 'auto' resolves to "
+                   "<state-dir>/tune_cache.json when --state-dir is set, "
+                   "else the default perf/tune_cache_torch.json.  Unset: "
+                   "no cache is read, plans build exactly as requested")
     p.add_argument("--no-obs", action="store_true",
                    help="disable tracing/metrics entirely: /metrics answers "
                    "404 and the step path runs uninstrumented "
@@ -264,21 +266,21 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refusal(args) -> Optional[str]:
-    """The message for a flag this port keeps but cannot honour yet, or
-    None: no flag is quietly ignored."""
-    if args.tune_cache is not None:
-        return ("--tune-cache: autotuned plans are not in this port yet "
-                "(ROADMAP queue 1 item 12)")
-    return None
+def tune_cache_path(args) -> Optional[str]:
+    """The tune cache ``--tune-cache`` names: ``auto`` is
+    ``<state-dir>/tune_cache.json`` with ``--state-dir``, else
+    ``tune.default_cache_path()``; None without the flag."""
+    if args.tune_cache != "auto":
+        return args.tune_cache
+    if args.state_dir:
+        return os.path.join(args.state_dir, "tune_cache.json")
+    from mpi_tpu_torch.tune import default_cache_path
+
+    return default_cache_path()
 
 
 def serve_main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    refusal = _refusal(args)
-    if refusal is not None:
-        print(f"error: {refusal}", file=sys.stderr)
-        return 2
     from mpi_tpu_torch.backends.cuda import resolve_device
     from mpi_tpu_torch.config import ConfigError
     from mpi_tpu_torch.serve.cache import EngineCache
@@ -298,6 +300,7 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
 
         obs = Obs(trace_capacity=args.trace_capacity,
                   trace_log=args.trace_log)
+    tune_cache = tune_cache_path(args)
     try:
         manager = SessionManager(
             EngineCache(max_size=args.cache_size,
@@ -322,6 +325,7 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
             degrade=not args.no_degrade,
             faults=faults,
             obs=obs,
+            tune_cache=tune_cache,
             device=args.device,
             # cluster mode shares --state-dir across nodes: restore is
             # deferred to attach_cluster, which takes only owned records
@@ -456,6 +460,8 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
             extras.append(f"restored {manager.restored_sessions}")
     if faults:
         extras.append(f"faults '{faults}'")
+    if tune_cache:
+        extras.append(f"tune-cache {tune_cache}")
     if args.no_obs:
         extras.append("obs off")
     elif args.trace_log:

@@ -64,8 +64,9 @@ the kernels' own instruction counts, and when armed the flight recorder,
 anomaly detector, SLO engine, time series and device-memory sampler.
 Every instrumentation site guards on the handle and only reads what
 happened: ``obs=None`` runs the uninstrumented path, and obs never changes
-which device or engine steps a board.  Autotuned plans are ROADMAP item 12
-(the manager refuses ``tune_cache``).  Admission
+which device or engine steps a board.  Autotuned plans are opt-in,
+``SessionManager(tune_cache=TuneCache|path)`` (``mpi_tpu_torch/tune``):
+every cuda compile miss builds through the cache's winner.  Admission
 (``mpi_tpu_torch/admission``, ``AdmissionControl.arm``) sets
 ``manager.admission``; cluster mode (``attach_cluster``,
 ``mpi_tpu_torch/cluster``) sets ``manager.cluster``, and every cluster
@@ -367,9 +368,14 @@ class SessionManager:
                  defer_restore: bool = False,
                  device=None):
         self.obs = obs                  # mpi_tpu_torch.obs.Obs or None (off)
-        if tune_cache is not None:
-            raise ConfigError("autotuned plans (tune_cache) are ROADMAP "
-                              "queue 1 item 12")
+        # autotuned-plan application is OPT-IN: a TuneCache (or a path to
+        # one) makes every cuda create consult the cache on a compile miss;
+        # None (the default) leaves the build path as it is
+        if isinstance(tune_cache, str):
+            from mpi_tpu_torch.tune import TuneCache
+
+            tune_cache = TuneCache(tune_cache)
+        self.tune_cache = tune_cache
         self.device = device
         self._workers = set()           # running watchdog workers
         self.cache = cache if cache is not None else EngineCache()
@@ -690,8 +696,12 @@ class SessionManager:
             session = self._degraded_host_session(config, initial=initial)
             session.plan_sig = sig
             return session
+        # the tune cache rides the compile-miss seam: the signature is the
+        # REQUESTED plan's, so a cached winner costs no extra compiles and
+        # hit sessions share the tuned engine
         engine, hit = self.cache.get_or_build(
-            sig, lambda: build_engine(config, device=self.device))
+            sig, lambda: build_engine(config, device=self.device,
+                                      tune=self.tune_cache))
         if self.faults is not None:
             # idempotent: cached engines get the same hook re-installed
             engine.fault_hook = self.faults.engine_hook
@@ -1747,6 +1757,8 @@ class SessionManager:
                 d["batched_steps"] = session.batched_steps
                 if engine.sparse_plan is not None:
                     d["sparse"] = engine.sparse_stats(session.grid)
+                if getattr(engine, "tuned_plan", None):
+                    d["tuned_plan"] = dict(engine.tuned_plan)
             if session.degraded:
                 d["degraded"] = True
                 d["degraded_reason"] = session.degraded_reason

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``mpi_tpu_torch`` (its ``obs``,
-``admission``, ``serve`` and ``cluster`` packages, network fronts and
-native backends included) and not ``chip_smoke.py`` imports JAX or
+``admission``, ``serve``, ``cluster`` and ``tune`` packages, network
+fronts and native backends included) and not ``chip_smoke.py`` imports JAX or
 anything of the JAX package ``mpi_tpu``, no file of the port names the
 reference's native build directory, and the slices run, the network front
 served by its CLI and a cluster pair among them, with neither loaded."""
@@ -75,6 +75,47 @@ def test_cpu_slice_runs_without_loading_jax(tmp_path):
         "t = mgr.step_async(sid, 2)['ticket']\n"
         "assert mgr.ticket_result(t, wait=True)['result']['generation'] == 5\n"
         "mgr.shutdown()\n"
+        "bad = [m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_scan_covers_the_tuner():
+    """``tune/`` is scanned like every other package of the port."""
+    tuner = {os.path.relpath(p, ROOT) for p in _port_files()
+             if os.sep + "tune" + os.sep in p}
+    assert tuner == {os.path.join("mpi_tpu_torch", "tune", f) for f in (
+        "__init__.py", "__main__.py", "cache.py", "space.py", "tuner.py")}
+
+
+def test_tuner_and_profile_run_without_loading_jax(tmp_path):
+    """``python -m mpi_tpu_torch.tune`` (tune, ``--check``), a tuned
+    session, ``cli.py --profile`` and golio's readers on the CPU, with
+    neither JAX nor ``mpi_tpu`` loaded."""
+    cache = str(tmp_path / "tc.json")
+    code = (
+        "import sys\n"
+        "from mpi_tpu_torch import golio\n"
+        "from mpi_tpu_torch.cli import main\n"
+        "from mpi_tpu_torch.tune.__main__ import main as tune\n"
+        f"assert tune(['--device', 'cpu', '--rows', '32', '--cols', '64',"
+        f" '--steps', '2', '--reps', '1', '--quiet', '--cache',"
+        f" {cache!r}]) == 0\n"
+        f"assert tune(['--check', '--cache', {cache!r}]) == 0\n"
+        "from mpi_tpu_torch.serve import SessionManager\n"
+        f"mgr = SessionManager(device='cpu', tune_cache={cache!r})\n"
+        "assert mgr.step(mgr.create({'rows': 32, 'cols': 64})['id'], 2)\n"
+        "mgr.shutdown()\n"
+        f"assert main(['16', '64', '2', '4', '--save', '--device', 'cpu',"
+        f" '--quiet', '--name', 'p', '--out-dir', {str(tmp_path)!r},"
+        f" '--profile', {str(tmp_path / 'trace')!r}]) == 0\n"
+        f"its = golio.list_snapshot_iterations({str(tmp_path)!r}, 'p')\n"
+        f"golio.assemble_region({str(tmp_path)!r}, 'p', its[-1], 0, 8, 0, 8)\n"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'mpi_tpu')]\n"
         "assert not bad, bad\n"

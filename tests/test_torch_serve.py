@@ -245,9 +245,23 @@ def test_native_backends_name_their_roadmap_item(make_manager, backend):
 
 
 @pytest.mark.parametrize("kw,item", [(dict(tune_cache="x"), "item 12")])
-def test_obs_and_tune_cache_name_their_roadmap_item(kw, item):
-    with pytest.raises(ConfigError, match=item):
-        SessionManager(device="cpu", **kw)
+def test_obs_and_tune_cache_name_their_roadmap_item(kw, item, tmp_path):
+    """ROADMAP queue 1 item 12 is done: a ``tune_cache`` path opens a
+    ``TuneCache`` (a missing file is an empty cache), and every cuda
+    create builds through it."""
+    from mpi_tpu_torch.tune import TuneCache
+
+    path = str(tmp_path / kw["tune_cache"])
+    mgr = SessionManager(device="cpu", tune_cache=path)
+    try:
+        assert isinstance(mgr.tune_cache, TuneCache)
+        assert mgr.tune_cache.path == path and len(mgr.tune_cache) == 0
+        assert mgr.tune_cache.load_error is None
+        s = mgr.create({"rows": 32, "cols": 32, "seed": 4})
+        assert mgr.get(s["id"]).engine.tuned_plan is None
+        assert "tuned_plan" not in s
+    finally:
+        mgr.shutdown()
 
 
 def test_default_backend_is_cuda_on_the_card():

@@ -1,6 +1,6 @@
 """The port's ``serve`` verb (``python -m mpi_tpu_torch.cli serve``,
-``mpi_tpu_torch/serve/cli.py``) on the CPU: its refusal (``--tune-cache``
-exits with status 2, naming its ROADMAP item), its cluster flags (the
+``mpi_tpu_torch/serve/cli.py``) on the CPU: ``--tune-cache`` (``auto``
+under a state dir), its cluster flags (the
 reference's, with the reference's defaults), its default device (no CUDA:
 it refuses to serve rather than fall back to the CPU), its startup line,
 cluster mode's startup line and refusals; the reference's
@@ -112,22 +112,27 @@ def _server_process(args):
     (["--proxy-backoff-ms", "5"], "item 11c"),
     (["--proxy-timeout-s", "1"], "item 11c"),
 ])
-def test_unported_flags_exit_2_naming_their_item(flags, item, capsys):
-    """``--tune-cache`` (item 12) is still refused: exit status 2 naming
-    its item.  The cluster flags (item 11c) were refused the same way
-    until cluster mode was ported; each now parses to the reference's
-    value and nothing refuses it."""
+def test_unported_flags_exit_2_naming_their_item(flags, item, capsys,
+                                                tmp_path):
+    """Each flag was refused with exit status 2 naming its ROADMAP item
+    until the item was ported: ``--tune-cache`` (item 12) now starts the
+    server, ``auto`` resolving to ``<state-dir>/tune_cache.json``, and
+    the cluster flags (item 11c) parse to the reference's values; nothing
+    refuses any of them."""
     if item == "item 12":
-        assert serve_cli.serve_main(["--port", "0", "--device", "cpu",
-                                     *flags]) == 2
-        err = capsys.readouterr().err
-        assert flags[0] in err and item in err and "ROADMAP" in err
-        return
+        state = str(tmp_path / "state")
+        with _server_process(SERVE + ["--state-dir", state, *flags]) as (
+                _, host, port, line):
+            want = os.path.join(state, "tune_cache.json")
+            assert f"tune-cache {want}" in line
+            assert _http(host, port, "GET", "/stats")["sessions"] == []
+        args = serve_cli.build_parser().parse_args(
+            ["--state-dir", state, *flags])
+        assert serve_cli.tune_cache_path(args) == want
     ours = serve_cli.build_parser().parse_args(["--port", "0", *flags])
     ref = ref_serve_cli.build_parser().parse_args(["--port", "0", *flags])
     dest = flags[0].lstrip("-").replace("-", "_")
     assert getattr(ours, dest) == getattr(ref, dest)
-    assert serve_cli._refusal(ours) is None
 
 
 def test_cluster_flags_keep_the_references_defaults_and_help():

@@ -195,7 +195,19 @@ Phases; any failure exits non-zero before the result line:
    mpi_tpu_torch.cli 4096 4096 0 64 --profile DIR`` on the card, whose
    Chrome trace holds K1 records equal to the K1 launches the process
    counted (the trace rule, one retake).  The speedup is printed, not
-   judged.
+   judged;
+11. static analysis (``mpi_tpu_torch/analysis``) on the card: ``python -m
+   mpi_tpu_torch.analysis`` as a subprocess must exit 0 (no finding, no
+   unused suppression); the launch-level verifier's whole matrix
+   (``analysis/ir``: 13 cells of 64 rows, two recorded steps each, the
+   steps without sparse stepping under ``set_sync_debug_mode("error")``)
+   runs on the card with zero findings, each cell's fingerprint the one
+   blessed on the CPU in ``analysis/ir/baseline.json``, K1, K2 and K3
+   each launched by their wrappers' counters, and each cell's boards
+   after one step and after two equal to the same cell's on the CPU (the
+   plain versions); and one seeded fault, the seam stepper that takes its
+   band from the pass's input after the kernel launch, must be flagged
+   by ``ir-donation`` on the card.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -230,6 +242,11 @@ import torch  # noqa: E402
 from mpi_tpu_torch import golio, tune  # noqa: E402
 from mpi_tpu_torch.admission import AdmissionControl  # noqa: E402
 from mpi_tpu_torch.admission.tenants import normalize_tenants  # noqa: E402
+from mpi_tpu_torch.analysis import ir  # noqa: E402
+from mpi_tpu_torch.analysis.ir import checks as ir_checks  # noqa: E402
+from mpi_tpu_torch.analysis.ir.faults import late_band_seam  # noqa: E402
+from mpi_tpu_torch.analysis.ir.harness import record_engine  # noqa: E402
+from mpi_tpu_torch.analysis.ir.matrix import cell_by_id  # noqa: E402
 from mpi_tpu_torch.backends import cuda as backend  # noqa: E402
 from mpi_tpu_torch.backends.cpp import plan_tiles  # noqa: E402
 from mpi_tpu_torch.backends.serial_np import evolve_np  # noqa: E402
@@ -246,7 +263,7 @@ from mpi_tpu_torch.obs.cost import (  # noqa: E402
 from mpi_tpu_torch.obs.devmem import read_device_memory  # noqa: E402
 from mpi_tpu_torch.obs.metrics import FAMILIES  # noqa: E402
 from mpi_tpu_torch.obs.profile import capturing, run_profile  # noqa: E402
-from mpi_tpu_torch.ops import _build, activity  # noqa: E402
+from mpi_tpu_torch.ops import _build, _launch, activity  # noqa: E402
 from mpi_tpu_torch.ops.bitlife import (  # noqa: E402
     bit_step, init_packed, pack, population, unpack, word_ops,
 )
@@ -4299,6 +4316,91 @@ def phase10_tune(card: str, errs: dict) -> dict:
     return out
 
 
+def _lint_tree() -> dict:
+    """``python -m mpi_tpu_torch.analysis`` under this machine's Python:
+    its JSON summary, or a failure unless it exits 0."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi_tpu_torch.analysis", "--format", "json"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"python -m mpi_tpu_torch.analysis exited {proc.returncode}:\n"
+             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout)["summary"]
+
+
+def phase11_analysis(card: str) -> None:
+    """Static analysis on the card: the AST suite over the checkout, the
+    launch-level verifier's whole matrix on the card against the CPU's
+    blessed fingerprints and the CPU's boards, and one seeded fault that
+    ``ir-donation`` must flag there."""
+    t_phase = time.perf_counter()
+    lint = _lint_tree()
+    lint_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    card_rep = ir.run_ir(device="cuda")
+    launches = _launches()
+    card_s = time.perf_counter() - t0
+    if not card_rep.clean:
+        fail("launch verifier on the card: "
+             + "; ".join([f.format() for f in card_rep.findings]
+                         + card_rep.errors))
+    missing = [kid for kid, n in launches.items() if not n]
+    if missing:
+        fail(f"the launch matrix launched no {missing} on the card")
+    baseline = ir.load_baseline()
+    drifted = [rc.cell.id for rc in card_rep.recorded
+               if baseline.get(rc.cell.id, {}).get("fingerprint")
+               != rc.fingerprint]
+    if drifted or len(card_rep.recorded) != len(baseline):
+        fail(f"card fingerprints differ from the CPU-blessed baseline: "
+             f"{drifted}")
+    t0 = time.perf_counter()
+    cpu_rep = ir.run_ir(device="cpu")
+    cpu_s = time.perf_counter() - t0
+    plain = {rc.cell.id: rc for rc in cpu_rep.recorded}
+    unequal = [rc.cell.id for rc in card_rep.recorded
+               for mine, theirs in ((rc.boards_1, plain[rc.cell.id].boards_1),
+                                    (rc.boards_2, plain[rc.cell.id].boards_2))
+               if any(not np.array_equal(a, b) for a, b in zip(mine, theirs))]
+    if not cpu_rep.clean or unequal:
+        fail(f"launch matrix: boards on the card differ from the plain "
+             f"versions' in {unequal}; CPU findings {cpu_rep.findings}")
+
+    # what the disarmed hook costs a wrapper call (host microseconds)
+    x = torch.zeros((1, 1), dtype=torch.int32,
+                    device=backend.resolve_device())
+    n, t0 = 100000, time.perf_counter()
+    for _ in range(n):
+        with _launch.recording("K1", x, rule=LIFE, boundary="periodic",
+                               gens=1, col_limit=None) as rec:
+            rec.done(x)
+    hook_us = (time.perf_counter() - t0) / n * 1e6
+
+    cell = cell_by_id("seam_1x1")
+    engine = backend.build_engine(cell.make_config())
+    faulty = record_engine(cell, engine, late_band_seam(engine))
+    fault = [f for f in ir_checks.check_donation(faulty)
+             if "after the launch took it" in f.message]
+    if not fault:
+        fail("the seeded late band read was not flagged by ir-donation on "
+             "the card")
+    emit({"phase": "analysis", "card": card,
+          "lint": lint, "lint_s": lint_s,
+          "cells": len(card_rep.recorded), "launches": launches,
+          "recorded_launches": card_rep.launches(),
+          "host_reads": sum(rc.host_read_count for rc in card_rep.recorded),
+          "findings": len(card_rep.findings),
+          "fingerprints": {rc.cell.id: rc.fingerprint
+                           for rc in card_rep.recorded},
+          "card_matrix_s": card_s, "cpu_matrix_s": cpu_s,
+          "disarmed_hook_us_a_call": hook_us,
+          "seeded_fault_findings": len(fault),
+          "seeded_fault": fault[0].message,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     card = phase0_card()
     seconds, t0 = {}, time.perf_counter()
@@ -4328,6 +4430,8 @@ def main() -> int:
     lap("cluster")
     tiles = phase10_tune(card, errs)
     lap("tune")
+    phase11_analysis(card)
+    lap("analysis")
     emit({"phase": "seconds", **seconds})
     k1 = times["K1", MAIN_GENS]
     k2 = times["K2", DENSE_PATH[2]]

@@ -1,6 +1,8 @@
 """What every kernel wrapper checks around a launch: the grid's board axis,
 a padded grid's real width, the ``out`` tensor it was handed, and the error
-code the C entry point returns."""
+code the C entry point returns; and the recorder of the launch-level
+verifier (``mpi_tpu_torch/analysis/ir``), which every wrapper reports its
+calls to while it is armed."""
 
 from __future__ import annotations
 
@@ -67,3 +69,38 @@ def raise_on_error(lib, err: int, kernel: str) -> None:
     if err:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
                            f"({lib.gol_error_string(err).decode()})")
+
+
+class _Disarmed:
+    """What :func:`recording` gives while no recorder is armed: nothing."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def done(self, out: torch.Tensor) -> None:
+        pass
+
+
+_DISARMED = _Disarmed()
+_recorder = None
+
+
+def arm(recorder):
+    """Arm ``recorder`` (None disarms); returns the one it replaces.  An
+    armed recorder's ``launch(kernel, x, meta)`` is entered around every
+    wrapper call, on the CPU's plain version as on the card's kernel, and
+    told the call's ``out`` (``done``) once it has been written."""
+    global _recorder
+    previous, _recorder = _recorder, recorder
+    return previous
+
+
+def recording(kernel: str, x: torch.Tensor, **meta):
+    """The context a wrapper runs its call in: the armed recorder's record
+    of the call of ``kernel`` on ``x`` with ``meta`` (rule, boundary, gens,
+    col_limit), or a no-op when none is armed."""
+    rec = _recorder
+    return _DISARMED if rec is None else rec.launch(kernel, x, meta)

@@ -26,7 +26,7 @@ import torch
 
 from mpi_tpu_torch.models.rules import LIFE, Rule
 from mpi_tpu_torch.ops._launch import (
-    boards, check_col_limit, check_cuda, check_out, raise_on_error,
+    boards, check_col_limit, check_cuda, check_out, raise_on_error, recording,
 )
 from mpi_tpu_torch.ops.bitlife import WORD, bit_step, mask_pad, packable
 
@@ -141,17 +141,21 @@ def cuda_bit_step(packed: torch.Tensor, rule: Rule = LIFE,
     _check(packed, rule, boundary, gens, col_limit)
     if out is not None:
         check_out(out, packed, "K1")
-    if packed.device.type == "cpu":
-        res = bit_step_plain(packed, rule, boundary, gens, col_limit)
-        return res if out is None else out.copy_(res)
-    check_cuda(packed, "K1")
-    from mpi_tpu_torch.ops._build import load_rule_library
+    with recording("K1", packed, rule=rule, boundary=boundary, gens=gens,
+                   col_limit=col_limit) as rec:
+        if packed.device.type == "cpu":
+            res = bit_step_plain(packed, rule, boundary, gens, col_limit)
+            out = res if out is None else out.copy_(res)
+        else:
+            check_cuda(packed, "K1")
+            from mpi_tpu_torch.ops._build import load_rule_library
 
-    if out is None:
-        out = torch.empty_like(packed)
-    launch(load_rule_library("bit", rule, defines), packed, out, boundary,
-           gens, col_limit)
-    cuda_bit_step.launches += 1
+            if out is None:
+                out = torch.empty_like(packed)
+            launch(load_rule_library("bit", rule, defines), packed, out,
+                   boundary, gens, col_limit)
+            cuda_bit_step.launches += 1
+        rec.done(out)
     return out
 
 

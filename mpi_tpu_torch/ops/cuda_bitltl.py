@@ -25,7 +25,7 @@ import torch
 
 from mpi_tpu_torch.models.rules import Rule
 from mpi_tpu_torch.ops._launch import (
-    boards, check_col_limit, check_cuda, check_out, raise_on_error,
+    boards, check_col_limit, check_cuda, check_out, raise_on_error, recording,
 )
 from mpi_tpu_torch.ops.bitlife import WORD, mask_pad
 from mpi_tpu_torch.ops.bitltl import ltl_step
@@ -145,17 +145,21 @@ def cuda_ltl_step(packed: torch.Tensor, rule: Rule,
     _check(packed, rule, boundary, gens, col_limit)
     if out is not None:
         check_out(out, packed, "K3")
-    if packed.device.type == "cpu":
-        res = ltl_step_plain(packed, rule, boundary, gens, col_limit)
-        return res if out is None else out.copy_(res)
-    check_cuda(packed, "K3")
-    from mpi_tpu_torch.ops._build import load_rule_library
+    with recording("K3", packed, rule=rule, boundary=boundary, gens=gens,
+                   col_limit=col_limit) as rec:
+        if packed.device.type == "cpu":
+            res = ltl_step_plain(packed, rule, boundary, gens, col_limit)
+            out = res if out is None else out.copy_(res)
+        else:
+            check_cuda(packed, "K3")
+            from mpi_tpu_torch.ops._build import load_rule_library
 
-    if out is None:
-        out = torch.empty_like(packed)
-    launch(load_rule_library("ltl", rule, defines), packed, out, rule,
-           boundary, gens, col_limit)
-    cuda_ltl_step.launches += 1
+            if out is None:
+                out = torch.empty_like(packed)
+            launch(load_rule_library("ltl", rule, defines), packed, out,
+                   rule, boundary, gens, col_limit)
+            cuda_ltl_step.launches += 1
+        rec.done(out)
     return out
 
 

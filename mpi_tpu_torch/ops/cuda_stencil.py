@@ -21,7 +21,7 @@ import torch
 
 from mpi_tpu_torch.models.rules import LIFE, Rule
 from mpi_tpu_torch.ops._launch import (
-    boards, check_cuda, check_out, raise_on_error,
+    boards, check_cuda, check_out, raise_on_error, recording,
 )
 from mpi_tpu_torch.ops.stencil import step
 
@@ -98,24 +98,29 @@ def cuda_dense_step(grid: torch.Tensor, rule: Rule = LIFE,
     _check(grid, rule, boundary, gens)
     if out is not None:
         check_out(out, grid, "K2")
-    if grid.device.type == "cpu":
-        res = dense_step_plain(grid, rule, boundary, gens)
-        return res if out is None else out.copy_(res)
-    check_cuda(grid, "K2")
-    from mpi_tpu_torch.ops._build import load_library
+    with recording("K2", grid, rule=rule, boundary=boundary, gens=gens,
+                   col_limit=None) as rec:
+        if grid.device.type == "cpu":
+            res = dense_step_plain(grid, rule, boundary, gens)
+            out = res if out is None else out.copy_(res)
+        else:
+            check_cuda(grid, "K2")
+            from mpi_tpu_torch.ops._build import load_library
 
-    lib = load_library()
-    if out is None:
-        out = torch.empty_like(grid)
-    B, H, W = boards(grid)
-    with torch.cuda.device(grid.device):
-        stream = torch.cuda.current_stream(grid.device).cuda_stream
-        err = lib.gol_dense_step(
-            grid.data_ptr(), out.data_ptr(), B, H, W, rule.radius, gens,
-            int(boundary == "periodic"), rule_table(rule), stream,
-        )
-    raise_on_error(lib, err, "K2")
-    cuda_dense_step.launches += 1
+            lib = load_library()
+            if out is None:
+                out = torch.empty_like(grid)
+            B, H, W = boards(grid)
+            with torch.cuda.device(grid.device):
+                stream = torch.cuda.current_stream(grid.device).cuda_stream
+                err = lib.gol_dense_step(
+                    grid.data_ptr(), out.data_ptr(), B, H, W, rule.radius,
+                    gens, int(boundary == "periodic"), rule_table(rule),
+                    stream,
+                )
+            raise_on_error(lib, err, "K2")
+            cuda_dense_step.launches += 1
+        rec.done(out)
     return out
 
 

@@ -199,15 +199,43 @@ Phases; any failure exits non-zero before the result line:
 11. static analysis (``mpi_tpu_torch/analysis``) on the card: ``python -m
    mpi_tpu_torch.analysis`` as a subprocess must exit 0 (no finding, no
    unused suppression); the launch-level verifier's whole matrix
-   (``analysis/ir``: 13 cells of 64 rows, two recorded steps each, the
-   steps without sparse stepping under ``set_sync_debug_mode("error")``)
-   runs on the card with zero findings, each cell's fingerprint the one
+   (``analysis/ir``: 33 cells of 64 rows, 20 of them on meshes of virtual
+   shards of the card, two recorded steps each, the steps without sparse
+   stepping under ``set_sync_debug_mode("error")``, the mesh cells' halo
+   exchanges held to ``ir-collective``) runs on the card with zero
+   findings, each cell's fingerprint the one
    blessed on the CPU in ``analysis/ir/baseline.json``, K1, K2 and K3
    each launched by their wrappers' counters, and each cell's boards
    after one step and after two equal to the same cell's on the CPU (the
    plain versions); and one seeded fault, the seam stepper that takes its
    band from the pass's input after the kernel launch, must be flagged
-   by ``ir-donation`` on the card.
+   by ``ir-donation`` on the card;
+12. the single-process mesh (``parallel/``, ``backends/cuda_mesh.py``)
+   on virtual shards of the one card (``make_mesh(shape,
+   devices=[cuda:0] * n)``): ``build_engine`` with the mesh at the
+   flagship's width for Life (65536², 2x2, comm_every 8, 1500
+   generations) with and without ``overlap`` (K1 interiors), Bosco
+   (65536², 1x2, comm_every 1, 200; K3), dense Bosco (16384², 2x2,
+   comm_every 7, 1201: K·r = 35 is past one ghost word, so K2 in chunks
+   of 3; at comm_every 3 a mesh takes K3, as the reference's does) and
+   padded periodic Life (65000², 1x2,
+   comm_every 8, 1500; K1 with a local ``col_limit`` and the seam band
+   across the shard columns on K2).  Each path's launch counts, read just
+   after its steps with the counters reset just before its build, must
+   equal shards x passes x windows (five with the overlap body) in the
+   kernel's chunks plus its warm-ups; its whole final grid, gathered on
+   the card, must equal phase 3's single-device final of the same config
+   (SHA-256 of the grid's bytes, and the population); its steady seconds
+   and cell-updates/s print beside the 1x1 path's, and one
+   ``torch.profiler`` window of four passes gives the exchange's copies'
+   device ms and the idle share.  Then the CLI: ``--mesh 1x1`` on the
+   card equal to the serial oracle, ``--mesh 2x2`` on the one card
+   refused with the reference's message before any file is written, and
+   ``--mesh 2x2 --device cpu --save`` whose every tile equals the serial
+   oracle's.  Phase 2 holds K1-K3 at these paths' shard windows (dead
+   boundary, the padded shard's local ``col_limit``, the Life overlap
+   bands, the dense path's 16-aligned windows at gens 3 and 1) to their
+   plain versions.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -215,8 +243,11 @@ as its last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import filecmp
+import hashlib
+import io
 import http.client
 import json
 import os
@@ -248,6 +279,7 @@ from mpi_tpu_torch.analysis.ir.faults import late_band_seam  # noqa: E402
 from mpi_tpu_torch.analysis.ir.harness import record_engine  # noqa: E402
 from mpi_tpu_torch.analysis.ir.matrix import cell_by_id  # noqa: E402
 from mpi_tpu_torch.backends import cuda as backend  # noqa: E402
+from mpi_tpu_torch.backends.cuda_mesh import chunk_gens  # noqa: E402
 from mpi_tpu_torch.backends.cpp import plan_tiles  # noqa: E402
 from mpi_tpu_torch.backends.serial_np import evolve_np  # noqa: E402
 from mpi_tpu_torch.cli import main as cli_main  # noqa: E402
@@ -265,7 +297,7 @@ from mpi_tpu_torch.obs.metrics import FAMILIES  # noqa: E402
 from mpi_tpu_torch.obs.profile import capturing, run_profile  # noqa: E402
 from mpi_tpu_torch.ops import _build, _launch, activity  # noqa: E402
 from mpi_tpu_torch.ops.bitlife import (  # noqa: E402
-    bit_step, init_packed, pack, population, unpack, word_ops,
+    bit_step, init_packed, pack, pad_mask, population, unpack, word_ops,
 )
 from mpi_tpu_torch.ops.bitltl import (  # noqa: E402
     ltl_step, ltl_word_ops, ltl_word_ops_lower,
@@ -288,6 +320,7 @@ from mpi_tpu_torch.ops.stencil import (  # noqa: E402
     counts_from_padded, dense_cell_ops, pad_grid,
 )
 from mpi_tpu_torch.parallel import seam  # noqa: E402
+from mpi_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from mpi_tpu_torch.serve import (  # noqa: E402
     DeadlineError, EngineCache, EngineUnavailableError, SessionManager, wire,
 )
@@ -947,6 +980,60 @@ def _stripe_exact(rng) -> dict:
     return out
 
 
+def _mesh_window_exact(rng) -> dict:
+    """K1-K3 at the shard windows phase 12's mesh paths launch them on (a
+    shard with its ghosts, an edge shard, the Life overlap body's bands,
+    the padded path's last shard with its local ``col_limit``, the dense
+    path's aligned windows at each chunk depth) and at small ragged
+    windows, dead boundary, against their plain versions, exact."""
+    H, Hd, P = FLAGSHIP // 2, DENSE // 2, PADDED
+    cases = {
+        # (shape in rows and words or cells, rule, gens, col_limit)
+        "K1": [((H + 16, 1026), LIFE, 8, None),     # Life 2x2, K 8
+               ((H + 8, 1025), LIFE, 8, None),      # its dead corner shard
+               ((32, 1026), LIFE, 8, None),         # overlap top band
+               ((H + 16, 3), LIFE, 8, None),        # overlap lateral band
+               ((P + 16, 1017), LIFE, 8, 32520),    # padded 1x2, shard 1
+               ((P + 16, 1017), LIFE, 4, 32520),
+               ((37, 5), HIGHLIFE, 3, 131), ((9, 2), LIFE, 16, 33)],
+        "K3": [((FLAGSHIP + 10, 1026), BOSCO, 1, None),  # Bosco 1x2
+               ((20, 1026), BOSCO, 1, None),        # overlap top band
+               ((FLAGSHIP + 10, 4), BOSCO, 1, None),  # lateral band
+               ((70, 9), R2, 4, 260), ((41, 3), BOSCO, 1, 80)],
+        # dense Bosco 2x2 at comm_every 7: a pass's window is 35 ghosts a
+        # side, its width padded to a multiple of 16 (K2's aligned rows),
+        # stepped in chunks of 3, 3, 1; the last pass of 4 in 3, 1
+        "K2": [((Hd + 70, Hd + 80), BOSCO, 3, None),
+               ((Hd + 70, Hd + 80), BOSCO, 1, None),
+               ((Hd + 40, Hd + 48), BOSCO, 3, None),
+               ((Hd + 40, Hd + 48), BOSCO, 1, None),
+               # a dead 2x2 mesh's corner shards: (0, 0) with its right
+               # ghost (aligned), (1, 1) ending at the global edge (not)
+               ((Hd + 35, Hd + 48), BOSCO, 3, None),
+               ((Hd + 35, Hd + 35), BOSCO, 3, None),
+               ((33, 70), R2, 8, None)],
+    }
+    pairs = {"K1": (cuda_bit_step, bit_step_plain),
+             "K3": (cuda_ltl_step, ltl_step_plain),
+             "K2": (cuda_dense_step, dense_step_plain)}
+    out = {}
+    for kid, rows in cases.items():
+        kernel, plain = pairs[kid]
+        o = out[kid] = {"cases": 0, "max_abs_err": 0, "shapes": []}
+        for shape, rule, gens, limit in rows:
+            x = _cells(rng, shape) if kid == "K2" else _words(rng, shape)
+            kw = {} if kid == "K2" else {"col_limit": limit}
+            if limit is not None:  # a padded grid's pad is dead
+                x = x & pad_mask(shape[1], limit, "cuda")
+            o["max_abs_err"] = max(o["max_abs_err"], _compare(
+                kernel, plain, x, rule, "dead", gens, **kw))
+            o["cases"] += 1
+            o["shapes"].append([list(shape), gens, limit])
+            del x
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase2_exact() -> dict:
     rng = np.random.default_rng(SEED)
     errs = {}
@@ -967,6 +1054,12 @@ def phase2_exact() -> dict:
         errs[kid] = max([err, stripes[kid]["max_abs_err"]]
                         + [v["max_abs_err"] for v in extra.values()
                            if isinstance(v, dict)])
+    t0 = time.perf_counter()
+    windows = _mesh_window_exact(rng)
+    emit({"phase": "mesh_windows_vs_plain", "boundary": "dead",
+          "seconds": time.perf_counter() - t0, **windows})
+    for kid, o in windows.items():
+        errs[kid] = max(errs[kid], o["max_abs_err"])
     if any(errs.values()):
         fail(f"a kernel disagrees with its plain version (tolerance: exact): "
              f"{errs}")
@@ -1003,6 +1096,20 @@ def _plain_final(kind, rows, cols, rule, steps, boundary="periodic",
     else:
         evolve = segmented_evolve(one_pass, comm_every)
     return evolve(g, steps, None)[0]
+
+
+# (label, kernel) -> phase 3's single-device final: the digest of its grid
+# (packed words at the padded width, or cells), population, steady s, rate
+FINALS = {}
+
+
+def _digest(g: torch.Tensor) -> str:
+    """SHA-256 of a device grid's bytes, read back a block of rows at a
+    time."""
+    h = hashlib.sha256()
+    for r0 in range(0, g.shape[0], 4096):
+        h.update(g[r0:r0 + 4096].contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _blocks_differ(final: np.ndarray, g: torch.Tensor, packed: bool) -> int:
@@ -1044,6 +1151,11 @@ def _drive(label, kid, kind, shape, rule, comm_every, steps,
     plain_pop = (int(g.sum(dtype=torch.int64).item()) if kind == "dense"
                  else population(g))
     differ = _blocks_differ(final, g, kind != "dense")
+    # phase 12 holds the mesh's grid of this config to this one
+    FINALS[label, kid] = {"digest": _digest(g), "population": pop,
+                          "steady_s": timer.nosetup_us / 1e6,
+                          "cell_updates_per_s": timer.cells_per_sec(
+                              rows, cols, steps)}
     del g
     torch.cuda.empty_cache()
     if pop != plain_pop or differ:
@@ -1390,11 +1502,11 @@ def _ping_pong(fn, x):
     return one
 
 
-def _pass_ms(kernel, x, rule, gens, reps=20) -> float:
+def _pass_ms(kernel, x, rule, gens, reps=20, boundary="periodic") -> float:
     """ms per pass, ping-ponging as the engine does: each pass reads the
     last output."""
     one_pass = _ping_pong(
-        lambda a, b: kernel(a, rule, "periodic", gens, out=b), x)
+        lambda a, b: kernel(a, rule, boundary, gens, out=b), x)
     for _ in range(3):
         one_pass()
     return _events_ms(one_pass, reps)
@@ -4400,6 +4512,267 @@ def phase11_analysis(card: str) -> None:
           "seeded_fault": fault[0].message,
           "phase_s": time.perf_counter() - t_phase})
 
+# -- phase 12: the mesh on one card ------------------------------------------
+
+# (label, the phase-3 final it must equal, kind, rows, cols, rule,
+#  comm_every, steps, mesh, overlap, boundary): the four mesh paths at the
+# flagship's width, on virtual shards of the one card
+MESH_PATHS = (
+    ("life_2x2", ("life", "K1"), "bit", FLAGSHIP, FLAGSHIP, LIFE, MAIN_GENS,
+     MAIN_STEPS, (2, 2), False, "periodic"),
+    ("life_2x2_overlap", ("life", "K1"), "bit", FLAGSHIP, FLAGSHIP, LIFE,
+     MAIN_GENS, MAIN_STEPS, (2, 2), True, "periodic"),
+    ("bosco_1x2", ("bosco", "K3"), "ltl", FLAGSHIP, FLAGSHIP, BOSCO, 1, 200,
+     (1, 2), False, "periodic"),
+    # at comm_every 3 (K·r = 15) a mesh takes the bit-sliced stepper, as
+    # the reference's does; K·r > 31 is its dense route: K2 in chunks of 3
+    ("dense_bosco_2x2", ("bosco", "K2"), "dense", DENSE, DENSE, BOSCO, 7,
+     1201, (2, 2), False, "periodic"),
+    ("padded_life_1x2", ("padded_life", "K1"), "bit", PADDED, PADDED, LIFE,
+     8, 1500, (1, 2), False, "periodic"),
+)
+MESH_TRACE_PASSES = 4   # passes in each path's profiled window
+
+
+def _mesh_expected(engine, steps: int) -> dict:
+    """The launches of a mesh engine's warm-up and ``steps`` generations:
+    every shard one window a pass (five with the overlap body), each window
+    in the kernel's chunks (``chunk_gens``), plus one warm-up launch per
+    chunk depth; a seam grid adds K2's band, one a pass and one warm-up a
+    pass depth."""
+    K = min(engine.depth, steps)
+    full, rem = divmod(steps, K)
+    rule = engine.config.rule
+    top = max(chunk_gens(engine.kind, rule, [K]))
+
+    def chunks(k):
+        return -(-k // top)
+
+    windows = engine.mi * engine.mj * (5 if engine.overlap else 1)
+    out = {kid: 0 for kid in KERNELS}
+    out[engine.kernel_id] = (
+        windows * (full * chunks(K) + (chunks(rem) if rem else 0))
+        + len(chunk_gens(engine.kind, rule, engine.depths)))
+    if engine.seam:
+        out["K2"] += full + bool(rem) + len(engine.depths)
+    return out
+
+
+def _mesh_window(engine, grid, k_passes: int):
+    """One ``torch.profiler`` window of ``k_passes`` passes: the device
+    time of the path's kernel, of the other kernels of K1-K3 (the seam
+    band's K2), and of everything else (the exchange's and the crop's
+    copies, the overlap stitch, the seam's gather and stitch), and the
+    device's idle share of the window, by the union of the kernels'
+    intervals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        with record_function("steady"):
+            grid = engine.step(grid, k_passes * engine.depth)
+            engine.sync()
+    events = prof.events()
+    steady = next(e.time_range for e in events if e.name == "steady"
+                  and e.device_type == DeviceType.CPU)
+    spans = sorted((max(e.time_range.start, steady.start), e.time_range.end,
+                    e.name)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and e.name != "steady"
+                   and e.time_range.end > steady.start)
+    own = KERNEL_NAMES[engine.kernel_id]
+    ours = [n for names in KERNEL_NAMES.values() for n in names]
+    busy, end, kernel_us, other_us, other = 0.0, float("-inf"), 0.0, 0.0, {}
+    band_us = 0.0
+    for start, stop, name in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        if any(n in name for n in own):
+            kernel_us += stop - start
+        elif any(n in name for n in ours):
+            band_us += stop - start
+        else:
+            other_us += stop - start
+            c, us = other.get(name, (0, 0.0))
+            other[name] = (c + 1, us + stop - start)
+    wall = steady.end - steady.start
+    top = sorted(other.items(), key=lambda kv: -kv[1][1])[:6]
+    return grid, {
+        "passes": k_passes, "wall_ms": wall / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "idle_share": 1 - busy / wall if spans else None,
+        "kernel_ms": kernel_us / 1e3,
+        # K1-K3 launches other than the path's kernel: the seam band's K2
+        "seam_band_ms": band_us / 1e3,
+        # every other kernel: the halo exchange's copies, the tile crops,
+        # the overlap stitch and the seam's gather and stitch
+        "exchange_copies_ms": other_us / 1e3,
+        "other_kernels": [{"name": n[:80], "count": c, "ms": us / 1e3}
+                          for n, (c, us) in top]}
+
+
+def _interior_times(engine) -> dict:
+    """The path kernel at its shard window (an interior shard with its
+    ghosts on every side, the dense one's width aligned as the exchange
+    aligns it), dead boundary, at the deepest chunk a pass launches: ms a
+    pass by CUDA events, the plain version's ms, and the bound by phase
+    4's formula (bytes: each word or cell read and written once; K1
+    ``word_ops``, K3 ``ltl_word_ops_lower``, K2 1.5 a cell-generation)."""
+    cfg, kid = engine.config, engine.kernel_id
+    rule, K = cfg.rule, cfg.comm_every
+    h, w = engine._shard_shape()
+    dr = K if engine.kind == "bit" else K * rule.radius
+    dc = 1 if engine.bitpacked else K * rule.radius
+    width = w + 2 * dc + (-(w + 2 * dc) % 16 if kid == "K2" else 0)
+    shape = (h + 2 * dr, width)
+    gens = max(chunk_gens(engine.kind, rule, [K]))
+    rng = np.random.default_rng(SEED)
+    x = _cells(rng, shape) if kid == "K2" else _words(rng, shape)
+    kernel, plain = {"K1": (cuda_bit_step, bit_step_plain),
+                     "K3": (cuda_ltl_step, ltl_step_plain),
+                     "K2": (cuda_dense_step, dense_step_plain)}[kid]
+    ms = _pass_ms(kernel, x, rule, gens, reps=10, boundary="dead")
+    plain_ms = _plain_ms(plain, x, rule, gens, boundary="dead")
+    n = x.numel()
+    if kid == "K2":
+        t_bytes = 2 * n / HBM_BYTES_PER_S * 1e3
+        t_ops = gens * n * K2_CELL_OPS / INT32_OPS_PER_S * 1e3
+    else:
+        ops = word_ops(rule) if kid == "K1" else ltl_word_ops_lower(rule)
+        t_bytes = 8 * n / HBM_BYTES_PER_S * 1e3
+        t_ops = gens * n * ops / INT32_OPS_PER_S * 1e3
+    del x
+    return {"kernel": kid, "window": list(shape), "gens": gens,
+            "boundary": "dead", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def _mesh_path(card: str, path) -> dict:
+    (label, final_key, kind, rows, cols, rule, K, steps, shape, overlap,
+     boundary) = path
+    single = FINALS.get(final_key)
+    if single is None:
+        fail(f"phase 3 kept no single-device final for {final_key}")
+    cfg = GolConfig(rows=rows, cols=cols, steps=steps, seed=SEED, rule=rule,
+                    boundary=boundary, mesh_shape=shape, comm_every=K,
+                    overlap=overlap)
+    n = shape[0] * shape[1]
+    mesh = make_mesh(shape, devices=[torch.device("cuda", 0)] * n)
+    _reset_launches()
+    t0 = time.perf_counter()
+    engine = backend.build_engine(
+        cfg, mesh=mesh,
+        depths=sorted(backend.segment_depths([steps], K)))
+    if engine.kind != kind or engine.overlap != overlap:
+        fail(f"the {label} mesh path runs {engine.kind} (overlap "
+             f"{engine.overlap}), not {kind} (overlap {overlap})")
+    grid = engine.init_grid()
+    engine.warm_up()
+    engine.sync()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid = engine.step(grid, steps)
+    engine.sync()
+    steady_s = time.perf_counter() - t0
+    launches = _launches()
+    expected = _mesh_expected(engine, steps)
+    if launches != expected:
+        fail(f"the {label} mesh path launched {launches}, expected "
+             f"{expected} (shards x passes x windows + warm-ups)")
+    whole = engine.gather(grid)
+    digest, pop = _digest(whole), engine.population(grid)
+    del whole
+    if digest != single["digest"] or pop != single["population"]:
+        fail(f"the {label} mesh path's final grid differs from phase 3's "
+             f"single-device final (population {pop} vs "
+             f"{single['population']})")
+    grid, window = _mesh_window(engine, grid, MESH_TRACE_PASSES)
+    del grid
+    torch.cuda.empty_cache()
+    interior = _interior_times(engine)
+    torch.cuda.empty_cache()
+    rate = rows * cols * steps / steady_s
+    return {"path": label, "card": card, "kernel": engine.kernel_id,
+            "grid": [rows, cols], "mesh": list(shape), "shards_on": "cuda:0",
+            "rule": str(rule), "boundary": boundary, "comm_every": K,
+            "overlap": overlap, "steps": steps, "pad_bits": engine.pad_bits,
+            "seam": engine.seam, "launches": launches,
+            "expected_launches": expected,
+            "grid_equal_to_single_device": True, "population": pop,
+            "setup_s": setup_s, "steady_s": steady_s,
+            "cell_updates_per_s": rate,
+            "single_device_steady_s": single["steady_s"],
+            "single_device_cell_updates_per_s": single["cell_updates_per_s"],
+            "rate_over_single_device": rate / single["cell_updates_per_s"],
+            "window": window, "interior": interior}
+
+
+def _mesh_cli(card: str) -> dict:
+    """The CLI's mesh: ``--mesh 1x1`` on the card, ``--mesh 2x2`` on the
+    card refused with the reference's message (one card), and ``--mesh
+    2x2 --device cpu --save`` whose tiles equal the serial oracle's."""
+    rows, cols, gap, steps = 256, 256, 8, 16
+    common = [str(rows), str(cols), str(gap), str(steps), "--seed", "5",
+              "--quiet", "--save", "--name", "m"]
+    want = {it: evolve_np(init_tile_np(rows, cols, 5), it, LIFE, "periodic")
+            for it in range(0, steps + 1, gap)}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        KERNELS["K1"].launches = 0
+        if cli_main(common + ["--out-dir", os.path.join(d, "one"),
+                              "--mesh", "1x1"]) != 0:
+            fail("the CLI with --mesh 1x1 on the card failed")
+        if KERNELS["K1"].launches == 0:
+            fail("the CLI with --mesh 1x1 launched K1 no time")
+        one = golio.assemble(os.path.join(d, "one"), "m", steps)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main(common + ["--out-dir", os.path.join(d, "card"),
+                                    "--mesh", "2x2"])
+        refused = err.getvalue().strip()
+        want_msg = (f"mesh shape (2, 2) needs 4 devices, have "
+                    f"{torch.cuda.device_count()}")
+        if torch.cuda.device_count() == 1 and (
+                rc != 2 or want_msg not in refused
+                or os.path.exists(os.path.join(d, "card"))):
+            fail(f"--mesh 2x2 --device cuda on one card: exit {rc}, "
+                 f"{refused!r}")
+        cpu = os.path.join(d, "cpu")
+        if cli_main(common + ["--out-dir", cpu, "--mesh", "2x2", "--device",
+                              "cpu"]) != 0:
+            fail("the CLI with --mesh 2x2 --device cpu failed")
+        tiles = 0
+        for it in want:
+            for pid in golio.iteration_tile_pids(cpu, "m", it):
+                tile, (r0, _, c0, _) = golio.read_tile(
+                    golio.find_tile_path(cpu, "m", it, pid))
+                h, w = tile.shape
+                if not np.array_equal(tile, want[it][r0:r0 + h, c0:c0 + w]):
+                    fail(f"--mesh 2x2 tile {pid} at {it} differs from the "
+                         f"serial oracle")
+                tiles += 1
+        if tiles != 4 * len(want) or not np.array_equal(one, want[steps]):
+            fail(f"the meshed CLI wrote {tiles} tiles; --mesh 1x1 equal: "
+                 f"{np.array_equal(one, want[steps])}")
+    return {"mesh_1x1_on_card_equal_to_serial": True,
+            "mesh_2x2_on_card_refused": refused,
+            "mesh_2x2_cpu_tiles_equal_to_serial": tiles}
+
+
+def phase12_mesh(card: str) -> None:
+    """The single-process mesh on one card: each mesh path against phase
+    3's single-device final of its config, with its launches and
+    throughput, then the CLI's mesh flags."""
+    t_phase = time.perf_counter()
+    for path in MESH_PATHS:
+        emit({"phase": "mesh", **_mesh_path(card, path)})
+    emit({"phase": "mesh_cli", "card": card, **_mesh_cli(card),
+          "phase_s": time.perf_counter() - t_phase})
+
 
 def main() -> int:
     card = phase0_card()
@@ -4432,6 +4805,8 @@ def main() -> int:
     lap("tune")
     phase11_analysis(card)
     lap("analysis")
+    phase12_mesh(card)
+    lap("mesh")
     emit({"phase": "seconds", **seconds})
     k1 = times["K1", MAIN_GENS]
     k2 = times["K2", DENSE_PATH[2]]

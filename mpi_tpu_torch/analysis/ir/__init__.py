@@ -7,14 +7,15 @@ what the card launches.  The reference traces jaxprs without running
 them; eager PyTorch has no abstract trace, so this verifier builds each
 matrix cell's engine (:mod:`.matrix`) on a device and runs two steps of
 it for real under a recorder (:mod:`.harness`): every kernel wrapper's
-call and every aten op between them.  The records are held to four
-contracts (:mod:`.checks`):
+call, every ppermute of a mesh cell's halo exchange, and every aten op
+between them.  The records are held to five contracts (:mod:`.checks`):
 
 * ``ir-donation``   — both directions of the consume-the-input contract:
   each step runs on the ping-pong pair of its entry grid and the spare
   the engine kept, hands back its last pass's output and reuses the
   spare; and no op reads a launch's input after the launch took it (the
-  seam band is extracted before the kernel is launched).
+  seam band is extracted before the kernel is launched); a mesh engine,
+  which writes new shards every pass, never writes its entry grid.
 * ``ir-purity``     — no host reads inside a step without sparse
   stepping; a sparse step makes exactly the reads its phase loop counts.
 * ``ir-signature``  — ``plan_signature`` soundness both ways: equal
@@ -23,9 +24,10 @@ contracts (:mod:`.checks`):
 * ``ir-drift``      — canonical fingerprints of the launch records
   (:mod:`.canon`) per cell against the checked-in ``baseline.json``,
   blessed on the CPU with ``--write-baseline``; the card must match.
-
-The reference's ``ir-collective`` waits for the port's meshes (ROADMAP
-item 13).
+* ``ir-collective`` — on a mesh cell, every ppermute of the halo
+  exchange is a bijection of its mesh axis, closes the ring when
+  periodic, and ships a slab of one of
+  ``parallel/halo.py:expected_slab_depths``.
 
 Runner: ``python -m mpi_tpu_torch.analysis.ir`` (exit 0 clean / 1
 findings / 2 internal error, as ``python -m mpi_tpu_torch.analysis``).
@@ -167,6 +169,7 @@ def run_ir(device: str = "cuda", fast_only: bool = False,
     for rc in report.recorded:
         report.findings.extend(checks.check_donation(rc))
         report.findings.extend(checks.check_purity(rc))
+        report.findings.extend(checks.check_collectives(rc))
     report.findings.extend(
         checks.check_signatures(report.recorded, signature_fn=signature_fn))
     if use_baseline:

@@ -9,7 +9,9 @@ cell under another JAX):
 * **kept**: each step's entry storage and the storage it returns, and
   every wrapper call in order, with its kernel, the rule's canonical text
   (``ops/gates.py:rule_key``), boundary, gens, shape, dtype,
-  ``col_limit`` and the storages of its input and its ``out``; and for a
+  ``col_limit`` and the storages of its input and its ``out``; on a mesh,
+  every ppermute of the halo exchange in its place among them (axis,
+  pairs, slab shape); and for a
   sparse engine the phases its loop ran and the host reads it counted
   (``ops/activity.py``), which its launches alone may not show (on a busy
   board a sparse step launches what a dense one does);
@@ -40,6 +42,8 @@ class CanonResult:
 def canonicalize(steps: Sequence) -> CanonResult:
     """Canonical text and fingerprint of the recorded ``steps``
     (:class:`~.harness.Step`)."""
+    from mpi_tpu_torch.analysis.ir.harness import Exchange, Launch
+
     names: Dict[int, str] = {}
 
     def name(ref) -> str:
@@ -51,13 +55,19 @@ def canonicalize(steps: Sequence) -> CanonResult:
     lines = []
     for i, step in enumerate(steps, start=1):
         lines.append(f"step {i} entry={name(step.entry)}")
-        for ln in step.launches:
-            shape = "x".join(str(n) for n in ln.shape)
-            lines.append(
-                f"  {ln.kernel} rule={ln.rule} boundary={ln.boundary} "
-                f"gens={ln.gens} shape={shape} dtype={ln.dtype} "
-                f"col_limit={ln.col_limit} in={name(ln.src)} "
-                f"out={name(ln.out)}")
+        for ev in step.events:
+            if isinstance(ev, Launch):
+                shape = "x".join(str(n) for n in ev.shape)
+                lines.append(
+                    f"  {ev.kernel} rule={ev.rule} boundary={ev.boundary} "
+                    f"gens={ev.gens} shape={shape} dtype={ev.dtype} "
+                    f"col_limit={ev.col_limit} in={name(ev.src)} "
+                    f"out={name(ev.out)}")
+            elif isinstance(ev, Exchange):
+                shape = "x".join(str(n) for n in ev.shape)
+                pairs = ",".join(f"{a}>{b}" for a, b in ev.pairs)
+                lines.append(f"  ppermute axis={ev.axis} pairs={pairs} "
+                             f"slab={shape}")
         if step.phases:
             ran = " ".join(f"{k}={n}" for k, n in step.phases.items())
             lines.append(f"  phases {ran} reads={step.counted_reads}")

@@ -7,9 +7,10 @@ reads its band after the launch, an engine that hands back its input's
 storage, a host read inside a dense step, a signature function with a
 field dropped — and pin the exact diagnostics.
 
-The reference's fifth check, ``ir-collective`` (every ``ppermute`` a
-bijection of its mesh axis, slabs one halo deep), judges a halo exchange;
-the port has none until its meshes (ROADMAP item 13), which bring it.
+The fifth, ``ir-collective`` (:func:`check_collectives`), holds every
+recorded ppermute of a mesh cell's halo exchange to the reference's rule:
+a bijection of its mesh axis, the full ring when periodic, and a slab one
+of ``parallel/halo.py:expected_slab_depths`` deep.
 """
 
 from __future__ import annotations
@@ -128,6 +129,27 @@ def _reads_after_launch(rc: RecordedCell) -> List[IRFinding]:
     return out
 
 
+def _entry_intact(rc: RecordedCell) -> List[IRFinding]:
+    """(iii), an engine that does not donate (the mesh engine, whose every
+    pass writes new shard tensors): no launch and no op of a step writes
+    into the step's entry grid, any of its shards on a mesh."""
+    out: List[IRFinding] = []
+    for i, step in enumerate(rc.steps, start=1):
+        entry = {step.entry.storage, *step.entry_shards}
+        hits = [ev for ev in step.events
+                if (isinstance(ev, Launch) and ev.out.storage in entry)
+                or (isinstance(ev, Op) and entry & set(ev.writes))]
+        if hits:
+            what = hits[0].kernel if isinstance(hits[0], Launch) \
+                else hits[0].name
+            out.append(IRFinding(
+                "ir-donation", rc.cell.id,
+                f"step {i}: {what} writes into the step's entry grid, which "
+                f"an engine that does not donate leaves as it was: every "
+                f"pass must write new storage"))
+    return out
+
+
 def check_donation(rc: RecordedCell) -> List[IRFinding]:
     """The port's counterpart of the reference's donation-aliasing check,
     both directions.
@@ -153,11 +175,78 @@ def check_donation(rc: RecordedCell) -> List[IRFinding]:
     band before the kernel is launched.  It is read per launch, not as
     "no op reads the step's entry storage once a launch wrote it": the
     second pass of a seam step writes the entry storage, and its stitch
-    must then read that pass's output there."""
+    must then read that pass's output there.
+
+    (iii) An engine that does not donate (``donates_input`` false: the
+    mesh engine) never writes its entry grid; (ii) is then moot, since no
+    later pass writes into a launch's input."""
+    if not rc.engine.donates_input:
+        return _entry_intact(rc)
     out: List[IRFinding] = []
-    if rc.engine.donates_input:
-        out.extend(_donation_pair(rc))
+    out.extend(_donation_pair(rc))
     out.extend(_reads_after_launch(rc))
+    return out
+
+
+# -- ir-collective ----------------------------------------------------------
+
+def check_collectives(rc: RecordedCell) -> List[IRFinding]:
+    """Every recorded ppermute of the halo exchange must be a valid
+    (partial) permutation of its mesh axis — the full ring on a periodic
+    boundary, an injective chain on a dead one — and its slab must be one
+    halo deep: ``k`` x rule radius for a pass of k <= comm_every, or the
+    packed engines' single ghost word column
+    (``parallel/halo.py:expected_slab_depths``)."""
+    from mpi_tpu_torch.parallel.halo import expected_slab_depths
+    from mpi_tpu_torch.parallel.mesh import AXES
+
+    out: List[IRFinding] = []
+    axis_sizes = {AXES[0]: rc.engine.mi, AXES[1]: rc.engine.mj}
+    periodic = rc.config.boundary == "periodic"
+    allowed = expected_slab_depths(
+        rc.config.rule.radius, rc.config.comm_every, rc.engine.bitpacked)
+    for rec in rc.collectives:
+        n = axis_sizes.get(rec.axis)
+        if n is None:
+            out.append(IRFinding(
+                "ir-collective", rc.cell.id,
+                f"ppermute over unknown mesh axis {rec.axis!r} "
+                f"(mesh axes: {sorted(axis_sizes)})"))
+            continue
+        srcs = [a for a, _ in rec.pairs]
+        dsts = [b for _, b in rec.pairs]
+        bad_range = [p for p in srcs + dsts if not 0 <= p < n]
+        if bad_range:
+            out.append(IRFinding(
+                "ir-collective", rc.cell.id,
+                f"ppermute over axis {rec.axis!r} (size {n}) names "
+                f"out-of-range shards {sorted(set(bad_range))}: "
+                f"pairs={list(rec.pairs)}"))
+        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+            out.append(IRFinding(
+                "ir-collective", rc.cell.id,
+                f"ppermute over axis {rec.axis!r} is not a bijection: "
+                f"duplicate "
+                f"{'source' if len(set(srcs)) != len(srcs) else 'destination'}"
+                f" in pairs={list(rec.pairs)} (a shard would receive two "
+                f"halo slabs, or its ghost ring garbage)"))
+        elif periodic and len(rec.pairs) != n:
+            out.append(IRFinding(
+                "ir-collective", rc.cell.id,
+                f"periodic stepper's ppermute closes only "
+                f"{len(rec.pairs)} of {n} ring links over axis "
+                f"{rec.axis!r} (pairs={list(rec.pairs)}): an edge shard's "
+                f"ghosts would arrive as zeros — dead-boundary semantics "
+                f"on a periodic run"))
+        thin = min(rec.shape) if rec.shape else 0
+        if thin not in allowed:
+            out.append(IRFinding(
+                "ir-collective", rc.cell.id,
+                f"halo slab shape {rec.shape} over axis {rec.axis!r} has "
+                f"depth {thin}, expected one of {sorted(allowed)} (rule "
+                f"radius {rc.config.rule.radius} x comm_every "
+                f"{rc.config.comm_every}"
+                f"{', or one ghost word column' if rc.engine.bitpacked else ''})"))
     return out
 
 

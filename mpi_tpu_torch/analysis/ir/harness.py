@@ -17,13 +17,20 @@ stacked batch of B boards) with two recorders armed:
   the record is the same on both devices: a record blessed on the CPU is
   the card's record too.  Only these records enter the fingerprint
   (:mod:`.canon`);
+* the **exchange record** (``ops/_launch.py:record_exchange``): on a
+  mesh, every ppermute of the halo exchange (``parallel/halo.py``) logs
+  its mesh axis, (src, dst) pairs and slab shape, which ``ir-collective``
+  judges and the fingerprint keeps;
 * the **op recorder**, a ``TorchDispatchMode``: every aten op of the step
   outside a wrapper call, with the storages it reads and writes and
   whether it reads a value back to the host.  It serves the donation and
   host-read contracts (:mod:`.checks`) and never enters the fingerprint:
   which aten ops a line of PyTorch becomes moves with torch's version.
 
-Storages are held alive for the whole recording, so a storage's address
+A cell on a mesh larger than (1, 1) runs on that many virtual shards of
+the one device; its step's entry and returned storages are those of shard
+(0, 0), and every shard's entry storage is kept besides
+(``Step.entry_shards``) for the donation check.  Storages are held alive for the whole recording, so a storage's address
 names it for the window (no buffer is freed and its address reused by
 another).  On the card each step of a cell without sparse stepping also
 runs under ``torch.cuda.set_sync_debug_mode("error")``: a synchronising
@@ -85,6 +92,15 @@ class Launch:
 
 
 @dataclass(frozen=True)
+class Exchange:
+    """One ppermute of a halo exchange."""
+
+    axis: str                              # mesh axis name ("gi", "gj")
+    pairs: Tuple[Tuple[int, int], ...]     # (src, dst) axis positions
+    shape: Tuple[int, ...]                 # the slab each source sends
+
+
+@dataclass(frozen=True)
 class Op:
     """One aten op outside a wrapper call."""
 
@@ -100,7 +116,9 @@ class Step:
 
     entry: Ref
     returned: Optional[Ref] = None
-    events: List[object] = field(default_factory=list)  # Launch | Op
+    # on a mesh, the entry storage of every shard, shard (0, 0)'s included
+    entry_shards: Tuple[int, ...] = ()
+    events: List[object] = field(default_factory=list)  # Launch|Exchange|Op
     # a sparse engine's own account of the step (``evolve.phases`` and
     # ``evolve.reads``, ops/activity.py): the phases it ran, and the host
     # reads it made to choose them; empty and 0 elsewhere
@@ -110,6 +128,10 @@ class Step:
     @property
     def launches(self) -> List[Launch]:
         return [e for e in self.events if isinstance(e, Launch)]
+
+    @property
+    def exchanges(self) -> List[Exchange]:
+        return [e for e in self.events if isinstance(e, Exchange)]
 
     @property
     def host_reads(self) -> List[Op]:
@@ -184,6 +206,11 @@ class Recorder(TorchDispatchMode):
     def launch(self, kernel: str, x: torch.Tensor, meta: dict):
         return _LaunchScope(self, kernel, x, meta)
 
+    def exchange(self, axis: str, pairs, shape) -> None:
+        if self.step is not None:
+            self.step.events.append(Exchange(
+                axis, tuple(tuple(p) for p in pairs), tuple(shape)))
+
     # -- the op recorder --------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -219,11 +246,13 @@ class Recorder(TorchDispatchMode):
     # -- one step ---------------------------------------------------------
 
     def record(self, fn: Callable, entry: torch.Tensor, raw: Callable,
-               sync_debug: bool):
+               sync_debug: bool, shards=()):
         """Run ``fn()`` (one engine step of ``entry``) with both recorders
         armed; returns its result and the :class:`Step`.  ``raw`` maps a
-        step's result to its grid tensor."""
-        self.step = Step(entry=self.storages.ref(entry))
+        step's result to its grid tensor; ``shards``: on a mesh, every
+        shard tensor of the entry grid."""
+        self.step = Step(entry=self.storages.ref(entry), entry_shards=tuple(
+            self.storages.ref(t).storage for t in shards))
         previous = _launch.arm(self)
         debug = contextlib.nullcontext()
         if sync_debug:
@@ -274,6 +303,11 @@ class RecordedCell:
         return (self.signature, self.cell.depth, self.cell.batch)
 
     @property
+    def collectives(self) -> List[Exchange]:
+        """Every ppermute of the recorded steps, in order."""
+        return [e for s in self.steps for e in s.exchanges]
+
+    @property
     def launches_by_kernel(self) -> Counter:
         return Counter(ln.kernel for s in self.steps for ln in s.launches)
 
@@ -311,15 +345,19 @@ def record_engine(cell: Cell, engine, evolve=None) -> RecordedCell:
     engine.sync()
     on_card = engine.device.type == "cuda"
     sparse = engine.sparse_plan is not None
+    # a grid on a mesh is a nested list of shards: shard (0, 0) names it
+    meshed = engine.mi * engine.mj > 1
+    raw = (lambda g: g[0][0]) if meshed else engine.raw_grid
     rec = Recorder()
     steps, boards = [], []
     for _ in range(2):
         if sparse:
             phases0 = Counter(engine._evolve.phases)
             reads0 = engine._evolve.reads
-        grid, rec_step = rec.record(lambda g=grid: step(g),
-                                    engine.raw_grid(grid), engine.raw_grid,
-                                    sync_debug=on_card and not sparse)
+        grid, rec_step = rec.record(
+            lambda g=grid: step(g), raw(grid), raw,
+            sync_debug=on_card and not sparse,
+            shards=[t for row in grid for t in row] if meshed else ())
         if sparse:
             ran = Counter(engine._evolve.phases) - phases0
             rec_step.phases = {":".join(map(str, k)): n
@@ -335,14 +373,22 @@ def record_engine(cell: Cell, engine, evolve=None) -> RecordedCell:
 
 
 def record_cell(cell: Cell, device) -> RecordedCell:
-    """Build the cell's engine on ``device`` and record two steps of it."""
+    """Build the cell's engine on ``device`` (on a mesh, on that many
+    virtual shards of it) and record two steps of it."""
     from mpi_tpu_torch.backends.cuda import build_engine
+    from mpi_tpu_torch.parallel.mesh import make_mesh
 
     try:
+        mesh = None
+        if cell.devices_needed > 1:
+            mesh = make_mesh(cell.mesh,
+                             devices=[torch.device(device)]
+                             * cell.devices_needed)
         # the planning notes build_engine prints belong to the cell, not
         # to the verifier's report
         with contextlib.redirect_stderr(io.StringIO()):
-            engine = build_engine(cell.make_config(), device=device)
+            engine = build_engine(cell.make_config(), device=device,
+                                  mesh=mesh)
         return record_engine(cell, engine)
     except HarnessError:
         raise

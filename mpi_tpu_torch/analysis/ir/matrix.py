@@ -1,17 +1,19 @@
 """The config matrix the launch-level verifier runs.
 
 Each :class:`Cell` pins one (engine family x boundary x dense/sparse x
-solo/batched x depth) point on one device; the harness builds the cell's
-engine, steps it for real under the recorder and the checks judge the
-records.  The cells are the reference's (``mpi_tpu/analysis/ir/
-matrix.py``) on a (1, 1) mesh, with its ids, plus the (1, 1) counterparts
-of four of its mesh cells (``<reference id>_1x1``) that the fast tier
-needs to launch each of K1, K2 and K3 at gens > 1: ``packed_k2`` (K1 in
-passes of 2), ``ltl_r2_k2`` (K3 in passes of 2), ``ltl_r2_dead`` (K3 at a
-dead boundary) and ``dense_r2_k16`` (radius 2 at comm_every 16 takes K2,
-in passes of 8).  The reference's cells on a mesh other than (1, 1) (and
-its ``overlap`` cells, which need one) wait for the port's meshes,
-ROADMAP item 13, with the ``ir-collective`` check.
+solo/batched x mesh x depth) point; the harness builds the cell's engine,
+steps it for real under the recorder and the checks judge the records.
+The cells are the reference's (``mpi_tpu/analysis/ir/matrix.py``), with
+its ids, plus the (1, 1) counterparts of four of its mesh cells
+(``<reference id>_1x1``) that the fast tier needs to launch each of K1,
+K2 and K3 at gens > 1 on one device: ``packed_k2`` (K1 in passes of 2),
+``ltl_r2_k2`` (K3 in passes of 2), ``ltl_r2_dead`` (K3 at a dead
+boundary) and ``dense_r2_k16`` (radius 2 at comm_every 16 takes K2, in
+passes of 8).  A cell on a mesh other than (1, 1) runs on that many
+virtual shards of the one device (``make_mesh(shape, devices=[dev] *
+n)``), on the CPU and on the card alike, and its halo exchanges are
+recorded for ``ir-collective``.  The reference's ``batched_packed_1x2``
+is left out: batches on a mesh are ROADMAP item 13b.
 
 Grids are 64 rows, so a cell's steps are tiny; the ``fast`` tier runs
 in the tests and every tier in ``chip_smoke.py`` on the card.  Which
@@ -24,8 +26,9 @@ takes its dense stencil.
 ``plan_signature`` deliberately EXCLUDES (seed): their signatures must
 collide and their launch records must be identical.  ``NEAR_PAIRS``
 differ in exactly one field the signature must SEE: the reference's pairs
-whose two ends are both in this matrix, the (1, 1) counterpart of its
-comm_every pair, and the boundary pair of the two Bosco cells.
+whose two ends are both in this matrix (its mesh pairs among them), the
+(1, 1) counterpart of its comm_every pair, and the boundary pair of the
+two Bosco cells.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ class Cell:
     cols: int
     rule: str = "life"
     boundary: str = "periodic"
+    mesh: Tuple[int, int] = (1, 1)
     comm_every: int = 1
+    overlap: bool = False
     sparse_tile: int = 0
     depth: int = 1
     batch: int = 0
@@ -61,9 +66,14 @@ class Cell:
         return GolConfig(
             rows=self.rows, cols=self.cols, steps=0, seed=self.seed,
             rule=rule_from_name(self.rule), boundary=self.boundary,
-            backend="cuda", mesh_shape=(1, 1),
-            comm_every=self.comm_every, sparse_tile=self.sparse_tile,
+            backend="cuda", mesh_shape=self.mesh,
+            comm_every=self.comm_every, overlap=self.overlap,
+            sparse_tile=self.sparse_tile,
         )
+
+    @property
+    def devices_needed(self) -> int:
+        return self.mesh[0] * self.mesh[1]
 
 
 # a radius-2 Larger-than-Life rule: K3 up to comm_every 4, K2 beyond
@@ -88,11 +98,43 @@ CELLS: List[Cell] = [
     Cell("dense_bosco_1x1", 64, 64, rule="bosco", depth=1, tier="fast"),
     Cell("sparse_1x1", 64, 64, sparse_tile=32, depth=2, tier="fast"),
     Cell("batched_seam_1x1", 64, 48, depth=2, batch=2, tier="fast"),
+    # the reference's mesh cells: K1, K3 and K2 as tile interiors, the
+    # halo exchange's slabs, dead and periodic rings
+    Cell("packed_1x2_periodic", 64, 64, mesh=(1, 2), depth=2, tier="fast"),
+    Cell("packed_1x2_dead", 64, 64, boundary="dead", mesh=(1, 2), depth=2,
+         tier="fast"),
+    Cell("packed_2x2_dead", 64, 64, boundary="dead", mesh=(2, 2), depth=2,
+         tier="fast"),
+    Cell("packed_k2_1x2", 64, 64, mesh=(1, 2), comm_every=2, depth=3,
+         tier="fast"),
+    Cell("ltl_r2_k2_1x2", 64, 64, rule=_R2, mesh=(1, 2), comm_every=2,
+         depth=3, tier="fast"),
+    Cell("ltl_r2_1x2_dead", 64, 64, rule=_R2, boundary="dead", mesh=(1, 2),
+         depth=1, tier="fast"),
+    # K·r = 32: past the packed engines' one ghost word and the seam, so
+    # the dense stepper; depth 17 = passes of 16 and 1, K2 in chunks of 8
+    Cell("dense_r2_k16_overlap_1x2", 64, 160, rule=_R2, mesh=(1, 2),
+         comm_every=16, overlap=True, depth=17, tier="fast"),
+    Cell("packed_2x4_2host", 64, 128, mesh=(2, 4), depth=2, tier="fast"),
     # -- full tier ------------------------------------------------------
     Cell("dense_bosco_1x1_dead", 64, 64, rule="bosco", boundary="dead",
          depth=1),
     Cell("sparse_ltl_1x1", 64, 64, rule=_R2, sparse_tile=32, depth=1),
     Cell("batched_sparse_1x1", 64, 64, sparse_tile=32, depth=1, batch=2),
+    Cell("packed_2x2_periodic", 64, 64, mesh=(2, 2), depth=2),
+    Cell("packed_2x1_asym", 128, 64, mesh=(2, 1), depth=1),
+    Cell("packed_k4_1x2", 64, 64, mesh=(1, 2), comm_every=4, depth=5),
+    Cell("packed_w128_1x2", 64, 128, mesh=(1, 2), depth=2),
+    Cell("packed_w128_overlap_1x2", 64, 128, mesh=(1, 2), overlap=True,
+         depth=2),
+    Cell("highlife_1x2", 64, 64, rule="highlife", mesh=(1, 2), depth=2),
+    Cell("seam_1x2", 64, 80, mesh=(1, 2), depth=2),
+    Cell("dense_r2_k16_1x2", 64, 160, rule=_R2, mesh=(1, 2),
+         comm_every=16, depth=17),
+    Cell("seam_overlap_1x2", 64, 80, mesh=(1, 2), overlap=True, depth=2),
+    Cell("ltl_r2_2x2_periodic", 64, 64, rule=_R2, mesh=(2, 2), depth=2),
+    Cell("packed_1x8_2host", 64, 256, mesh=(1, 8), comm_every=2, depth=3),
+    Cell("ltl_r2_2x4_2host", 64, 128, rule=_R2, mesh=(2, 4), depth=2),
 ]
 
 # (cell, the cell it is a seed-only twin of)
@@ -104,6 +146,16 @@ NEAR_PAIRS: List[Tuple[str, str, str]] = [
     ("packed_1x1", "sparse_1x1", "sparse_tile"),
     ("packed_1x1", "packed_k2_1x1", "comm_every"),
     ("dense_bosco_1x1", "dense_bosco_1x1_dead", "boundary"),
+    # the reference's mesh pairs
+    ("packed_1x2_periodic", "packed_1x2_dead", "boundary"),
+    ("packed_1x1", "packed_1x2_periodic", "mesh_shape"),
+    ("packed_1x2_periodic", "packed_k2_1x2", "comm_every"),
+    ("packed_1x2_periodic", "highlife_1x2", "rule"),
+    ("packed_2x2_dead", "packed_2x2_periodic", "boundary"),
+    ("packed_w128_1x2", "packed_w128_overlap_1x2", "overlap"),
+    ("dense_r2_k16_1x2", "dense_r2_k16_overlap_1x2", "overlap"),
+    ("seam_1x2", "seam_overlap_1x2", "overlap"),
+    ("packed_2x4_2host", "ltl_r2_2x4_2host", "rule"),
 ]
 
 _BY_ID = {c.id: c for c in CELLS}

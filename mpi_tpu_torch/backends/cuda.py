@@ -1,5 +1,6 @@
 """CUDA backend: hash init → K-generation kernel passes → snapshot hooks,
-on one device.
+on one device, or on a device mesh (``build_mesh_engine``,
+``backends/cuda_mesh.py``).
 
 The single-device paths of ``mpi_tpu.backends.tpu``: ``plan_pad_width``
 and ``select_engine`` pick the width and the kernel, ``build_engine``
@@ -130,23 +131,64 @@ def check_blocks(config: GolConfig, kind: str, device: torch.device,
                           f"{want}")
 
 
-def plan_pad_width(config: GolConfig) -> Tuple[int, int]:
+def plan_pad_width(config: GolConfig, mj: int = 1) -> Tuple[int, int]:
     """(cols_padded, pad_bits): the reference's pad-to-32 plan
-    (``mpi_tpu.backends.tpu.plan_pad_width``) on one device.  A width that
-    is not a whole number of words is padded with trailing dead columns to
-    the next word, so the run takes the packed kernels; a periodic width
-    pads only where the seam band serves it
-    (``seam_serves(cols, comm_every x r)``), else it keeps its width and
+    (``mpi_tpu.backends.tpu.plan_pad_width``) over ``mj`` shard columns.
+    A shard width that is not a whole number of words is padded with
+    trailing dead columns to the next word per shard, so the run takes the
+    packed kernels; a periodic width pads only where the seam band serves
+    it (``seam_serves(cols, comm_every x r)``), else it keeps its width and
     K2.  The reference's stretch of the padded width to 4096 cells at
     comm_every 1 is a TPU lane contract that the port's kernels do not
-    have, so it is left out."""
-    if config.cols % WORD == 0:
+    have, so it is left out (as the reference leaves it off the TPU)."""
+    shard = config.cols // mj
+    if shard % WORD == 0:
         return config.cols, 0
     if config.boundary == "periodic" and not seam.seam_serves(
             config.cols, config.comm_every * config.rule.radius):
         return config.cols, 0
-    padded = -(-config.cols // WORD) * WORD
+    padded = -(-shard // WORD) * WORD * mj
     return padded, padded - config.cols
+
+
+def mesh_dims(config: GolConfig) -> Tuple[int, int]:
+    """The (mi, mj) mesh ``config`` asks for: (1, 1) without one."""
+    return tuple(config.mesh_shape) if config.mesh_shape else (1, 1)
+
+
+def plan_mesh_engine(config: GolConfig, mi: int, mj: int):
+    """(engine, cols_eff, pad_bits, notes) on a mesh of more than one
+    shard: the reference's choice (``mpi_tpu.backends.tpu.build_engine``
+    with ``select_ltl_mode``'s mesh branches): the pad plan over ``mj``
+    shard columns, then the SWAR stepper (K1) for radius 1 on whole words a
+    shard, the bit-sliced stepper (K3) for radius >= 2 on whole words a
+    shard when comm_every x r <= 31, else the dense stepper (K2) at the
+    real width, with the reference's notes."""
+    r = config.rule.radius
+    cols_eff, pad_bits = plan_pad_width(config, mj)
+    aligned = (cols_eff // mj) % WORD == 0
+    if r == 1 and aligned:
+        return "bit", cols_eff, pad_bits, ()
+    if r == 1:
+        # a periodic width the seam band cannot serve
+        return "dense", config.cols, 0, (
+            f"non-word-aligned periodic width {config.cols}/{mj} cols per "
+            f"shard: dense engine (seam stitching needs comm_every*radius "
+            f"<= 31 and width >= {4 * config.comm_every * r})",)
+    if not aligned:
+        note = (f"radius-{r} rule on non-word-aligned shard width "
+                f"({config.cols}/{mj} cols per shard), {config.boundary}: "
+                f"dense engine")
+        if config.boundary == "periodic":
+            note += (f" (seam stitching needs comm_every*radius <= 31 and "
+                     f"width >= {4 * config.comm_every * r})")
+        return "dense", config.cols, 0, (note,)
+    if config.comm_every * r > 31:
+        return "dense", config.cols, 0, (
+            f"comm_every {config.comm_every} x radius {r} > 31 exceeds the "
+            f"one-ghost-word halo: dense engine (~3.6x slower at r=5; use "
+            f"comm_every <= {31 // r} to keep the bit-sliced engine)",)
+    return "ltl", cols_eff, pad_bits, ()
 
 
 def plan_engine(config: GolConfig) -> Tuple[str, int, int, Tuple[str, ...]]:
@@ -189,8 +231,11 @@ def plan_engine(config: GolConfig) -> Tuple[str, int, int, Tuple[str, ...]]:
 
 
 def select_engine(config: GolConfig) -> str:
-    """``"bit"``, ``"ltl"`` or ``"dense"``: the engine ``plan_engine``
-    picks."""
+    """``"bit"``, ``"ltl"`` or ``"dense"``: the engine ``plan_engine`` picks
+    (``plan_mesh_engine`` on a mesh of more than one shard)."""
+    mi, mj = mesh_dims(config)
+    if mi * mj > 1:
+        return plan_mesh_engine(config, mi, mj)[0]
     return plan_engine(config)[0]
 
 
@@ -199,9 +244,11 @@ def pass_depth(config: GolConfig, kind: Optional[str] = None) -> int:
     None): ``comm_every``, except on K2 where comm_every x r exceeds its
     halo (``cuda_stencil.MAX_DEPTH``): there ⌊16/r⌋, the deepest pass K2
     serves, which needs the fewest launches.  On one device every
-    comm_every gives the same grid."""
+    comm_every gives the same grid.  On a mesh a pass is one exchange:
+    comm_every generations, which K2 runs in chunks of ⌊16/r⌋."""
     kind = kind or select_engine(config)
-    if kind == "dense":
+    mi, mj = mesh_dims(config)
+    if kind == "dense" and mi * mj == 1:
         return min(config.comm_every,
                    cuda_stencil.MAX_DEPTH // config.rule.radius)
     return config.comm_every
@@ -812,12 +859,19 @@ class Engine:
 
 
 def build_engine(config: GolConfig, device=None, depths=None, tune=None,
-                 blocks=None) -> Engine:
+                 blocks=None, mesh=None):
     """The engine for ``config`` on ``device`` (the GPU when None).
     ``depths``: the pass depths that will run (default 1 to the pass
     depth); each must be one the chosen kernel serves.  A sparse engine
     runs depth 1 and its dense chunks' depth, and its stripes at every
     rung.  Planning notes print to stderr and stay on ``Engine.notes``.
+
+    ``mesh``: a ``parallel/mesh.py:Mesh`` to shard the grid over (its
+    devices, not ``device``, hold the shards); without one,
+    ``config.mesh_shape`` builds one on ``device``'s kind (every card, or
+    the CPU's virtual devices).  A mesh of more than one shard gives a
+    :class:`~mpi_tpu_torch.backends.cuda_mesh.MeshEngine`
+    (:func:`build_mesh_engine`); (1, 1) is the one-device engine.
 
     ``tune``: an opt-in :class:`~mpi_tpu_torch.tune.TuneCache` (or its
     path): a winner cached for this (device, requested plan) replaces the
@@ -826,6 +880,20 @@ def build_engine(config: GolConfig, device=None, depths=None, tune=None,
     words a lane]) or K3 ([rows]), a build variant of the kernel (the
     tuner probes them; a cached winner's arrives through ``tune``); any
     other route raises :class:`ConfigError`."""
+    if mesh is None and config.mesh_shape is not None \
+            and tuple(config.mesh_shape) != (1, 1):
+        from mpi_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(tuple(config.mesh_shape),
+                         platform=resolve_device(device).type)
+    if mesh is not None:
+        for row in mesh.devices:
+            for d in row:
+                resolve_device(d)
+        if mesh.size > 1:
+            return build_mesh_engine(config, mesh, depths=depths, tune=tune,
+                                     blocks=blocks)
+        device = mesh.devices[0][0]
     dev = resolve_device(device)
     tuned_plan = None
     if tune is not None:
@@ -887,6 +955,82 @@ def build_engine(config: GolConfig, device=None, depths=None, tune=None,
     return engine
 
 
+def build_mesh_engine(config: GolConfig, mesh, depths=None, tune=None,
+                      blocks=None):
+    """The engine for ``config`` sharded over ``mesh`` (more than one
+    shard): the plan (:func:`plan_mesh_engine`), the reference's checks
+    (``validate_mesh`` on the mesh's shape, ``overlap`` on tiles too small
+    for its bands), and a check of every window a pass launches the
+    kernel on, at every depth, against the kernel's refusal: a shape the
+    kernel declines raises :class:`ConfigError`, never a fallback."""
+    from mpi_tpu_torch.backends.cuda_mesh import MeshEngine, chunk_gens
+    from mpi_tpu_torch.config import validate_mesh
+
+    mi, mj = mesh.dims
+    if tune is not None or blocks is not None:
+        raise ConfigError("a tuned plan or a CTA tile on a device mesh is "
+                          "the multi-process mesh slice, ROADMAP item 13b")
+    validate_mesh(config.rows, config.cols, (mi, mj),
+                  config.rule.radius * config.comm_every)
+    if config.sparse_tile:
+        raise ConfigError(
+            f"sparse_tile requires a single-device mesh (got {mi}x{mj}); "
+            f"shard OR activity-gate, not both yet")
+    kind, cols_eff, pad_bits, notes = plan_mesh_engine(config, mi, mj)
+    notes = list(notes)
+    rule, r, K = config.rule, config.rule.radius, config.comm_every
+    overlap = config.overlap
+    if overlap and pad_bits and K > 1 and kind != "dense":
+        notes.append(
+            "--overlap dropped: padded (non-word-aligned) width "
+            "with comm_every > 1 uses the exchange-all packed body "
+            "(still far faster than the dense engine; overlap needs "
+            "comm_every 1 here)")
+    elif overlap:
+        tile_r, tile_c = config.rows // mi, cols_eff // mj
+        d = K if kind == "bit" else K * r
+        if kind == "dense":
+            if min(tile_r, tile_c) < 2 * d:
+                raise ConfigError(
+                    f"--overlap needs tiles >= {2 * d}x{2 * d} for radius "
+                    f"{r} x comm_every {K} bands (got {tile_r}x{tile_c})")
+        elif tile_r < 2 * d or tile_c < 2 * WORD:
+            what = (f"tiles >= {2 * d} rows x {2 * WORD} cols"
+                    if kind == "bit" else
+                    f"tiles >= {2 * d} rows x {2 * WORD} cols for the "
+                    f"bit-sliced radius-{r} bands")
+            need = f"{what} (got {tile_r}x{tile_c})"
+            if not pad_bits:
+                raise ConfigError(f"--overlap needs {need}")
+            notes.append(f"--overlap dropped: padded tile too small for "
+                         f"the stitched bands ({need}); running the "
+                         f"packed engine without overlap")
+            overlap = False
+    kernel_id, kernel, refusal = KERNELS[kind]
+    for msg in notes:
+        print(f"note: {msg}", file=sys.stderr)
+    if depths is None:
+        depths = range(1, K + 1)
+    depths = [k for k in depths if k > 0]
+    # the largest window a pass steps: a shard with its ghosts on every
+    # side (the kernels take any height, and whole words, so the smallest
+    # windows, bands and edge shards, pass where this one does)
+    th, tw = config.rows // mi, cols_eff // mj
+    for k in depths:
+        dr = k if kind == "bit" else k * r
+        dc = WORD if kind != "dense" else k * r
+        shape = (th + 2 * dr, tw + 2 * dc)
+        for g in chunk_gens(kind, rule, [k]):
+            reason = refusal(shape, rule, g, "dead")
+            if reason:
+                raise ConfigError(
+                    f"kernel {kernel_id} cannot run {rule} at depth {g} on "
+                    f"a {shape[0]}x{shape[1]} shard window of the {mi}x{mj} "
+                    f"mesh: {reason}")
+    return MeshEngine(config, mesh, kind, kernel, kernel_id, depths,
+                      cols_eff, pad_bits, overlap, notes)
+
+
 def run_cuda(
     config: GolConfig,
     timer: Optional[PhaseTimer] = None,
@@ -894,17 +1038,21 @@ def run_cuda(
     initial=None,
     start_iteration: int = 0,
     device=None,
+    mesh=None,
 ) -> np.ndarray:
     """Run one configuration; returns the final grid as a host uint8 array.
 
     ``initial``/``start_iteration`` resume from a grid loaded with
-    ``golio.load_snapshot`` at the iteration it was saved at."""
+    ``golio.load_snapshot`` at the iteration it was saved at.  ``mesh``
+    shards the run (see :func:`build_engine`); snapshot tiles are then one
+    a shard."""
     timer = timer or PhaseTimer()
     want_snapshots = snapshot_cb is not None and config.snapshot_every > 0
     segments = plan_segments(
         config.steps, config.snapshot_every if want_snapshots else 0)
     engine = build_engine(config, device=device,
-                          depths=segment_depths(segments, pass_depth(config)))
+                          depths=segment_depths(segments, pass_depth(config)),
+                          mesh=mesh)
     grid = engine.init_grid(initial=initial)
     engine.warm_up()
     engine.sync()

@@ -11,6 +11,7 @@ Examples::
     python -m mpi_tpu_torch.cli 65536 65536 0 1000 --sparse 128
     python -m mpi_tpu_torch.cli 2048 2048 10 50 --backend cpp-par --workers 8
     python -m mpi_tpu_torch.cli 4096 4096 0 64 --profile /tmp/trace
+    python -m mpi_tpu_torch.cli 256 256 8 16 --device cpu --mesh 2x4 --save
     python -m mpi_tpu_torch.cli serve --port 8000   # sessions over HTTP
 
 ``--backend cuda`` (the default) runs on the GPU through one of three
@@ -24,6 +25,13 @@ serves), and K2 for every other width or depth, in passes of at most
 can change (``ops/activity.py``); ``--device cpu`` runs the kernel's plain
 PyTorch version instead; ``--profile DIR`` writes one Chrome trace of the
 run (``torch.profiler``, the host and the card) into DIR.
+``--mesh IxJ`` shards the grid over a device mesh driven by this one
+process (``parallel/mesh.py``, ``backends/cuda_mesh.py``), one ``.gol``
+tile a shard; on the card it must use every card, as the reference's does
+(one card: only ``1x1``), and with ``--device cpu`` it runs on up to 8
+virtual CPU devices; ``--overlap`` asks for the stitched-band body.
+Without ``--mesh`` the run takes one device (the reference takes every
+device it sees).
 ``serial`` runs the numpy oracle, ``cpp`` the native C++ engine on one
 host thread and ``cpp-par`` the same engine on a mesh of ``--workers``
 host threads, one ``.gol`` tile per worker (``backends/cpp.py``).
@@ -41,7 +49,7 @@ import contextlib
 import os
 import sys
 import time as _time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from mpi_tpu_torch import golio
 from mpi_tpu_torch.config import ConfigError, GolConfig, plan_segments
@@ -66,6 +74,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="nonzero: write the CSV header (sweep convention)")
     p.add_argument("--backend", choices=["cuda", "serial", "cpp", "cpp-par"],
                    default="cuda")
+    p.add_argument("--mesh", default=None, metavar="IxJ",
+                   help="cuda backend: device mesh shape, e.g. 2x4 (default: "
+                   "one device); on the card it must use every card, with "
+                   "--device cpu up to 8 virtual devices")
+    p.add_argument("--overlap", action="store_true",
+                   help="cuda backend on a mesh: step each tile's interior "
+                   "from its own data and recompute only the halo-deep "
+                   "edge bands from the exchange (stitched-band body)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda backend: cpu runs the kernel's plain PyTorch "
                    "version instead of the kernel")
@@ -136,6 +152,16 @@ def profile_run(logdir: str, device: str):
     prof.export_chrome_trace(path)
 
 
+def _parse_mesh(s: Optional[str]) -> Optional[Tuple[int, int]]:
+    if s is None:
+        return None
+    try:
+        a, b = s.lower().split("x")
+        return int(a), int(b)
+    except ValueError:
+        raise ConfigError(f"--mesh must look like 2x4, got {s!r}")
+
+
 def _log(quiet: bool, msg: str) -> None:
     if not quiet:
         print(f"[mpi_tpu_torch] {msg}", flush=True)
@@ -159,6 +185,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def _run(args) -> int:
     rule = rule_from_name(args.rule)
+    mesh_shape = _parse_mesh(args.mesh)
     auto_comm = args.comm_every == "auto"
     if args.profile and args.backend != "cuda":
         raise ConfigError(
@@ -182,36 +209,55 @@ def _run(args) -> int:
         rule=rule,
         boundary=args.boundary,
         backend=args.backend,
+        mesh_shape=mesh_shape,
         workers=args.workers,
         comm_every=comm_every,
+        overlap=args.overlap,
         sparse_tile=args.sparse,
     )
+    if args.strict:
+        # backend-independent checks (square grid, a typed --mesh) fail
+        # here, before any side effect; the tile plan is judged below
+        config.validate_strict()
+    # processes in the master header = number of tile writers: the device
+    # mesh (cuda; one device without --mesh) or one process (serial, cpp),
+    # or the cpp-par tile mesh
+    tiles_shape = (1, 1)
+    mesh = None
+    if config.backend == "cuda":
+        from mpi_tpu_torch.backends.cuda import resolve_device
+
+        resolve_device(args.device)  # fail before any file is written
+        tiles_shape = mesh_shape or (1, 1)
+        if tiles_shape[0] * tiles_shape[1] > 1:
+            from mpi_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(tiles_shape, platform=args.device)
     if auto_comm:
         import dataclasses
 
         from mpi_tpu_torch.parallel.policy import resolve_auto
 
-        config = dataclasses.replace(config, comm_every=resolve_auto(config))
-        _log(args.quiet, f"comm policy auto: comm_every={config.comm_every}")
-    if args.strict:
-        # backend-independent checks fail here, before any side effect;
-        # the cpp-par tile plan is judged below
-        config.validate_strict()
-    # processes in the master header = number of tile writers: one device
-    # (cuda) or one process (serial, cpp), or the cpp-par tile mesh
-    tiles_shape = (1, 1)
+        if mesh is None:
+            config = dataclasses.replace(config,
+                                         comm_every=resolve_auto(config))
+            _log(args.quiet,
+                 f"comm policy auto: comm_every={config.comm_every}")
+        else:
+            k, ov = resolve_auto(config, tiles_shape, mesh=mesh)
+            config = dataclasses.replace(config, comm_every=k,
+                                         overlap=ov or config.overlap)
+            _log(args.quiet, f"comm policy auto: comm_every={k}, "
+                 f"overlap={config.overlap}")
     if config.backend == "cpp-par":
         from mpi_tpu_torch.backends.cpp import plan_tiles
 
         tiles_shape = plan_tiles((config.rows, config.cols), config.workers,
                                  rule.radius)
-        if args.strict:
-            config.validate_strict(tiles_shape)
+    if args.strict:
+        # judged against the decomposition that will run
+        config.validate_strict(tiles_shape)
     processes = tiles_shape[0] * tiles_shape[1]
-    if config.backend == "cuda":
-        from mpi_tpu_torch.backends.cuda import resolve_device
-
-        resolve_device(args.device)  # fail before any file is written
 
     os.makedirs(args.out_dir, exist_ok=True)
     name = args.name or _time.strftime("%Y-%m-%d-%H-%M-%S")
@@ -249,10 +295,13 @@ def _run(args) -> int:
          f"device={args.device if config.backend == 'cuda' else 'host'}")
 
     def snapshot(iteration, tiles) -> None:
-        golio.write_snapshot_tiles(
-            args.out_dir, name, iteration,
-            [(tile, r0, c0) for _pid, tile, r0, c0 in tiles],
-            fmt=args.snapshot_format)
+        # each tile under its own pid (a mesh's shard wholly in the pad
+        # writes none); then every pid outside the writer set goes
+        for pid, tile, r0, c0 in tiles:
+            golio.write_tile_fmt(args.out_dir, name, iteration, pid, tile,
+                                 r0, c0, fmt=args.snapshot_format)
+        golio.remove_stale_tiles(args.out_dir, name, iteration,
+                                 range(processes))
 
     def host_snapshot(grid, iteration) -> None:
         ti, tj = tiles_shape
@@ -276,6 +325,7 @@ def _run(args) -> int:
                 initial=initial,
                 start_iteration=start_iter,
                 device=args.device,
+                mesh=mesh,
             )
         if trace_path:
             _log(args.quiet, f"profile: {trace_path}")

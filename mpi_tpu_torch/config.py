@@ -1,11 +1,11 @@
-"""Run configuration of the port: the single-device subset of
-``mpi_tpu.config``.
+"""Run configuration of the port: ``mpi_tpu.config``.
 
-The fields keep the reference's names and meanings, and ``sparse_tile``
-the reference's checks.  What the port does not serve yet is refused here
-with a :class:`ConfigError` that names the ROADMAP item which brings it:
-device meshes and ``overlap`` (item 13).  Every other rule, width and
-``comm_every`` runs on one of kernels K1, K2 and K3
+The fields keep the reference's names, meanings and checks
+(``validate_mesh`` among them).  ``mesh_shape`` is a device mesh of the
+cuda backend (``parallel/mesh.py``): one process drives its shards, on
+the card or, with ``device="cpu"``, on virtual CPU shards; ``overlap``
+asks the sharded steppers for their stitched-band body.  Every rule,
+width and ``comm_every`` runs on one of kernels K1, K2 and K3
 (``backends/cuda.py:select_engine``, padded widths included; K2 runs a
 comm_every deeper than its halo as passes of ⌊16/r⌋ generations); the
 ``serial`` oracle and the native host backends ``cpp`` and ``cpp-par``
@@ -28,6 +28,36 @@ class ConfigError(ValueError):
     """Invalid run configuration."""
 
 
+def validate_mesh(rows: int, cols: int, mesh_shape: Tuple[int, int],
+                  ghost: int) -> None:
+    """Grid/mesh compatibility: divisibility and minimum tile size for a
+    ``ghost``-deep halo (= rule radius × comm_every).  Called both for
+    explicit ``mesh_shape``s and for meshes built elsewhere
+    (``backends/cuda.py:build_engine``), so every path fails fast with a
+    named error."""
+    mi, mj = mesh_shape
+    if mi < 1 or mj < 1:
+        raise ConfigError(f"mesh_shape must be positive, got {mesh_shape}")
+    if rows % mi or cols % mj:
+        raise ConfigError(f"mesh {mesh_shape} does not divide grid "
+                          f"{rows}x{cols}")
+    tile_r, tile_c = rows // mi, cols // mj
+    min_tile = 2 * ghost + 2
+    hint = "rule radius x comm_every"
+    if (mi > 1 and tile_r < min_tile) or (mj > 1 and tile_c < min_tile):
+        raise ConfigError(
+            f"tile {tile_r}x{tile_c} too small for a {ghost}-deep halo "
+            f"({hint}; need >= {min_tile} per sharded axis)"
+        )
+    if tile_r < ghost or tile_c < ghost:
+        # even a 1-shard axis slices a ghost-deep ring off the tile
+        # (self-wrap / zero fill) — a smaller tile would silently truncate
+        raise ConfigError(
+            f"tile {tile_r}x{tile_c} smaller than the {ghost}-deep ghost "
+            f"ring ({hint})"
+        )
+
+
 def validate_size(rows: int, cols: int, ghost: int) -> None:
     """The reference's single-device size check: the grid must be at least
     ``ghost`` (= rule radius × comm_every) cells on each side."""
@@ -48,10 +78,10 @@ class GolConfig:
     rule: Rule = LIFE
     boundary: str = "periodic"       # "periodic" | "dead"
     backend: str = "cuda"            # "cuda" | "serial" | "cpp" | "cpp-par"
-    mesh_shape: Optional[Tuple[int, int]] = None  # only None or (1, 1) here
+    mesh_shape: Optional[Tuple[int, int]] = None  # device mesh; None = one device
     workers: int = 0                 # native backend threads; 0 = auto
     comm_every: int = 1              # cuda: generations per kernel pass (1..16)
-    overlap: bool = False            # refused: multi-GPU slice
+    overlap: bool = False            # cuda mesh: stitched-band body
     sparse_tile: int = 0             # cuda: sparse tile side in cells; 0 = dense
 
     def __post_init__(self):
@@ -76,16 +106,8 @@ class GolConfig:
             )
         if self.comm_every > 1 and 0 in self.rule.birth:
             raise ConfigError("comm_every > 1 requires a rule without birth-on-0")
-        if self.mesh_shape is not None and tuple(self.mesh_shape) != (1, 1):
-            raise ConfigError(
-                f"mesh_shape {tuple(self.mesh_shape)}: the port runs one "
-                f"device; multi-GPU meshes are ROADMAP queue 1 item 13"
-            )
-        if self.overlap:
-            raise ConfigError(
-                "overlap needs a device mesh; multi-GPU meshes are ROADMAP "
-                "queue 1 item 13"
-            )
+        if self.overlap and self.backend != "cuda":
+            raise ConfigError("overlap applies to the cuda backend only")
         if self.sparse_tile < 0:
             raise ConfigError(f"sparse_tile must be >= 0, got {self.sparse_tile}")
         if self.sparse_tile:
@@ -95,6 +117,8 @@ class GolConfig:
                 raise ConfigError(
                     "sparse_tile requires comm_every=1 (the dirty map is "
                     "maintained per generation)")
+            if self.overlap:
+                raise ConfigError("sparse_tile and overlap are exclusive")
             if self.rows % self.sparse_tile or self.cols % self.sparse_tile:
                 raise ConfigError(
                     f"sparse_tile {self.sparse_tile} must divide the grid "
@@ -104,7 +128,17 @@ class GolConfig:
                     f"sparse_tile {self.sparse_tile} smaller than the rule "
                     f"radius {self.rule.radius} (one-ring dilation would "
                     f"miss changes)")
-        if self.backend == "cuda":
+        if self.mesh_shape is not None:
+            if self.backend != "cuda":
+                # the host backends would silently ignore it (cpp-par
+                # decomposes by --workers): fail fast instead
+                raise ConfigError(
+                    f"mesh_shape applies to the cuda backend only "
+                    f"(got backend={self.backend!r})"
+                )
+            validate_mesh(self.rows, self.cols, self.mesh_shape,
+                          self.rule.radius * self.comm_every)
+        elif self.backend == "cuda":
             validate_size(self.rows, self.cols,
                           self.rule.radius * self.comm_every)
 
@@ -117,9 +151,9 @@ class GolConfig:
         square grid, square mesh, divisibility, tile >= 4 cells/side.
 
         ``effective_mesh`` is the decomposition the run will actually use
-        (the cpp-par tile plan; one device, (1, 1), for every other
-        backend) — strict mode must judge what runs, so when provided it
-        wins over ``mesh_shape``; with neither, the one device's (1, 1)."""
+        (the device mesh, or the cpp-par tile plan) — strict mode must
+        judge what runs, so when provided it wins over ``mesh_shape``;
+        with neither, the one device's (1, 1)."""
         if self.rows != self.cols:
             raise ConfigError("strict mode: grid must be square")
         mesh = effective_mesh if effective_mesh is not None else (
@@ -149,7 +183,7 @@ def plan_signature(config: GolConfig, mesh_shape: Tuple[int, int],
     none of them reach the stepper (seed only picks the initial grid; the
     step plan only picks which segment lengths are warmed, and those are
     carried separately as the sorted distinct ``segments`` set).
-    ``mesh_shape`` is the resolved shape, always (1, 1) on one device, and
+    ``mesh_shape`` is the resolved shape, (1, 1) on one device, and
     ``Rule`` is a frozen dataclass of frozensets, so the whole tuple
     hashes."""
     return (

@@ -1,8 +1,9 @@
 """Carry state between the JAX package and the port: packed uint32 words
 as numpy arrays on one side, int32 tensors of the same bit pattern on the
 other; dense uint8 0/1 cells as numpy arrays and uint8 tensors; a sparse
-engine's state (the grid and its bool tile map); and rules rebuilt from
-their fields."""
+engine's state (the grid and its bool tile map); a grid sharded over a
+mesh (the reference's sharded ``jax.Array``, read with ``np.asarray``, and
+the port's nested list of shards); and rules rebuilt from their fields."""
 
 from __future__ import annotations
 
@@ -74,6 +75,30 @@ def sparse_to_numpy(state: SparseState):
     if grid.dtype == np.int32:
         grid = grid.view(np.uint32)
     return grid, state.changed.detach().cpu().numpy()
+
+
+def shards_from_numpy(grid: np.ndarray, mesh) -> list:
+    """A global uint32 packed or uint8 dense (H, W) array → the port's
+    (mi, mj) nested list of shard tensors on ``mesh``'s devices
+    (``parallel/mesh.py``), each a contiguous tensor of its own."""
+    mi, mj = mesh.dims
+    H, W = grid.shape
+    if H % mi or W % mj:
+        raise ValueError(f"mesh {mi}x{mj} does not divide the {H}x{W} grid")
+    h, w = H // mi, W // mj
+    to = grid_from_numpy if grid.dtype == np.uint32 else dense_from_numpy
+    return [[to(np.array(grid[i * h:(i + 1) * h, j * w:(j + 1) * w],
+                         order="C"), mesh.devices[i][j])
+             for j in range(mj)] for i in range(mi)]
+
+
+def shards_to_numpy(shards) -> np.ndarray:
+    """The port's nested list of shards → the global numpy array
+    (uint32 words or uint8 cells), as ``np.asarray`` of the reference's
+    sharded array gives it."""
+    to = {torch.int32: grid_to_numpy, torch.uint8: dense_to_numpy}
+    return np.concatenate([np.concatenate([to[s.dtype](s) for s in row],
+                                          axis=1) for row in shards], axis=0)
 
 
 def rule_from_fields(name: str, birth, survive, radius: int = 1) -> Rule:

@@ -16,9 +16,10 @@ after_sample``) and, once per tick:
   (``mpi_tpu_engine_cache_entries{cache}`` reads the authoritative
   ``OrderedDict`` sizes at scrape time — the no-shadow-counting rule);
 * would time one ghost-ring exchange on a multi-device serving mesh into
-  ``mpi_tpu_halo_exchange_seconds{mesh}``: the port's engines span one
-  device (meshes are ROADMAP queue 1 item 13), so the probe finds no mesh
-  and samples nothing, as the reference's does on one device.
+  ``mpi_tpu_halo_exchange_seconds{mesh}``: the port serves on one
+  device (serving on a mesh is ROADMAP queue 1 item 13b), so the probe
+  finds no mesh and samples nothing, as the reference's does on one
+  device.
 
 Armed-only: constructed by ``Obs.arm_flight`` when telemetry is armed;
 unarmed builds register none of these families.

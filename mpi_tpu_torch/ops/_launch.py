@@ -2,7 +2,8 @@
 a padded grid's real width, the ``out`` tensor it was handed, and the error
 code the C entry point returns; and the recorder of the launch-level
 verifier (``mpi_tpu_torch/analysis/ir``), which every wrapper reports its
-calls to while it is armed."""
+calls to while it is armed, and the halo exchange its ppermutes
+(``record_exchange``)."""
 
 from __future__ import annotations
 
@@ -104,3 +105,13 @@ def recording(kernel: str, x: torch.Tensor, **meta):
     col_limit), or a no-op when none is armed."""
     rec = _recorder
     return _DISARMED if rec is None else rec.launch(kernel, x, meta)
+
+
+def record_exchange(axis_name: str, pairs, slab_shape) -> None:
+    """Tell the armed recorder of one ppermute of a halo exchange
+    (``parallel/halo.py``): the mesh axis, its (src, dst) pairs of axis
+    positions and the shape of the slab each source sends.  A no-op when
+    none is armed."""
+    rec = _recorder
+    if rec is not None:
+        rec.exchange(axis_name, tuple(pairs), tuple(slab_shape))

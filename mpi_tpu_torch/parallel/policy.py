@@ -1,6 +1,15 @@
-"""``--comm-every auto`` on one device: the single-device branches of
-``mpi_tpu.parallel.policy`` (``resolve_auto``, ``choose_comm_policy``),
-folded into one function that returns the depth.
+"""``--comm-every auto``: the port's ``mpi_tpu.parallel.policy``.
+
+On a mesh (``resolve_auto(config, effective_mesh, mesh)``) the reference's
+policy holds as it is: K from :data:`LATENCY_TABLE` at the collective
+latency :func:`probe_collective_latency_us` measures, clamped by the
+engines' halo bounds and the fringe budget (:func:`choose_comm_policy`),
+and ``overlap`` wherever the stitched bands fit.  The table's thresholds
+are the reference's placeholders; the port's exchange is a set of slice
+copies, whose latency on one card is a few launches.
+
+The rest of this docstring is the single-device branch, folded into one
+function that returns the depth (``resolve_auto(config)``).
 
 One device has no collective to avoid or hide, but every kernel reads
 ``comm_every`` as its temporal-blocking depth (generations per read and
@@ -41,9 +50,19 @@ device (``tests/test_torch_policy.py`` pins each):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import time
+from typing import Optional, Tuple
 
 from mpi_tpu_torch.config import ConfigError
+from mpi_tpu_torch.models.rules import Rule
+
+# policy table: (latency ceiling in µs, K) — the first row whose ceiling
+# exceeds the measured latency wins; deliberately coarse (the reference's)
+LATENCY_TABLE = ((30.0, 1), (150.0, 2), (600.0, 4), (float("inf"), 8))
+
+# a band deeper than tile_min/8 spends >~25% of compute on redundant
+# fringe (both sides, both axes) — cap K there
+FRINGE_DIVISOR = 8
 
 # K1's depth when it serves the run: the reference's measured winner on the
 # TPU; on the H100 a gens-8 pass costs about 3.5x a gens-1 pass for 8x the
@@ -51,9 +70,88 @@ from mpi_tpu_torch.config import ConfigError
 SINGLE_DEVICE_PALLAS_GENS = 8
 
 
-def resolve_auto(config) -> int:
-    """The depth ``comm_every`` that ``auto`` resolves to for ``config`` on
-    one device, judged by the port's own routing at each candidate depth."""
+def probe_collective_latency_us(mesh, reps: int = 5) -> float:
+    """One-shot measured latency (µs) of one halo exchange across the
+    mesh's shards (``parallel/step.py:make_halo_probe`` on one small int32
+    tile a shard), warmed once, median of ``reps`` timed calls, each
+    closed by a sync of every device of the mesh."""
+    import torch
+
+    from mpi_tpu_torch.parallel.step import make_halo_probe
+
+    probe = make_halo_probe(mesh, "periodic")
+    shards = [[torch.zeros((8, 8), dtype=torch.int32, device=dev)
+               for dev in row] for row in mesh.devices]
+    cards = sorted({d for row in mesh.devices for d in row
+                    if d.type == "cuda"}, key=str)
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    probe(shards)
+    sync()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        probe(shards)
+        sync()
+        samples.append((time.perf_counter() - t0) * 1e6)
+    samples.sort()
+    return samples[len(samples) // 2]
+
+
+def choose_comm_policy(
+    n_devices: int,
+    rule: Rule,
+    tile_rows: int,
+    tile_cols: int,
+    latency_us: float,
+    overlap_requested: bool = False,
+) -> Tuple[int, bool]:
+    """(comm_every, overlap) for ``--comm-every auto`` on a mesh of
+    ``n_devices`` > 1 shards, the reference's table; one device goes
+    through :func:`resolve_auto`, which judges by the port's own routing.
+    K from the latency table, clamped by the engine's halo bounds (K <= 16
+    at radius 1, K·r <= 31 beyond) and the fringe budget (K·r <=
+    tile_min/8); a rule that gives birth on 0 neighbours cannot run deep
+    halos.  ``overlap`` turns on whenever the stitched bands fit the
+    tile."""
+    if n_devices < 2:
+        raise ValueError(f"choose_comm_policy is the mesh policy; got "
+                         f"{n_devices} device(s)")
+    r = rule.radius
+    if 0 in rule.birth:
+        return 1, overlap_requested
+    for ceiling, k in LATENCY_TABLE:
+        if latency_us < ceiling:
+            break
+    kmax_engine = 16 if r == 1 else 31 // r
+    tile_min = min(tile_rows, tile_cols)
+    kmax_fringe = max(1, tile_min // (FRINGE_DIVISOR * r))
+    k = max(1, min(k, kmax_engine, kmax_fringe))
+    # stitched bands need 2·K·r rows and (packed engines) 2 words of cols
+    overlap = tile_rows >= 2 * k * r and tile_cols >= 64
+    return k, overlap
+
+
+def resolve_auto(config, effective_mesh: Optional[Tuple[int, int]] = None,
+                 mesh=None, latency_us: Optional[float] = None):
+    """What ``auto`` resolves to.  Without ``effective_mesh``: the depth
+    ``comm_every`` on one device, judged by the port's own routing at each
+    candidate depth.  With it, the reference's answer (comm_every,
+    overlap): on (1, 1) that depth and the requested overlap; on a larger
+    mesh :func:`choose_comm_policy` at ``latency_us``, probed on ``mesh``
+    when not given."""
+    if effective_mesh is not None:
+        mi, mj = effective_mesh
+        if mi * mj == 1:
+            return resolve_auto(config), config.overlap
+        if latency_us is None:
+            latency_us = probe_collective_latency_us(mesh)
+        return choose_comm_policy(
+            mi * mj, config.rule, config.rows // mi, config.cols // mj,
+            latency_us, overlap_requested=config.overlap)
     from mpi_tpu_torch.backends.cuda import select_engine
 
     def route(g: int) -> Optional[str]:

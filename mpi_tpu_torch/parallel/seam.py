@@ -19,6 +19,13 @@ middle 2d columns after k generations depend only on the strip's own
 columns, so the column wrap never reaches them and they equal
 ``evolve_band``'s.  Every piece takes a leading board axis, so a batch of
 padded boards stitches in the same few launches as one board.
+
+On a mesh (:func:`make_mesh_seam_stepper`) the strip's words lie in the
+shards that hold them, the last and the first shard column when the tiles
+are wider than the band: each pass gathers those word columns from every
+row of shards into one thin packed block on the first shard's device,
+extracts the strip from it, steps it by K2 and stitches the exact columns
+back into the same shards.
 """
 
 from __future__ import annotations
@@ -159,3 +166,73 @@ def make_seam_stepper(inner, rule: Rule, C: int, K: int, band=step_band):
 
     return segmented_evolve(local, K)
 
+
+@functools.lru_cache(maxsize=None)
+def seam_plan(C: int, d: int, device: str):
+    """The mesh seam's index plan for depth d: the global words the strip
+    reads and the pass writes, the (word, bit) index tensors of the strip's
+    columns in the block of those words, and the block columns the exact
+    middle is stitched into."""
+    words = sorted({c // WORD for c in _strip(C, d)})
+    slot = {w: i for i, w in enumerate(words)}
+
+    def cols(cells):
+        return tuple(slot[c // WORD] * WORD + c % WORD for c in cells)
+
+    word, bit, *_ = _columns(cols(_strip(C, d)), device)
+    stitch = cols(tuple(range(C - d, C)) + tuple(range(d)))
+    _columns(stitch, device)  # _blend_cols' index tensors, made now
+    return tuple(words), word, bit, stitch
+
+
+def _gather_words(shards, words, tile_words: int) -> torch.Tensor:
+    """(H, len(words)) packed block of the global word columns ``words``,
+    every row of shards stacked, on the first shard's device."""
+    dev = shards[0][0].device
+    return torch.cat([
+        torch.cat([row[w // tile_words][:, w % tile_words:w % tile_words + 1]
+                   .to(dev, non_blocking=True) for w in words], dim=1)
+        for row in shards], dim=0)
+
+
+def _scatter_words(shards, block: torch.Tensor, words,
+                   tile_words: int) -> None:
+    """Write the packed ``block`` of :func:`_gather_words` back into the
+    shards' word columns, in place."""
+    r0 = 0
+    for row in shards:
+        h = row[0].shape[0]
+        for i, w in enumerate(words):
+            dst = row[w // tile_words]
+            dst[:, w % tile_words] = block[r0:r0 + h, i].to(
+                dst.device, non_blocking=True)
+        r0 += h
+
+
+def make_mesh_seam_stepper(inner, rule: Rule, C: int, K: int,
+                           band=step_band):
+    """evolve(shards, steps) -> shards around the padded periodic mesh
+    pass ``inner(shards, k)`` (``parallel/step.py``, built with
+    ``seam_pad``): each pass gathers the strip's words from the shards
+    before the pass, steps the strip by ``band`` (K2) and stitches its
+    exact middle columns over the pass's output shards.  ``C`` is the real
+    width, ``K`` the generations per pass."""
+    from mpi_tpu_torch.parallel.step import mesh_evolve
+
+    r = rule.radius
+    band_cols(C, K * r)  # validate up front at the deepest pass
+
+    def local(shards, k):
+        d = k * r
+        tw = shards[0][0].shape[1]
+        words, word, bit, stitch = seam_plan(C, d,
+                                              str(shards[0][0].device))
+        src = _gather_words(shards, words, tw)
+        strip = ((src.index_select(-1, word) >> bit) & 1).to(torch.uint8)
+        out = inner(shards, k)
+        block = _gather_words(out, words, tw)
+        _blend_cols(block, band(strip, rule, k)[..., d:3 * d], stitch)
+        _scatter_words(out, block, words, tw)
+        return out
+
+    return mesh_evolve(local, K)

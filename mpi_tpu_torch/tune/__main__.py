@@ -11,7 +11,8 @@ Modes (exit codes: 0 clean, 1 findings, 2 internal error):
   missing cache file is clean: no entries, nothing stale;
 * ``--list``: dump the cache entries.
 
-``--mesh`` is accepted as ``1x1`` only: meshes are ROADMAP queue 1 item 13.
+``--mesh`` is accepted as ``1x1`` only: tuning on a mesh is ROADMAP queue 1
+item 13b.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--boundary", default="periodic",
                    choices=("periodic", "dead"))
     p.add_argument("--mesh", default=None, metavar="MIxMJ",
-                   help="device mesh: 1x1 only (meshes are ROADMAP item 13)")
+                   help="device mesh: 1x1 only (tuning on a mesh is ROADMAP "
+                   "item 13b)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cpu probes the kernels' plain versions")
     p.add_argument("--seed", type=int, default=0)
@@ -88,8 +90,9 @@ def main(argv=None) -> int:
             print(f"bad --mesh {args.mesh!r} (want MIxMJ)", file=sys.stderr)
             return 2
         if mesh != (1, 1):
-            print(f"--mesh {args.mesh}: the port runs one device; meshes "
-                  f"are ROADMAP queue 1 item 13", file=sys.stderr)
+            print(f"--mesh {args.mesh}: tuning on a device mesh is the "
+                  f"multi-process mesh slice, ROADMAP queue 1 item 13b",
+                  file=sys.stderr)
             return 2
     try:
         config = GolConfig(

@@ -134,12 +134,13 @@ def validate_plan(config: GolConfig, mesh_shape: Tuple[int, int],
                   plan: dict, platform: str = "cuda") -> GolConfig:
     """``config`` with ``plan`` applied, under the rules the build path
     runs: ``apply_plan``'s, the ghost ring's size on the one device
-    (``validate_size``; meshes are ROADMAP item 13), and a ``blocks``
-    tile's on the engine the plan lands on, for the platform's device.
+    (``validate_size``; tuning on a mesh is ROADMAP item 13b), and a
+    ``blocks`` tile's on the engine the plan lands on, for the platform's
+    device.
     Raises :class:`ConfigError`."""
     if tuple(mesh_shape) != (1, 1):
-        raise ConfigError(f"mesh {tuple(mesh_shape)}: the port runs one "
-                          f"device; meshes are ROADMAP queue 1 item 13")
+        raise ConfigError(f"mesh {tuple(mesh_shape)}: tuning on a device "
+                          f"mesh is ROADMAP queue 1 item 13b")
     tuned = apply_plan(config, plan)
     validate_size(tuned.rows, tuned.cols,
                   tuned.rule.radius * tuned.comm_every)

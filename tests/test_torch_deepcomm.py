@@ -80,8 +80,8 @@ def test_run_cuda_warms_only_the_depths_it_runs(monkeypatch):
     built = []
     real = port.build_engine
 
-    def spy(config, device=None, depths=None):
-        eng = real(config, device=device, depths=depths)
+    def spy(config, device=None, depths=None, **kw):
+        eng = real(config, device=device, depths=depths, **kw)
         built.append(eng)
         return eng
 

@@ -150,10 +150,16 @@ def test_config_serves_what_earlier_slices_refused(kw, engine):
 
 
 def test_config_refuses_other_slices():
-    for kw, item in [(dict(mesh_shape=(2, 1)), "item 13"),
-                     (dict(overlap=True), "item 13")]:
-        with pytest.raises(ConfigError, match=item):
-            GolConfig(**{**dict(rows=64, cols=64, steps=1), **kw})
+    # meshes and overlap run since the single-process mesh slice; serving,
+    # batches and tuning on a mesh are the multi-process one, item 13b
+    cfg = GolConfig(rows=64, cols=64, steps=1, mesh_shape=(2, 1))
+    eng = port.build_engine(cfg, device="cpu")
+    for call in (lambda: eng.step_batched(None, 1),
+                 lambda: eng.fetch_window(None, 0, 0, 1, 1),
+                 lambda: port.build_engine(cfg, device="cpu", tune="x.json")):
+        with pytest.raises(ConfigError, match="item 13b"):
+            call()
+    GolConfig(rows=64, cols=64, steps=1, overlap=True)
     GolConfig(rows=64, cols=64, steps=1, mesh_shape=(1, 1))
     GolConfig(rows=64, cols=80, steps=1, rule=BOSCO, backend="serial")
     # radius > 1 and widths off 32 now run on K3 and K2

@@ -352,8 +352,8 @@ def _jax_engine(cell):
     return jax_build_engine(JaxConfig(
         rows=cell.rows, cols=cell.cols, steps=0, seed=cell.seed,
         rule=jax_rule_from_name(cell.rule), boundary=cell.boundary,
-        backend="tpu", mesh_shape=(1, 1), comm_every=cell.comm_every,
-        sparse_tile=cell.sparse_tile))
+        backend="tpu", mesh_shape=cell.mesh, comm_every=cell.comm_every,
+        overlap=cell.overlap, sparse_tile=cell.sparse_tile))
 
 
 def _jax_boards(cell):

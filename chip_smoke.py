@@ -235,7 +235,37 @@ Phases; any failure exits non-zero before the result line:
    oracle's.  Phase 2 holds K1-K3 at these paths' shard windows (dead
    boundary, the padded shard's local ``col_limit``, the Life overlap
    bands, the dense path's 16-aligned windows at gens 3 and 1) to their
-   plain versions.
+   plain versions.  Life also runs 1x2 there, phase 13's mesh in one
+   process;
+13. the multi-process mesh (``parallel/dist.py``, the CLI's
+   ``--multihost``) on the one card: after the libraries its groups load
+   are built here (no rank runs nvcc), groups of ``python -m
+   mpi_tpu_torch.cli ... --multihost --coordinator 127.0.0.1:PORT
+   --device cuda`` processes, one shard a rank, at full width: Life
+   65536² on 1x2 (2 ranks, comm_every 8, 1500 generations; K1), Bosco
+   65536² on 1x2 (2 ranks, comm_every 1, 200; K3), dense Bosco 16384² on
+   2x2 (4 ranks, comm_every 7, 1201; K2 in chunks of 3, 3, 1) and padded
+   periodic Life 65000² on 1x2 (2 ranks; K1 with a local ``col_limit``,
+   the seam band gathered across the ranks onto the owner of shard (0,
+   1) and stepped there on K2), each with ``--save``: every rank's
+   transport line must say ``gloo-host-staged``, its launch counts
+   (printed by each rank as it exits) must equal ``_mesh_expected`` for
+   its one shard, and its final ``.golp`` tiles, region by region, must
+   equal phase 3's single-device final of that config (SHA-256 of each
+   tile's body and its population, read off the device final by phase
+   3; no whole grid unpacked on the host); the files go after the
+   check.  Life and Bosco run again without ``--save``: their rates from
+   the CSV row, whose avg and sum columns are the ranks' gathered
+   durations, against the 1x1 path's and phase 12's one-process rate of
+   the same mesh, with each rank's bytes staged through the host, its
+   seconds in stream syncs and in waits; Life once more with
+   ``--profile`` (one trace a rank): the card's busy share of the steady
+   window.  Then the CLI's small groups against the serial oracle: 512²
+   Life on 4 ranks (the default mesh, 2x2), R2 at 256x1024 written on
+   1x4 and resumed on 2x2 (4 ranks), and ``--comm-every auto`` on 2
+   ranks, whose ranks must resolve one K.  A rank that exits non-zero, or
+   a group that outlasts its limit, kills every rank of the group and
+   fails the script.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -1099,8 +1129,69 @@ def _plain_final(kind, rows, cols, rule, steps, boundary="periodic",
 
 
 # (label, kernel) -> phase 3's single-device final: the digest of its grid
-# (packed words at the padded width, or cells), population, steady s, rate
+# (packed words at the padded width, or cells), population, steady s, rate,
+# and for the finals phase 13's groups hold their tiles to, each tile's
+# region ``(pid, SHA-256 of its .golp body, population)`` on that mesh
 FINALS = {}
+# the mesh of each final whose tiles phase 13 checks region by region
+GROUP_REGIONS = {("life", "K1"): (1, 2), ("bosco", "K3"): (1, 2),
+                 ("bosco", "K2"): (2, 2), ("padded_life", "K1"): (1, 2)}
+# np.packbits puts a byte's first cell in its top bit, a packed word's
+# bytes (little-endian) hold it in their low bit
+BITREV8 = [int(f"{b:08b}"[::-1], 2) for b in range(256)]
+POPCOUNT8 = np.array([bin(b).count("1") for b in range(256)], dtype=np.int64)
+GOLP_WEIGHTS = [128, 64, 32, 16, 8, 4, 2, 1]
+
+
+def _golp_rows(g: torch.Tensor, kind: str, r0: int, r1: int, c0: int,
+               c1: int, block: int = 4096):
+    """The ``.golp`` body (``np.packbits`` rows) of the cells [r0:r1,
+    c0:c1] of the device grid ``g`` (packed words or cells), a block of
+    rows at a time, as host bytes; ``c1 - c0`` a multiple of 8, or ``c1``
+    the real width (the pad past it is dead)."""
+    rev = torch.tensor(BITREV8, dtype=torch.uint8, device=g.device)
+    weights = torch.tensor(GOLP_WEIGHTS, dtype=torch.int32, device=g.device)
+    nbytes = -(-(c1 - c0) // 8)
+    for b0 in range(r0, r1, block):
+        b1 = min(b0 + block, r1)
+        if kind == "dense":
+            cells = torch.nn.functional.pad(g[b0:b1, c0:c1],
+                                            (0, -(c1 - c0) % 8))
+            body = (cells.view(b1 - b0, nbytes, 8).to(torch.int32)
+                    * weights).sum(-1).to(torch.uint8)
+        else:
+            if c0 % WORD:
+                fail(f"a tile at column {c0} does not start a word")
+            words = g[b0:b1, c0 // WORD:-(-c1 // WORD)].contiguous()
+            body = rev[words.view(torch.uint8).long()][:, :nbytes]
+        yield body.cpu().numpy().tobytes()
+
+
+def _region_digests(g: torch.Tensor, kind: str, rows: int, cols: int,
+                    comm_every: int, rule, boundary: str, shape) -> list:
+    """``(pid, SHA-256, population)`` of each tile a run on the mesh
+    ``shape`` writes, read off the device grid ``g``: the shards' regions
+    at the mesh's padded width, cropped to the real width, a shard wholly
+    in the pad writing none (``MeshEngine.tiles``)."""
+    mi, mj = shape
+    cfg = GolConfig(rows=rows, cols=cols, steps=1, rule=rule,
+                    comm_every=comm_every, boundary=boundary)
+    th, tw = rows // mi, backend.plan_mesh_engine(cfg, mi, mj)[1] // mj
+    out = []
+    for i in range(mi):
+        for j in range(mj):
+            c0 = j * tw
+            if c0 >= cols:
+                continue
+            c1 = min(c0 + tw, cols)
+            if (c1 - c0) % 8 and c1 != cols:
+                fail(f"a tile of {c1 - c0} columns is not whole bytes")
+            h, pop = hashlib.sha256(), 0
+            for chunk in _golp_rows(g, kind, i * th, (i + 1) * th, c0, c1):
+                h.update(chunk)
+                pop += int(POPCOUNT8[np.frombuffer(chunk, np.uint8)].sum())
+            out.append((i * mj + j, h.hexdigest(), pop))
+    return out
 
 
 def _digest(g: torch.Tensor) -> str:
@@ -1151,11 +1242,16 @@ def _drive(label, kid, kind, shape, rule, comm_every, steps,
     plain_pop = (int(g.sum(dtype=torch.int64).item()) if kind == "dense"
                  else population(g))
     differ = _blocks_differ(final, g, kind != "dense")
-    # phase 12 holds the mesh's grid of this config to this one
+    # phase 12 holds the mesh's grid of this config to this one, phase 13
+    # its process groups' tiles
     FINALS[label, kid] = {"digest": _digest(g), "population": pop,
                           "steady_s": timer.nosetup_us / 1e6,
                           "cell_updates_per_s": timer.cells_per_sec(
                               rows, cols, steps)}
+    if (label, kid) in GROUP_REGIONS:
+        FINALS[label, kid]["regions"] = _region_digests(
+            g, kind, rows, cols, comm_every, rule, boundary,
+            GROUP_REGIONS[label, kid])
     del g
     torch.cuda.empty_cache()
     if pop != plain_pop or differ:
@@ -4520,6 +4616,9 @@ def phase11_analysis(card: str) -> None:
 MESH_PATHS = (
     ("life_2x2", ("life", "K1"), "bit", FLAGSHIP, FLAGSHIP, LIFE, MAIN_GENS,
      MAIN_STEPS, (2, 2), False, "periodic"),
+    # the mesh of phase 13's two-process Life group, in one process
+    ("life_1x2", ("life", "K1"), "bit", FLAGSHIP, FLAGSHIP, LIFE, MAIN_GENS,
+     MAIN_STEPS, (1, 2), False, "periodic"),
     ("life_2x2_overlap", ("life", "K1"), "bit", FLAGSHIP, FLAGSHIP, LIFE,
      MAIN_GENS, MAIN_STEPS, (2, 2), True, "periodic"),
     ("bosco_1x2", ("bosco", "K3"), "ltl", FLAGSHIP, FLAGSHIP, BOSCO, 1, 200,
@@ -4532,14 +4631,18 @@ MESH_PATHS = (
      8, 1500, (1, 2), False, "periodic"),
 )
 MESH_TRACE_PASSES = 4   # passes in each path's profiled window
+# label -> a mesh path's cell-updates/s in one process (phase 13 reads it)
+MESH_RATES = {}
 
 
-def _mesh_expected(engine, steps: int) -> dict:
+def _mesh_expected(engine, steps: int, shards=None, band=True) -> dict:
     """The launches of a mesh engine's warm-up and ``steps`` generations:
     every shard one window a pass (five with the overlap body), each window
     in the kernel's chunks (``chunk_gens``), plus one warm-up launch per
     chunk depth; a seam grid adds K2's band, one a pass and one warm-up a
-    pass depth."""
+    pass depth.  ``shards``: the shards one rank of a process group holds
+    (default every shard, one process); ``band``: whether it steps the
+    seam band (the rank that owns shard (0, mj-1))."""
     K = min(engine.depth, steps)
     full, rem = divmod(steps, K)
     rule = engine.config.rule
@@ -4548,12 +4651,13 @@ def _mesh_expected(engine, steps: int) -> dict:
     def chunks(k):
         return -(-k // top)
 
-    windows = engine.mi * engine.mj * (5 if engine.overlap else 1)
+    windows = ((engine.mi * engine.mj if shards is None else shards)
+               * (5 if engine.overlap else 1))
     out = {kid: 0 for kid in KERNELS}
     out[engine.kernel_id] = (
         windows * (full * chunks(K) + (chunks(rem) if rem else 0))
         + len(chunk_gens(engine.kind, rule, engine.depths)))
-    if engine.seam:
+    if engine.seam and band:
         out["K2"] += full + bool(rem) + len(engine.depths)
     return out
 
@@ -4769,9 +4873,326 @@ def phase12_mesh(card: str) -> None:
     throughput, then the CLI's mesh flags."""
     t_phase = time.perf_counter()
     for path in MESH_PATHS:
-        emit({"phase": "mesh", **_mesh_path(card, path)})
+        row = _mesh_path(card, path)
+        MESH_RATES[row["path"]] = row["cell_updates_per_s"]
+        emit({"phase": "mesh", **row})
     emit({"phase": "mesh_cli", "card": card, **_mesh_cli(card),
           "phase_s": time.perf_counter() - t_phase})
+
+
+# -- phase 13: the multi-process mesh on one card ----------------------------
+
+# (label, the phase-3 final it must equal, kind, rows, cols, rule name,
+#  comm_every, steps, mesh, ranks, timed once more without --save): each a
+# group of ``python -m mpi_tpu_torch.cli ... --multihost`` processes on the
+# one card, one shard a rank
+GROUP_PATHS = (
+    ("life_1x2", ("life", "K1"), "bit", FLAGSHIP, FLAGSHIP, "life",
+     MAIN_GENS, MAIN_STEPS, (1, 2), 2, True),
+    ("bosco_1x2", ("bosco", "K3"), "ltl", FLAGSHIP, FLAGSHIP, "bosco", 1,
+     200, (1, 2), 2, True),
+    # K·r = 35: K2 in chunks of 3, 3 and 1, as phase 12's dense path
+    ("dense_bosco_2x2", ("bosco", "K2"), "dense", DENSE, DENSE, "bosco", 7,
+     1201, (2, 2), 4, False),
+    # K1 with a local col_limit, the seam band gathered across the ranks
+    ("padded_life_1x2", ("padded_life", "K1"), "bit", PADDED, PADDED, "life",
+     8, 1500, (1, 2), 2, False),
+)
+GROUP_TIMEOUT_S = 240.0   # the limit of every group, its start included
+# each rank runs the CLI as __main__ and prints its wrappers' launch counts
+# as it exits (phase 9's wrapper)
+RANK_MAIN = CLUSTER_NODE_MAIN
+TRAFFIC = re.compile(r"multihost: (\d+) exchanges, (\d+) messages, (\d+) "
+                     r"bytes sent, (\d+) bytes staged through the host, "
+                     r"(\d+) us in stream syncs, (\d+) us in waits")
+
+
+def _group(label: str, argv: list, ranks: int, work: str) -> list:
+    """One process group of ``ranks`` CLI processes on the card; every
+    rank must exit 0 within :data:`GROUP_TIMEOUT_S`, and all are killed
+    the moment one fails.  Returns each rank's stdout lines."""
+    port = _free_ports(1)[0]
+    procs, logs = [], []
+    try:
+        for p in range(ranks):
+            out = open(os.path.join(work, f"{label}.r{p}.out"), "w+")
+            err = open(os.path.join(work, f"{label}.r{p}.err"), "w+")
+            logs.append((out, err))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RANK_MAIN, *argv, "--device", "cuda",
+                 "--multihost", "--coordinator", f"127.0.0.1:{port}",
+                 "--num-processes", str(ranks), "--process-id", str(p)],
+                cwd=ROOT, stdout=out, stderr=err, text=True))
+        deadline = time.perf_counter() + GROUP_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            bad = [i for i, p in enumerate(procs)
+                   if p.returncode not in (None, 0)]
+            if bad or time.perf_counter() > deadline:
+                i = bad[0] if bad else 0
+                logs[i][1].seek(0)
+                fail(f"the {label} group: rank {i} "
+                     f"{'exited ' + str(procs[i].returncode) if bad else 'hung'}"
+                     f": {logs[i][1].read()[-1500:]}")
+            time.sleep(0.1)
+        lines = []
+        for i, (p, (out, err)) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                err.seek(0)
+                fail(f"the {label} group: rank {i} exited {p.returncode}: "
+                     f"{err.read()[-1500:]}")
+            out.seek(0)
+            lines.append(out.read().splitlines())
+        return lines
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for out, err in logs:
+            out.close()
+            err.close()
+
+
+def _rank_report(label: str, p: int, lines: list) -> dict:
+    """A rank's transport, launch counts and halo traffic from its
+    stdout; the transport must be the host-staged gloo of ranks that share
+    a card."""
+    transport = [ln for ln in lines if "halo transport" in ln]
+    launches = [json.loads(ln)["launches"] for ln in lines
+                if ln.startswith('{"launches"')]
+    traffic = [TRAFFIC.search(ln) for ln in lines if TRAFFIC.search(ln)]
+    if len(transport) != 1 or not transport[0].endswith(
+            "halo transport gloo-host-staged") or not launches \
+            or not traffic:
+        fail(f"the {label} group's rank {p} printed {lines[-6:]}")
+    ex, msgs, sent, staged, sync_us, wait_us = (
+        int(v) for v in traffic[0].groups())
+    return {"rank": p, "transport": transport[0].split("] ", 1)[-1],
+            "launches": launches[0], "exchanges": ex, "messages": msgs,
+            "bytes_sent": sent, "bytes_staged": staged,
+            "stream_sync_s": sync_us / 1e6, "exchange_wait_s": wait_us / 1e6}
+
+
+def _group_path(card: str, path, work: str, save: bool) -> dict:
+    """One full-width group: with ``save`` its final tiles, region by
+    region, against phase 3's single-device final (SHA-256 of each
+    ``.golp`` body and its population); without, its rate from the CSV
+    row of gathered durations.  Either way each rank's launches against
+    ``_mesh_expected`` for its one shard, and its transport."""
+    (label, final_key, kind, rows, cols, rule_name, K, steps, shape, ranks,
+     _) = path
+    single = FINALS.get(final_key)
+    if single is None or "regions" not in single:
+        fail(f"phase 3 kept no single-device regions for {final_key}")
+    rule = rule_from_name(rule_name)
+    cfg = GolConfig(rows=rows, cols=cols, steps=steps, seed=SEED, rule=rule,
+                    mesh_shape=shape, comm_every=K)
+    n = shape[0] * shape[1]
+    # the plan alone, in this process: what each rank's engine launches
+    engine = backend.build_engine(
+        cfg, mesh=make_mesh(shape, devices=[torch.device("cuda", 0)] * n),
+        depths=sorted(backend.segment_depths([steps], K)))
+    if engine.kind != kind:
+        fail(f"the {label} group would run {engine.kind}, not {kind}")
+    d = os.path.join(work, label)
+    os.makedirs(d)
+    gap = str(steps) if save else "0"
+    argv = [str(rows), str(cols), gap, str(steps), label, "1", "--rule",
+            rule_name, "--comm-every", str(K), "--mesh",
+            f"{shape[0]}x{shape[1]}", "--seed", str(SEED), "--out-dir", d,
+            "--name", label]
+    if save:
+        argv += ["--save", "--snapshot-format", "golp"]
+    t0 = time.perf_counter()
+    lines = _group(label, argv, ranks, work)
+    wall_s = time.perf_counter() - t0
+    per = n // ranks
+    band_rank = (shape[1] - 1) // per    # the owner of shard (0, mj-1)
+    reports = []
+    for p, rank_lines in enumerate(lines):
+        rep = _rank_report(label, p, rank_lines)
+        want = _mesh_expected(engine, steps, shards=per,
+                              band=p == band_rank)
+        if rep["launches"] != want:
+            fail(f"the {label} group's rank {p} launched "
+                 f"{rep['launches']}, expected {want}")
+        reports.append(rep)
+    passes = -(-steps // K)
+    out = {"path": label, "card": card, "kernel": engine.kernel_id,
+           "grid": [rows, cols], "mesh": list(shape), "ranks": ranks,
+           "rule": rule_name, "comm_every": K, "steps": steps,
+           "seam": engine.seam, "save": save, "group_wall_s": wall_s,
+           "ranks_report": reports,
+           "bytes_staged_a_pass": [r["bytes_staged"] / passes
+                                   for r in reports]}
+    if save:
+        got = []
+        for pid in golio.iteration_tile_pids(d, label, steps):
+            h, pop = hashlib.sha256(), 0
+            with open(golio.find_tile_path(d, label, steps, pid), "rb") as f:
+                if f.readline() != golio.GOLP_MAGIC:
+                    fail(f"the {label} group's tile {pid} is not .golp")
+                f.readline()
+                f.readline()
+                while chunk := f.read(1 << 26):
+                    h.update(chunk)
+                    pop += int(POPCOUNT8[np.frombuffer(chunk,
+                                                       np.uint8)].sum())
+            got.append((pid, h.hexdigest(), pop))
+        if got != single["regions"]:
+            fail(f"the {label} group's final tiles differ from phase 3's "
+                 f"single-device final: {[g[::2] for g in got]} vs "
+                 f"{[g[::2] for g in single['regions']]}")
+        if sum(pop for _, _, pop in got) != single["population"]:
+            fail(f"the {label} group's tiles hold another population")
+        out.update(tiles_equal_to_single_device=len(got),
+                   population=single["population"])
+    else:
+        with open(os.path.join(d, f"{label}_compact.csv")) as f:
+            csv = f.read().strip().splitlines()
+        if len(csv) != 2:
+            fail(f"the {label} group wrote {len(csv) - 1} CSV rows, not 1")
+        row = [int(v) for v in csv[1].split(",")]
+        nos_single, nos_avg, nos_sum = row[6:9]
+        if nos_avg != nos_sum // ranks or not nos_sum >= nos_single > 0:
+            fail(f"the {label} group's CSV nosetup columns {row[6:9]} are "
+                 f"not the gathered table's")
+        rate = rows * cols * steps / (nos_avg / 1e6)
+        out.update(csv_nosetup_us=row[6:9], steady_s_avg=nos_avg / 1e6,
+                   cell_updates_per_s=rate,
+                   single_device_cell_updates_per_s=single[
+                       "cell_updates_per_s"],
+                   rate_over_single_device=rate / single[
+                       "cell_updates_per_s"],
+                   one_process_cell_updates_per_s=MESH_RATES.get(label),
+                   rate_over_one_process=rate / MESH_RATES[label])
+    shutil.rmtree(d)
+    return out
+
+
+def _group_profile(card: str, path, work: str) -> dict:
+    """The group once more with ``--profile``: one Chrome trace a rank.
+    The card's busy share of the steady window: each rank's device events
+    (kernels, copies, fills) inside its window, from its first path-kernel
+    launch on a shard (not a warm-up's one-word grid) to its last kernel's
+    end, summed over the ranks (ranks that share a card without MPS run in
+    turns, never at once), over the window that spans every rank's, on
+    the clock the traces share (``baseTimeNanoseconds`` + ``ts``)."""
+    (label, _, kind, rows, cols, rule_name, K, steps, shape, ranks, _) = path
+    kid = {"bit": "K1", "ltl": "K3", "dense": "K2"}[kind]
+    d = os.path.join(work, label + "_profiled")
+    traces = os.path.join(d, "traces")
+    argv = [str(rows), str(cols), "0", str(steps), "--rule", rule_name,
+            "--comm-every", str(K), "--mesh", f"{shape[0]}x{shape[1]}",
+            "--seed", str(SEED), "--out-dir", d, "--profile", traces]
+    lines = _group(label + "_profiled", argv, ranks, work)
+    t0s, t1s, busy, per_rank = [], [], 0.0, []
+    for p in range(ranks):
+        [name] = [f for f in os.listdir(traces)
+                  if f.startswith(f"trace-r{p}-")]
+        with open(os.path.join(traces, name)) as f:
+            trace = json.load(f)
+        base = trace.get("baseTimeNanoseconds", 0) / 1e3
+        dev = [e for e in trace["traceEvents"]
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        own = [e for e in dev if e.get("cat") == "kernel"
+               and any(n in e["name"] for n in KERNEL_NAMES[kid])]
+        shard = [e for e in own if e.get("dur", 0) > 50]
+        if not shard:
+            fail(f"the {label} group's rank {p} trace holds no {kid} kernel "
+                 f"on a shard")
+        w0 = min(e["ts"] for e in shard)
+        w1 = max(e["ts"] + e["dur"] for e in dev)
+        spans = sorted((max(e["ts"], w0), e["ts"] + e.get("dur", 0))
+                       for e in dev if e["ts"] + e.get("dur", 0) > w0)
+        rank_busy, end = 0.0, float("-inf")
+        for a, b in spans:
+            rank_busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+        busy += rank_busy
+        t0s.append(base + w0)
+        t1s.append(base + w1)
+        per_rank.append({
+            "rank": p, "window_ms": (w1 - w0) / 1e3,
+            "device_busy_ms": rank_busy / 1e3,
+            f"{kid}_records": len(own), f"{kid}_ms": sum(
+                e["dur"] for e in own) / 1e3,
+            "copies_and_fills_ms": sum(e["dur"] for e in dev
+                                       if e.get("cat") != "kernel") / 1e3,
+            "launches": _rank_report(label, p, lines[p])["launches"]})
+    window = max(t1s) - min(t0s)
+    shutil.rmtree(d)
+    return {"path": label, "card": card, "ranks": ranks,
+            "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / window, "ranks_report": per_rank}
+
+def _small_groups(card: str, work: str) -> dict:
+    """The CLI's groups at 512² and under, held to the serial oracle by
+    ``golio.assemble``: 4 ranks on the default mesh (2x2), a resume written
+    on 1x4 and resumed on 2x2 (R2, 4 ranks), and ``--comm-every auto`` (2
+    ranks, every rank the same K)."""
+    def oracle(rows, cols, steps, rule):
+        return evolve_np(init_tile_np(rows, cols, 5), steps, rule,
+                         "periodic")
+
+    def check(label, d, name, rows, cols, steps, rule, kid, lines):
+        for p, rank_lines in enumerate(lines):
+            if _rank_report(label, p, rank_lines)["launches"][kid] == 0:
+                fail(f"the {label} group's rank {p} launched {kid} no time")
+        if not np.array_equal(golio.assemble(d, name, steps),
+                              oracle(rows, cols, steps, rule)):
+            fail(f"the {label} group's grid differs from the serial oracle")
+
+    common = ["--save", "--seed", "5"]
+    d = os.path.join(work, "four")
+    lines = _group("four", ["512", "512", "8", "16", "--out-dir", d]
+                   + common, 4, work)
+    check("four", d, "run-512x512-16-s5", 512, 512, 16, LIFE, "K1", lines)
+    if golio.read_master(golio.master_path(d, "run-512x512-16-s5"))[4] != 4:
+        fail("the four-rank group's master header lacks 4 writers")
+    d = os.path.join(work, "resume")
+    base = ["256", "1024", "8", "8", "--rule", "R2,B10-13,S8-12", "--name",
+            "uneven", "--out-dir", d] + common
+    _group("resume_write", base + ["--mesh", "1x4"], 4, work)
+    lines = _group("resume_read", base + ["--mesh", "2x2", "--resume",
+                                          "uneven@8"], 4, work)
+    check("resume_read", d, "uneven", 256, 1024, 16, R2, "K3", lines)
+    d = os.path.join(work, "auto")
+    lines = _group("auto", ["256", "1024", "8", "16", "--comm-every", "auto",
+                            "--out-dir", d] + common, 2, work)
+    check("auto", d, "run-256x1024-16-s5", 256, 1024, 16, LIFE, "K1", lines)
+    policy = {tuple(ln for ln in rank if "comm policy auto" in ln)
+              for rank in lines}
+    if len(policy) != 1 or len(next(iter(policy))) != 1:
+        fail(f"the auto group's ranks resolved {policy}")
+    return {"four_ranks_2x2_equal_to_serial": True,
+            "resume_1x4_to_2x2_r2_equal_to_serial": True,
+            "comm_every_auto": next(iter(policy))[0].split("] ", 1)[-1]}
+
+
+def phase13_multihost(card: str) -> None:
+    """The multi-process mesh on one card: full-width groups held to phase
+    3's finals region by region, their rates, then the CLI's small
+    groups against the serial oracle."""
+    t_phase = time.perf_counter()
+    # no rank may start nvcc: every library the groups load is built here
+    _build.build()
+    _build.build_rules("bit", [LIFE])
+    _build.build_rules("ltl", [BOSCO, R2])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        for path in GROUP_PATHS:
+            emit({"phase": "multihost", **_group_path(card, path, work,
+                                                      save=True)})
+        for path in GROUP_PATHS:
+            if path[-1]:
+                emit({"phase": "multihost_rate",
+                      **_group_path(card, path, work, save=False)})
+        emit({"phase": "multihost_profile",
+              **_group_profile(card, GROUP_PATHS[0], work)})
+        emit({"phase": "multihost_cli", "card": card,
+              **_small_groups(card, work),
+              "phase_s": time.perf_counter() - t_phase})
 
 
 def main() -> int:
@@ -4807,6 +5228,8 @@ def main() -> int:
     lap("analysis")
     phase12_mesh(card)
     lap("mesh")
+    phase13_multihost(card)
+    lap("multihost")
     emit({"phase": "seconds", **seconds})
     k1 = times["K1", MAIN_GENS]
     k2 = times["K2", DENSE_PATH[2]]

@@ -13,7 +13,7 @@ passes of 8).  A cell on a mesh other than (1, 1) runs on that many
 virtual shards of the one device (``make_mesh(shape, devices=[dev] *
 n)``), on the CPU and on the card alike, and its halo exchanges are
 recorded for ``ir-collective``.  The reference's ``batched_packed_1x2``
-is left out: batches on a mesh are ROADMAP item 13b.
+is left out: batches on a mesh are ROADMAP item 19.
 
 Grids are 64 rows, so a cell's steps are tiny; the ``fast`` tier runs
 in the tests and every tier in ``chip_smoke.py`` on the card.  Which

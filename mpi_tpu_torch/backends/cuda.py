@@ -887,9 +887,8 @@ def build_engine(config: GolConfig, device=None, depths=None, tune=None,
         mesh = make_mesh(tuple(config.mesh_shape),
                          platform=resolve_device(device).type)
     if mesh is not None:
-        for row in mesh.devices:
-            for d in row:
-                resolve_device(d)
+        for d in mesh.local_devices():
+            resolve_device(d)
         if mesh.size > 1:
             return build_mesh_engine(config, mesh, depths=depths, tune=tune,
                                      blocks=blocks)
@@ -969,9 +968,10 @@ def build_mesh_engine(config: GolConfig, mesh, depths=None, tune=None,
     mi, mj = mesh.dims
     if tune is not None or blocks is not None:
         raise ConfigError("a tuned plan or a CTA tile on a device mesh is "
-                          "the multi-process mesh slice, ROADMAP item 13b")
+                          "ROADMAP item 19, serving and tuning on a mesh")
     validate_mesh(config.rows, config.cols, (mi, mj),
-                  config.rule.radius * config.comm_every)
+                  config.rule.radius * config.comm_every,
+                  processes=mesh.processes)
     if config.sparse_tile:
         raise ConfigError(
             f"sparse_tile requires a single-device mesh (got {mi}x{mj}); "
@@ -1040,12 +1040,15 @@ def run_cuda(
     device=None,
     mesh=None,
 ) -> np.ndarray:
-    """Run one configuration; returns the final grid as a host uint8 array.
+    """Run one configuration; returns the final grid as a host uint8 array
+    (None on a mesh that spans a process group: no process holds it).
 
     ``initial``/``start_iteration`` resume from a grid loaded with
-    ``golio.load_snapshot`` at the iteration it was saved at.  ``mesh``
-    shards the run (see :func:`build_engine`); snapshot tiles are then one
-    a shard."""
+    ``golio.load_snapshot`` at the iteration it was saved at, or, on a
+    mesh, from a region loader ``initial(r0, r1, c0, c1)`` called once
+    for each shard this process holds.  ``mesh`` shards the run (see
+    :func:`build_engine`); snapshot tiles are then one a shard, this
+    process's shards only under a process group."""
     timer = timer or PhaseTimer()
     want_snapshots = snapshot_cb is not None and config.snapshot_every > 0
     segments = plan_segments(

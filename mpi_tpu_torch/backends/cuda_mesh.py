@@ -9,8 +9,14 @@ padded grid's seam band is stitched across the first and last shard
 columns (``parallel/seam.py:make_mesh_seam_stepper``).  ``build_engine``
 (``backends/cuda.py``) plans it and builds it.
 
+Under a process group (``parallel/dist.py``, ``--multihost``) the mesh
+spans the ranks and a grid holds this rank's shards only, None in the
+place of every other rank's: the engine builds, loads, steps, writes and
+counts the local shards, and ``fetch`` returns None, as the reference's
+does under ``jax.process_count() > 1``.
+
 What the serve layer calls on an engine beyond one run's (``step_batched``,
-windows, batches) is the multi-process slice's, ROADMAP item 13b, and
+windows, batches) is ROADMAP item 19, serving and tuning on a mesh, and
 raises :class:`ConfigError` here.
 """
 
@@ -28,8 +34,8 @@ from mpi_tpu_torch.ops import bitlife, cuda_bitltl, cuda_stencil
 from mpi_tpu_torch.parallel import seam, step
 from mpi_tpu_torch.parallel.mesh import Mesh
 
-SERVING_ITEM = ("serving, batches and windows on a device mesh are the "
-                "multi-process mesh slice, ROADMAP item 13b")
+SERVING_ITEM = ("serving, batches and windows on a device mesh are "
+                "ROADMAP item 19, serving and tuning on a mesh")
 
 
 def chunk_gens(kind: str, rule, depths) -> List[int]:
@@ -63,7 +69,8 @@ class MeshEngine:
         self.config = config
         self.mesh = mesh
         self.mi, self.mj = mesh.dims
-        self.device = mesh.devices[0][0]
+        i0, j0 = mesh.local_shards()[0]
+        self.device = mesh.devices[i0][j0]
         self.kind = kind
         self.kernel_id = kernel_id
         self.bitpacked = kind != "dense"
@@ -98,7 +105,7 @@ class MeshEngine:
         if self.seam:
             # inner(shards, k) with k <= comm_every runs one pass of k
             self._evolve = seam.make_mesh_seam_stepper(
-                inner, rule, config.cols, config.comm_every)
+                inner, rule, config.cols, config.comm_every, mesh=mesh)
         else:
             self._evolve = inner
         self._compile_lock = threading.Lock()
@@ -126,7 +133,8 @@ class MeshEngine:
         config.seed), each shard hashing its own global coordinates, or the
         uint8 0/1 ``initial`` grid, or a region loader ``initial(r0, r1,
         c0, c1)`` read shard by shard (the reference's ``_put_initial``); a
-        padded grid's pad starts dead."""
+        padded grid's pad starts dead.  Under a process group only the
+        local shards are made, and the loader is called once for each."""
         rows = self.config.rows
         if initial is None:
             seed = self.config.seed if seed is None else seed
@@ -151,6 +159,9 @@ class MeshEngine:
         for i in range(self.mi):
             row = []
             for j in range(self.mj):
+                if not self.mesh.is_local(i, j):
+                    row.append(None)
+                    continue
                 r0, c0 = i * th, j * tw
                 tile = np.zeros((th, tw), dtype=np.uint8)
                 if c0 < C:
@@ -171,20 +182,27 @@ class MeshEngine:
         """Build and load the kernel and launch it once at each gens its
         passes launch, on a one-word or one-cell grid (and for a seam grid
         the band's K2 step at its height), so the first timed pass pays no
-        build or first-launch setup."""
+        build or first-launch setup.  Under a process group each rank warms
+        its own cards, and the band only where it is stepped."""
         self._warm(self.depths)
+
+    def _steps_band(self) -> bool:
+        """Whether this process steps the seam band: always in one
+        process, the owner of shard (0, mj-1) under a group."""
+        return self.seam and self.mesh.is_local(0, self.mj - 1)
 
     def _warm(self, depths) -> None:
         rule = self.config.rule
         dtype = torch.int32 if self.bitpacked else torch.uint8
-        for dev in sorted({d for row in self.mesh.devices for d in row},
-                          key=str):
+        for dev in self.mesh.local_devices():
             if dev.type != "cuda":
                 continue
             for g in chunk_gens(self.kind, rule, depths):
                 tiny = torch.zeros((1, 1), dtype=dtype, device=dev)
                 self._kernel(tiny, rule, "dead", gens=g)
-        if self.seam:
+        if self._steps_band():
+            # on the first shard's device: in a group the root's one
+            # device, which holds shard (0, mj-1)
             for k in depths:
                 # the seam's index tensors, made before the first pass
                 seam.seam_plan(self.config.cols, k * rule.radius,
@@ -211,9 +229,9 @@ class MeshEngine:
             self.compile_wall_s += time.perf_counter() - t0
 
     def sync(self) -> None:
-        """Wait for every card of the mesh: closes every timed region."""
-        for dev in sorted({d for row in self.mesh.devices for d in row},
-                          key=str):
+        """Wait for every card of the mesh this process holds: closes every
+        timed region."""
+        for dev in self.mesh.local_devices():
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
@@ -245,28 +263,32 @@ class MeshEngine:
         return cells.cpu().numpy()
 
     def tiles(self, grid):
-        """Snapshot tiles ``(pid, tile, r0, c0)``, one a shard (the
-        reference writes ``processes = mi·mj`` tiles), pid row-major over
-        the mesh; a padded grid's tiles crop to the real width and a shard
-        wholly in the pad writes none."""
+        """Snapshot tiles ``(pid, tile, r0, c0)``, one a shard this process
+        holds (the reference writes ``processes = mi·mj`` tiles, each host
+        its addressable ones), pid row-major over the whole mesh; a padded
+        grid's tiles crop to the real width and a shard wholly in the pad
+        writes none."""
         th, tw = self._shard_cells()
         out = []
-        for i in range(self.mi):
-            for j in range(self.mj):
-                c0 = j * tw
-                if self.col_limit is not None and c0 >= self.col_limit:
-                    continue
-                tile = self._cells(grid[i][j])
-                if self.col_limit is not None:
-                    tile = tile[:, :self.col_limit - c0]
-                out.append((i * self.mj + j, tile, i * th, c0))
+        for i, j in self.mesh.local_shards():
+            c0 = j * tw
+            if self.col_limit is not None and c0 >= self.col_limit:
+                continue
+            tile = self._cells(grid[i][j])
+            if self.col_limit is not None:
+                tile = tile[:, :self.col_limit - c0]
+            out.append((i * self.mj + j, tile, i * th, c0))
         return out
 
     def shard_snapshots(self, grid):
         return [(r0, c0, tile) for _pid, tile, r0, c0 in self.tiles(grid)]
 
-    def fetch(self, grid) -> np.ndarray:
-        """The grid as a host uint8 0/1 array cropped to the real width."""
+    def fetch(self, grid):
+        """The grid as a host uint8 0/1 array cropped to the real width
+        (None under a process group, where no process holds the whole
+        grid: the snapshot tiles are its output)."""
+        if self.mesh.multiprocess:
+            return None
         rows = [np.concatenate([self._cells(s) for s in row], axis=1)
                 for row in grid]
         return np.concatenate(rows, axis=0)[:, :self.config.cols]
@@ -275,16 +297,21 @@ class MeshEngine:
         """The whole grid as one tensor on the first shard's device, in
         the engine's layout (packed words at the padded width, or cells):
         the single-device engine's grid, for comparing the two on the
-        device."""
+        device.  Raises under a process group."""
+        if self.mesh.multiprocess:
+            raise ConfigError("gather: under a process group no process "
+                              "holds the whole grid (write its tiles)")
         return torch.cat([torch.cat([s.to(self.device) for s in row], 1)
                           for row in grid], 0)
 
     def population(self, grid) -> int:
         """Live cells, counted shard by shard on its device (the pad is
-        always dead)."""
+        always dead); under a process group, of this process's shards."""
         total = 0
         for row in grid:
             for s in row:
+                if s is None:
+                    continue
                 total += (bitlife.population(s) if self.bitpacked
                           else int(s.sum(dtype=torch.int64).item()))
         return total

@@ -12,6 +12,8 @@ Examples::
     python -m mpi_tpu_torch.cli 2048 2048 10 50 --backend cpp-par --workers 8
     python -m mpi_tpu_torch.cli 4096 4096 0 64 --profile /tmp/trace
     python -m mpi_tpu_torch.cli 256 256 8 16 --device cpu --mesh 2x4 --save
+    python -m mpi_tpu_torch.cli 64 256 16 16 --mesh 2x2 --save --multihost \
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
     python -m mpi_tpu_torch.cli serve --port 8000   # sessions over HTTP
 
 ``--backend cuda`` (the default) runs on the GPU through one of three
@@ -32,6 +34,16 @@ tile a shard; on the card it must use every card, as the reference's does
 virtual CPU devices; ``--overlap`` asks for the stitched-band body.
 Without ``--mesh`` the run takes one device (the reference takes every
 device it sees).
+``--multihost`` joins a process group of ``--num-processes`` ranks
+(``parallel/dist.py``; the reference's ``mpirun -np N``): launch one
+process a rank, each with its ``--process-id``, all with one
+``--coordinator HOST:PORT`` (or none: ``MASTER_ADDR``, ``MASTER_PORT``,
+``WORLD_SIZE`` and ``RANK`` from the environment).  The mesh then spans
+the ranks (without ``--mesh``, one device a rank), each rank writes its
+own shards' tiles and, on ``--resume``, reads only the regions of its
+shards; process 0 alone writes the timing reports, whose avg and sum
+columns gather every process's durations.  The run is named from the
+config (``run-{rows}x{cols}-{iterations}-s{seed}``) unless ``--name``.
 ``serial`` runs the numpy oracle, ``cpp`` the native C++ engine on one
 host thread and ``cpp-par`` the same engine on a mesh of ``--workers``
 host threads, one ``.gol`` tile per worker (``backends/cpp.py``).
@@ -119,22 +131,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=None, metavar="NAME@ITER",
                    help="resume from snapshot ITER of run NAME; 'iterations' "
                    "then counts additional steps")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a process group through torch.distributed "
+                   "(launch one process per rank; the mpirun analog, "
+                   "reference gol.pbs): the mesh spans the ranks")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multihost coordinator address (default: "
+                   "MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK from the "
+                   "environment)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multihost process-group size (with --coordinator)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank in the group (with --coordinator)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="cuda backend: capture a torch.profiler trace of "
                    "the run (CPU activity, and the card's with --device "
                    "cuda) into DIR as one Chrome trace, "
-                   "trace-<pid>-<ns>.json")
+                   "trace-<pid>-<ns>.json (trace-r<rank>-<pid>-<ns>.json "
+                   "under --multihost, one a rank)")
     p.add_argument("--quiet", action="store_true")
     return p
 
 
 @contextlib.contextmanager
-def profile_run(logdir: str, device: str):
+def profile_run(logdir: str, device: str, rank: Optional[int] = None):
     """``torch.profiler`` around the body, exported into ``logdir`` as one
     Chrome trace named as ``obs/profile.py:run_profile`` names its
-    captures (``trace-<pid>-<ns>.json``).  On the card the trace must hold
-    the card's activity: a profiler without CUDA activity raises rather
-    than write a trace of the host alone."""
+    captures (``trace-<pid>-<ns>.json``; ``trace-r<rank>-<pid>-<ns>.json``
+    for a rank of a process group).  On the card the trace must hold the
+    card's activity: a profiler without CUDA activity raises rather than
+    write a trace of the host alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -146,7 +172,9 @@ def profile_run(logdir: str, device: str):
                 "activity, so the trace would hold the host alone")
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    path = os.path.join(logdir, f"trace-{os.getpid()}-{_time.time_ns()}.json")
+    who = f"r{rank}-" if rank is not None else ""
+    path = os.path.join(logdir,
+                        f"trace-{who}{os.getpid()}-{_time.time_ns()}.json")
     with profile(activities=activities) as prof:
         yield path
     prof.export_chrome_trace(path)
@@ -184,6 +212,42 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 def _run(args) -> int:
+    if not args.multihost:
+        return _run_one(args, None)
+    if args.backend != "cuda":
+        # the process group is the device mesh's; the host backends are
+        # single-process by construction
+        raise ConfigError(
+            f"--multihost applies to the cuda backend only "
+            f"(got backend={args.backend!r})")
+    if args.coordinator is None and (args.num_processes is not None
+                                     or args.process_id is not None):
+        raise ConfigError("--num-processes and --process-id go with "
+                          "--coordinator")
+    from mpi_tpu_torch.parallel import dist
+
+    # before any other CUDA call: the placement picks this rank's card
+    group = dist.initialize(args.coordinator, args.num_processes,
+                            args.process_id, device=args.device)
+    try:
+        _log(args.quiet, f"multihost: {group.describe()}")
+        rc = _run_one(args, group)
+        st = group.stats
+        _log(args.quiet,
+             f"multihost: {st['exchanges']} exchanges, {st['messages']} "
+             f"messages, {st['bytes_sent']} bytes sent, "
+             f"{st['bytes_staged']} bytes staged through the host, "
+             f"{st['sync_us']} us in stream syncs, {st['wait_us']} us in "
+             f"waits")
+        return rc
+    finally:
+        # every exit path, errors included: a failed rank never leaves the
+        # others waiting
+        dist.shutdown()
+
+
+def _run_one(args, group) -> int:
+    """One run; ``group``: the process group this rank belongs to."""
     rule = rule_from_name(args.rule)
     mesh_shape = _parse_mesh(args.mesh)
     auto_comm = args.comm_every == "auto"
@@ -229,6 +293,23 @@ def _run(args) -> int:
 
         resolve_device(args.device)  # fail before any file is written
         tiles_shape = mesh_shape or (1, 1)
+        if group is not None:
+            import dataclasses
+
+            from mpi_tpu_torch.config import validate_mesh
+            from mpi_tpu_torch.parallel.mesh import choose_mesh_shape
+
+            # the world mesh: one device a rank without --mesh
+            tiles_shape = mesh_shape or choose_mesh_shape(group.size)
+            validate_mesh(config.rows, config.cols, tiles_shape,
+                          rule.radius * config.comm_every,
+                          processes=group.size)
+            if config.sparse_tile:
+                raise ConfigError(
+                    f"sparse_tile requires a single-device mesh (got "
+                    f"{tiles_shape[0]}x{tiles_shape[1]}); shard OR "
+                    f"activity-gate, not both yet")
+            config = dataclasses.replace(config, mesh_shape=tiles_shape)
         if tiles_shape[0] * tiles_shape[1] > 1:
             from mpi_tpu_torch.parallel.mesh import make_mesh
 
@@ -260,7 +341,13 @@ def _run(args) -> int:
     processes = tiles_shape[0] * tiles_shape[1]
 
     os.makedirs(args.out_dir, exist_ok=True)
-    name = args.name or _time.strftime("%Y-%m-%d-%H-%M-%S")
+    if args.name:
+        name = args.name
+    elif group is not None:
+        # the ranks' clocks can straddle a second: one name from the config
+        name = f"run-{args.rows}x{args.cols}-{args.iterations}-s{args.seed}"
+    else:
+        name = _time.strftime("%Y-%m-%d-%H-%M-%S")
     timer = PhaseTimer()
 
     initial = None
@@ -279,13 +366,24 @@ def _run(args) -> int:
                     f"snapshot {rname}@{start_iter} is {(srows, scols)}, "
                     f"run asks for {(config.rows, config.cols)}"
                 )
-            initial = golio.load_snapshot(args.out_dir, rname, start_iter)
+            if group is None:
+                initial = golio.load_snapshot(args.out_dir, rname, start_iter)
+            else:
+                # no rank reads the whole grid: the engine calls this once
+                # for each shard the rank holds, which reads only the tile
+                # files that meet the shard
+                def initial(r0, r1, c0, c1, _rn=rname, _it=start_iter):
+                    return golio.assemble_region(args.out_dir, _rn, _it,
+                                                 r0, r1, c0, c1)
         except FileNotFoundError as e:
             raise ConfigError(f"cannot resume {args.resume!r}: {e}")
         name = args.name or rname
         _log(args.quiet, f"resumed {rname}@{start_iter}")
 
     total_iter = start_iter + config.steps
+    # every rank writes the master file (one content, an atomic write), so
+    # that each one's disk holds it for a resume; only the timing reports
+    # below have one writer
     golio.write_master(
         args.out_dir, name, config.rows, config.cols,
         args.iteration_gap, total_iter, processes,
@@ -296,7 +394,8 @@ def _run(args) -> int:
 
     def snapshot(iteration, tiles) -> None:
         # each tile under its own pid (a mesh's shard wholly in the pad
-        # writes none); then every pid outside the writer set goes
+        # writes none; each rank of a group writes its own shards'); then
+        # every pid outside the writer set goes
         for pid, tile, r0, c0 in tiles:
             golio.write_tile_fmt(args.out_dir, name, iteration, pid, tile,
                                  r0, c0, fmt=args.snapshot_format)
@@ -316,7 +415,9 @@ def _run(args) -> int:
 
         profile_ctx = contextlib.nullcontext()
         if args.profile:
-            profile_ctx = profile_run(args.profile, args.device)
+            profile_ctx = profile_run(
+                args.profile, args.device,
+                rank=None if group is None else group.rank)
         with profile_ctx as trace_path:
             final = run_cuda(
                 config,
@@ -366,14 +467,24 @@ def _run(args) -> int:
         timer.finish()
         final = grid
 
-    write_reports(
-        args.time_file or name, timer, config.rows, config.cols, processes,
-        first=bool(args.first), out_dir=args.out_dir,
-    )
+    all_durations = None
+    if group is not None:
+        from mpi_tpu_torch.utils.timing import gather_process_durations
+
+        # collective: every rank takes part, process 0 alone reports
+        all_durations = gather_process_durations(timer)
+    if group is None or group.rank == 0:
+        write_reports(
+            args.time_file or name, timer, config.rows, config.cols,
+            processes, first=bool(args.first), out_dir=args.out_dir,
+            all_durations=all_durations,
+        )
     cps = timer.cells_per_sec(config.rows, config.cols, config.steps)
+    population = ("n/a (multihost)" if final is None
+                  else int(final.sum(dtype="int64")))
     _log(args.quiet,
          f"done: setup {timer.setup_us / 1e6:.2f}s, steady {timer.nosetup_us / 1e6:.2f}s, "
-         f"{cps / 1e9:.3f} G cell-updates/s; population {int(final.sum(dtype='int64'))}")
+         f"{cps / 1e9:.3f} G cell-updates/s; population {population}")
     return 0
 
 

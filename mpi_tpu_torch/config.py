@@ -29,15 +29,19 @@ class ConfigError(ValueError):
 
 
 def validate_mesh(rows: int, cols: int, mesh_shape: Tuple[int, int],
-                  ghost: int) -> None:
+                  ghost: int, processes: int = 1) -> None:
     """Grid/mesh compatibility: divisibility and minimum tile size for a
     ``ghost``-deep halo (= rule radius × comm_every).  Called both for
     explicit ``mesh_shape``s and for meshes built elsewhere
     (``backends/cuda.py:build_engine``), so every path fails fast with a
-    named error."""
+    named error.  ``processes``: the ranks of a process group the mesh
+    spans, over which its shards must split evenly."""
     mi, mj = mesh_shape
     if mi < 1 or mj < 1:
         raise ConfigError(f"mesh_shape must be positive, got {mesh_shape}")
+    if (mi * mj) % processes:
+        raise ConfigError(f"mesh {tuple(mesh_shape)} cannot be split over "
+                          f"{processes} processes ({mi * mj} shards)")
     if rows % mi or cols % mj:
         raise ConfigError(f"mesh {mesh_shape} does not divide grid "
                           f"{rows}x{cols}")

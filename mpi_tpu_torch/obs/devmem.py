@@ -17,7 +17,7 @@ after_sample``) and, once per tick:
   ``OrderedDict`` sizes at scrape time — the no-shadow-counting rule);
 * would time one ghost-ring exchange on a multi-device serving mesh into
   ``mpi_tpu_halo_exchange_seconds{mesh}``: the port serves on one
-  device (serving on a mesh is ROADMAP queue 1 item 13b), so the probe
+  device (serving on a mesh is ROADMAP queue 1 item 19), so the probe
   finds no mesh and samples nothing, as the reference's does on one
   device.
 

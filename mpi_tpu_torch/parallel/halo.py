@@ -6,7 +6,11 @@ process here holds every shard's tensor, so a ppermute is a set of slice
 copies: each shard's edge slab is copied into its neighbour's ghost
 region, device to device when the two sit on different cards.  The order
 is the reference's: rows first, then columns on the row-extended array,
-so the corner blocks travel diagonally in two phases.
+so the corner blocks travel diagonally in two phases.  Under a process
+group (``Mesh.multiprocess``) each rank holds its own shards only, and a
+ghost block whose source shard is another rank's travels as a message of
+one batch (``parallel/dist.py:exchange``); copies between a rank's own
+shards stay slice copies.
 
 Dead boundary: the pairs that would cross the global edge are missing,
 and their ghosts arrive as zeros, as a ppermute delivers them.  Periodic
@@ -86,17 +90,21 @@ def ghost_depths(dims, i: int, j: int, radius_rows: int, radius_cols: int,
 
 
 def exchange_halo(shards: Shards, radius: int, boundary: str,
-                  axes=AXES, drop_dead: bool = False) -> Shards:
+                  axes=AXES, drop_dead: bool = False, mesh=None) -> Shards:
     """Every (h, w) shard → (h+2r, w+2r) with its ghost ring filled.  Rows
     phase then columns phase on the row-extended arrays → corners
     correct."""
     return exchange_halo_rc(shards, radius, radius, boundary, axes,
-                            drop_dead=drop_dead)
+                            drop_dead=drop_dead, mesh=mesh)
+
+
+def _extent(s: slice) -> int:
+    return s.stop - s.start
 
 
 def exchange_halo_rc(shards: Shards, radius_rows: int, radius_cols: int,
                      boundary: str, axes=AXES, drop_dead: bool = False,
-                     width_multiple: int = 1) -> Shards:
+                     width_multiple: int = 1, mesh=None) -> Shards:
     """:func:`exchange_halo` with independent row/column ghost depths: the
     bitpacked steppers exchange K ghost rows but a single ghost *word*
     column (32 halo bits cover any K·r <= 31).
@@ -107,6 +115,14 @@ def exchange_halo_rc(shards: Shards, radius_rows: int, radius_cols: int,
     neighbour, which is the block the reference's columns phase carries
     over from the row-extended array.  The ppermutes are recorded as the
     reference's two phases issue them.
+
+    ``mesh``: a mesh whose shards sit on several ranks
+    (``Mesh.multiprocess``); ``shards`` then holds None in the place of
+    every other rank's shard, and only the local shards' tiles are made
+    (None elsewhere).  A ghost block whose source shard is another rank's
+    arrives by a receive that its owner's send matches, tagged by (source
+    shard, destination shard, block); every message of the exchange goes
+    in one batch (``parallel/dist.py:exchange``).
 
     ``drop_dead``: on a dead boundary, a ghost that would lie outside the
     global grid is left off rather than filled with zeros, so an edge
@@ -121,13 +137,32 @@ def exchange_halo_rc(shards: Shards, radius_rows: int, radius_cols: int,
     mi, mj = len(shards), len(shards[0])
     fwd_r, bwd_r, up, down = _ghost_sources(mi, periodic)
     fwd_c, bwd_c, left, right = _ghost_sources(mj, periodic)
+    local = [(i, j) for i in range(mi) for j in range(mj)
+             if shards[i][j] is not None]
+    # every shard of a mesh has one shape
+    h0, w0 = shards[local[0][0]][local[0][1]].shape
 
     def depths(i, j):  # (top, bottom, left, right) ghosts of shard (i, j)
         if not drop_dead:
             return rr, rr, rc, rc
         return ghost_depths((mi, mj), i, j, rr, rc, periodic)
 
-    h0, w0 = shards[0][0].shape
+    def blocks(i, j):
+        """Shard (i, j)'s blocks, in the order they are filled: (block
+        number, source shard row and column (None: no pair), the block's
+        rows and columns in the extended tile, and in the source)."""
+        h, w = h0, w0
+        t, b, l, r = depths(i, j)
+        rows = ((up.get(i), slice(0, t), slice(h - rr, h)),
+                (i, slice(t, t + h), slice(0, h)),
+                (down.get(i), slice(t + h, t + h + b), slice(0, rr)))
+        cols = ((left.get(j), slice(0, l), slice(w - rc, w)),
+                (j, slice(l, l + w), slice(0, w)),
+                (right.get(j), slice(l + w, l + w + r), slice(0, rc)))
+        for bi, (si, dst_r, src_r) in enumerate(rows):
+            for bj, (sj, dst_c, src_c) in enumerate(cols):
+                yield 3 * bi + bj, si, sj, dst_r, dst_c, src_r, src_c
+
     if mi > 1:
         record_exchange(axes[0], fwd_r, (rr, w0))
         record_exchange(axes[0], bwd_r, (rr, w0))
@@ -135,34 +170,59 @@ def exchange_halo_rc(shards: Shards, radius_rows: int, radius_cols: int,
         t, b, _, _ = depths(0, 0)
         record_exchange(axes[1], fwd_c, (t + h0 + b, rc))
         record_exchange(axes[1], bwd_c, (t + h0 + b, rc))
+    received = {}
+    if mesh is not None and mesh.multiprocess:
+        received = _remote_blocks(shards, mesh, blocks)
     out = [[None] * mj for _ in range(mi)]
+    for i, j in local:
+        x = shards[i][j]
+        h, w = x.shape
+        t, b, l, r = depths(i, j)
+        W = l + w + r
+        if r:
+            W += -W % width_multiple
+        ext = torch.empty((t + h + b, W), dtype=x.dtype, device=x.device)
+        for blk, si, sj, dst_r, dst_c, src_r, src_c in blocks(i, j):
+            dst = ext[dst_r, dst_c]
+            if not dst.numel():
+                continue
+            if si is None or sj is None:
+                dst.zero_()   # no pair: a ppermute delivers zeros
+            elif (i, j, blk) in received:
+                dst.copy_(received[i, j, blk], non_blocking=True)
+            else:
+                dst.copy_(shards[si][sj][src_r, src_c], non_blocking=True)
+        if W > l + w + r:
+            ext[:, l + w + r:].zero_()
+        out[i][j] = ext
+    return out
+
+
+def _remote_blocks(shards: Shards, mesh, blocks) -> dict:
+    """The ghost blocks of this rank's shards that other ranks hold, by
+    (i, j, block): one batch in which this rank also sends every block of
+    its shards that another rank's shard needs."""
+    from mpi_tpu_torch.parallel import dist
+
+    mi, mj = mesh.dims
+    n = mi * mj
+    dtype = next(s for row in shards for s in row if s is not None).dtype
+    sends, recvs, keys = [], [], []
     for i in range(mi):
         for j in range(mj):
-            x = shards[i][j]
-            h, w = x.shape
-            t, b, l, r = depths(i, j)
-            W = l + w + r
-            if r:
-                W += -W % width_multiple
-            ext = torch.empty((t + h + b, W), dtype=x.dtype, device=x.device)
-            rows = {-1: (up.get(i), slice(0, t), slice(h - rr, h)),
-                    0: (i, slice(t, t + h), slice(0, h)),
-                    1: (down.get(i), slice(t + h, t + h + b), slice(0, rr))}
-            cols = {-1: (left.get(j), slice(0, l), slice(w - rc, w)),
-                    0: (j, slice(l, l + w), slice(0, w)),
-                    1: (right.get(j), slice(l + w, l + w + r),
-                        slice(0, rc))}
-            for si, dst_r, src_r in rows.values():
-                for sj, dst_c, src_c in cols.values():
-                    dst = ext[dst_r, dst_c]
-                    if not dst.numel():
-                        continue
-                    if si is None or sj is None:
-                        dst.zero_()   # no pair: a ppermute delivers zeros
-                    else:
-                        dst.copy_(shards[si][sj][src_r, src_c],
-                                  non_blocking=True)
-            if W > l + w + r:
-                ext[:, l + w + r:].zero_()
-            out[i][j] = ext
-    return out
+            dst_owner = mesh.owner(i, j)
+            for blk, si, sj, dst_r, dst_c, src_r, src_c in blocks(i, j):
+                if si is None or sj is None:
+                    continue
+                src_owner = mesh.owner(si, sj)
+                shape = (_extent(dst_r), _extent(dst_c))
+                if src_owner == dst_owner or 0 in shape:
+                    continue
+                tag = ((si * mj + sj) * n + i * mj + j) * 9 + blk
+                if src_owner == mesh.rank:
+                    sends.append((dst_owner, tag,
+                                  shards[si][sj][src_r, src_c]))
+                elif dst_owner == mesh.rank:
+                    recvs.append((src_owner, tag, shape, dtype))
+                    keys.append((i, j, blk))
+    return dict(zip(keys, dist.exchange(sends, recvs)))

@@ -15,13 +15,22 @@ runs four shards on one card, the port's form of the reference's virtual
 devices.  On the CPU the mesh sees :data:`CPU_VIRTUAL_DEVICES` (8) virtual
 devices, as the reference's tests do under their XLA flag, and a smaller
 shape takes a prefix of them.
+
+Under a process group (``parallel/dist.py``, the CLI's ``--multihost``)
+a mesh spans the ranks (:func:`world_mesh`): each shard has an owner
+rank, in the reference's device order (ranks own contiguous row-major
+blocks of shards, so 2 ranks x 2 shards on 2x2 give rank 0 row 0), and a
+rank holds the tensors of its own shards only.  On the card each rank
+brings its one card, and a shape must use every rank's; on the CPU a
+shape whose size is a multiple of the world size is split evenly, up to
+:data:`CPU_VIRTUAL_DEVICES` shards a rank.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,6 +50,10 @@ class Mesh:
 
     devices: Tuple[Tuple[torch.device, ...], ...]
     axis_names: Tuple[str, str] = AXES
+    # the rank that owns each shard, row-major like ``devices`` (None: this
+    # one process owns every shard), and this process's rank
+    owners: Optional[Tuple[Tuple[int, ...], ...]] = None
+    rank: int = 0
 
     @property
     def shape(self) -> dict:
@@ -56,6 +69,35 @@ class Mesh:
     def size(self) -> int:
         mi, mj = self.dims
         return mi * mj
+
+    def owner(self, i: int, j: int) -> int:
+        """The rank that holds shard (i, j)."""
+        return self.rank if self.owners is None else self.owners[i][j]
+
+    def is_local(self, i: int, j: int) -> bool:
+        return self.owner(i, j) == self.rank
+
+    def local_shards(self) -> List[Tuple[int, int]]:
+        """The (i, j) of this process's shards, row-major."""
+        mi, mj = self.dims
+        return [(i, j) for i in range(mi) for j in range(mj)
+                if self.is_local(i, j)]
+
+    def local_devices(self) -> List[torch.device]:
+        """The distinct devices of this process's shards."""
+        return sorted({self.devices[i][j] for i, j in self.local_shards()},
+                      key=str)
+
+    @property
+    def processes(self) -> int:
+        """How many ranks hold shards of the mesh."""
+        if self.owners is None:
+            return 1
+        return len({r for row in self.owners for r in row})
+
+    @property
+    def multiprocess(self) -> bool:
+        return self.processes > 1
 
 
 
@@ -111,7 +153,20 @@ def make_mesh(
     (n, 1) / (1, n) give 1D row / column decomposition.  On the CPU an
     explicit smaller shape runs on a prefix of the virtual devices; on the
     card the shape must use every card, as the reference requires of real
-    devices."""
+    devices.  Under a process group the mesh spans the ranks
+    (:func:`world_mesh`; ``shape=None``: one device a rank)."""
+    from mpi_tpu_torch.parallel import dist
+
+    g = dist.group()
+    if g is not None and g.size > 1:
+        if devices is not None:
+            raise ValueError("under a process group a mesh spans the "
+                             "ranks' devices; it takes no device list")
+        if g.device.type != platform:
+            raise ValueError(f"this rank runs on {g.device.type}, not "
+                             f"{platform}")
+        return world_mesh(shape or choose_mesh_shape(g.size), g.size,
+                          g.rank, g.devices, axis_names)
     devices = [_indexed(torch.device(d)) for d in (
         devices if devices is not None else visible_devices(platform))]
     n = len(devices)
@@ -129,3 +184,35 @@ def make_mesh(
     rows = tuple(tuple(devices[i * shape[1]:(i + 1) * shape[1]])
                  for i in range(shape[0]))
     return Mesh(rows, tuple(axis_names))
+
+
+def world_mesh(shape: Tuple[int, int], processes: int, rank: int,
+               devices: Sequence[torch.device],
+               axis_names: Tuple[str, str] = AXES) -> Mesh:
+    """The mesh of a process group of ``processes`` ranks, seen from rank
+    ``rank``; ``devices`` holds every rank's device, by rank.  The ranks
+    own contiguous row-major blocks of shards, the reference's device
+    order (its ``jax.devices()`` lists process 0's devices first, and its
+    CPU mesh reshapes them row-major).  On the card a shape needs one
+    device a rank; on the CPU its size must be a multiple of
+    ``processes``, up to :data:`CPU_VIRTUAL_DEVICES` shards a rank."""
+    mi, mj = int(shape[0]), int(shape[1])
+    want = mi * mj
+    if len(devices) != processes:
+        raise ValueError(f"{len(devices)} devices for {processes} ranks")
+    if devices[0].type == "cpu":
+        have = processes * CPU_VIRTUAL_DEVICES
+        if want > have:
+            raise ValueError(f"mesh shape {(mi, mj)} needs {want} devices, "
+                             f"have {have}")
+        if want % processes:
+            raise ValueError(f"mesh {(mi, mj)} cannot be split over "
+                             f"{processes} processes ({want} shards)")
+    elif want != processes:
+        raise ValueError(f"mesh shape {(mi, mj)} needs {want} devices, have "
+                         f"{processes}")
+    per = want // processes
+    owners = tuple(tuple((i * mj + j) // per for j in range(mj))
+                   for i in range(mi))
+    rows = tuple(tuple(devices[r] for r in row) for row in owners)
+    return Mesh(rows, tuple(axis_names), owners=owners, rank=rank)

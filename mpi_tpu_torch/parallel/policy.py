@@ -6,7 +6,11 @@ latency :func:`probe_collective_latency_us` measures, clamped by the
 engines' halo bounds and the fringe budget (:func:`choose_comm_policy`),
 and ``overlap`` wherever the stitched bands fit.  The table's thresholds
 are the reference's placeholders; the port's exchange is a set of slice
-copies, whose latency on one card is a few launches.
+copies, whose latency on one card is a few launches.  Under a process
+group every rank takes process 0's probed latency
+(``parallel/dist.py:broadcast_one_to_all``), as the reference does
+(``mpi_tpu/parallel/policy.py:195-207``): ranks that chose different K
+would post exchanges that never pair, and the group would hang.
 
 The rest of this docstring is the single-device branch, folded into one
 function that returns the depth (``resolve_auto(config)``).
@@ -74,16 +78,18 @@ def probe_collective_latency_us(mesh, reps: int = 5) -> float:
     """One-shot measured latency (µs) of one halo exchange across the
     mesh's shards (``parallel/step.py:make_halo_probe`` on one small int32
     tile a shard), warmed once, median of ``reps`` timed calls, each
-    closed by a sync of every device of the mesh."""
+    closed by a sync of every device of the mesh this process holds (a
+    collective under a process group: each rank probes its shards)."""
     import torch
 
     from mpi_tpu_torch.parallel.step import make_halo_probe
 
     probe = make_halo_probe(mesh, "periodic")
     shards = [[torch.zeros((8, 8), dtype=torch.int32, device=dev)
-               for dev in row] for row in mesh.devices]
-    cards = sorted({d for row in mesh.devices for d in row
-                    if d.type == "cuda"}, key=str)
+               if mesh.is_local(i, j) else None
+               for j, dev in enumerate(row)]
+              for i, row in enumerate(mesh.devices)]
+    cards = [d for d in mesh.local_devices() if d.type == "cuda"]
 
     def sync():
         for d in cards:
@@ -149,6 +155,12 @@ def resolve_auto(config, effective_mesh: Optional[Tuple[int, int]] = None,
             return resolve_auto(config), config.overlap
         if latency_us is None:
             latency_us = probe_collective_latency_us(mesh)
+            from mpi_tpu_torch.parallel import dist
+
+            if dist.process_count() > 1:
+                # every rank must resolve the same K; per-rank medians can
+                # straddle a table threshold, so process 0's is used
+                latency_us = float(dist.broadcast_one_to_all(latency_us))
         return choose_comm_policy(
             mi * mj, config.rule, config.rows // mi, config.cols // mj,
             latency_us, overlap_requested=config.overlap)

@@ -25,7 +25,10 @@ shards that hold them, the last and the first shard column when the tiles
 are wider than the band: each pass gathers those word columns from every
 row of shards into one thin packed block on the first shard's device,
 extracts the strip from it, steps it by K2 and stitches the exact columns
-back into the same shards.
+back into the same shards.  Under a process group those shards may sit on
+several ranks: the strip's words travel to one rank, the owner of shard
+(0, mj-1), which steps the band and sends the stitched words back to
+their owners (:func:`_gather_words_group`, :func:`_scatter_words_group`).
 """
 
 from __future__ import annotations
@@ -167,13 +170,18 @@ def make_seam_stepper(inner, rule: Rule, C: int, K: int, band=step_band):
     return segmented_evolve(local, K)
 
 
+def strip_words(C: int, d: int) -> tuple:
+    """The global words the strip of depth d reads and the pass writes."""
+    return tuple(sorted({c // WORD for c in _strip(C, d)}))
+
+
 @functools.lru_cache(maxsize=None)
 def seam_plan(C: int, d: int, device: str):
     """The mesh seam's index plan for depth d: the global words the strip
     reads and the pass writes, the (word, bit) index tensors of the strip's
     columns in the block of those words, and the block columns the exact
     middle is stitched into."""
-    words = sorted({c // WORD for c in _strip(C, d)})
+    words = strip_words(C, d)
     slot = {w: i for i, w in enumerate(words)}
 
     def cols(cells):
@@ -182,7 +190,7 @@ def seam_plan(C: int, d: int, device: str):
     word, bit, *_ = _columns(cols(_strip(C, d)), device)
     stitch = cols(tuple(range(C - d, C)) + tuple(range(d)))
     _columns(stitch, device)  # _blend_cols' index tensors, made now
-    return tuple(words), word, bit, stitch
+    return words, word, bit, stitch
 
 
 def _gather_words(shards, words, tile_words: int) -> torch.Tensor:
@@ -209,18 +217,117 @@ def _scatter_words(shards, block: torch.Tensor, words,
         r0 += h
 
 
+# the seam's messages: tags past every halo block's
+# (``parallel/halo.py:_remote_blocks``), one range a step of the pass
+SEAM_TAG = 1 << 24
+
+
+def _word_pieces(words, tile_words: int):
+    """{shard column: (its local word columns, the block columns they
+    fill)} of the global word columns ``words``, each a tuple."""
+    pieces = {}
+    for slot, w in enumerate(words):
+        cols, slots = pieces.setdefault(w // tile_words, ([], []))
+        cols.append(w % tile_words)
+        slots.append(slot)
+    return {jj: (tuple(c), tuple(s)) for jj, (c, s) in pieces.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _index(columns: tuple, device: str) -> torch.Tensor:
+    """``columns`` as an index tensor on ``device``, made once (a step
+    then makes no host-to-device copy)."""
+    return torch.tensor(columns, dtype=torch.int64, device=device)
+
+
+def _gather_words_group(shards, mesh, words, tile_words: int, root: int,
+                        tag0: int):
+    """:func:`_gather_words` across ranks: every rank sends its shards'
+    pieces of the word columns to ``root``, which returns the (H,
+    len(words)) block on its device; other ranks return None."""
+    from mpi_tpu_torch.parallel import dist
+
+    mi, mj = mesh.dims
+    pieces = _word_pieces(words, tile_words)
+    sends, recvs, keys, mine = [], [], [], {}
+    for i in range(mi):
+        for jj, (cols, _) in pieces.items():
+            owner, tag = mesh.owner(i, jj), tag0 + i * mj + jj
+            if owner == mesh.rank:
+                x = shards[i][jj]
+                piece = x.index_select(-1, _index(cols, str(x.device)))
+                if mesh.rank == root:
+                    mine[i, jj] = piece
+                else:
+                    sends.append((root, tag, piece))
+            elif mesh.rank == root:
+                h = shards[0][mj - 1].shape[0]
+                recvs.append((owner, tag, (h, len(cols)), torch.int32))
+                keys.append((i, jj))
+    got = dict(zip(keys, dist.exchange(sends, recvs)))
+    if mesh.rank != root:
+        return None
+    dev = shards[0][mj - 1].device
+    rows = []
+    for i in range(mi):
+        row = torch.empty((shards[0][mj - 1].shape[0], len(words)),
+                          dtype=torch.int32, device=dev)
+        for jj, (_, slots) in pieces.items():
+            piece = mine[i, jj] if (i, jj) in mine else got[i, jj]
+            row.index_copy_(-1, _index(slots, str(dev)),
+                            piece.to(dev, non_blocking=True))
+        rows.append(row)
+    return torch.cat(rows, dim=0)
+
+
+def _scatter_words_group(shards, mesh, block, words, tile_words: int,
+                         root: int, tag0: int) -> None:
+    """:func:`_scatter_words` across ranks: ``root`` sends each shard's
+    piece of its ``block`` to the shard's owner, which writes it into the
+    shard's word columns, in place."""
+    from mpi_tpu_torch.parallel import dist
+    from mpi_tpu_torch.parallel.step import first_shard
+
+    mi, mj = mesh.dims
+    pieces = _word_pieces(words, tile_words)
+    h = first_shard(shards).shape[0]
+    sends, recvs, keys = [], [], []
+    for i in range(mi):
+        for jj, (cols, slots) in pieces.items():
+            owner, tag = mesh.owner(i, jj), tag0 + i * mj + jj
+            if mesh.rank == root:
+                piece = block[i * h:(i + 1) * h].index_select(
+                    -1, _index(slots, str(block.device)))
+                if owner == root:
+                    x = shards[i][jj]
+                    x.index_copy_(-1, _index(cols, str(x.device)), piece)
+                else:
+                    sends.append((owner, tag, piece))
+            elif owner == mesh.rank:
+                recvs.append((root, tag, (h, len(cols)), torch.int32))
+                keys.append((i, jj))
+    for (i, jj), piece in zip(keys, dist.exchange(sends, recvs)):
+        x = shards[i][jj]
+        x.index_copy_(-1, _index(pieces[jj][0], str(x.device)),
+                      piece.to(x.device, non_blocking=True))
+
+
 def make_mesh_seam_stepper(inner, rule: Rule, C: int, K: int,
-                           band=step_band):
+                           band=step_band, mesh=None):
     """evolve(shards, steps) -> shards around the padded periodic mesh
     pass ``inner(shards, k)`` (``parallel/step.py``, built with
     ``seam_pad``): each pass gathers the strip's words from the shards
     before the pass, steps the strip by ``band`` (K2) and stitches its
     exact middle columns over the pass's output shards.  ``C`` is the real
-    width, ``K`` the generations per pass."""
+    width, ``K`` the generations per pass.  ``mesh``: a mesh on several
+    ranks (``Mesh.multiprocess``), whose strip the owner of shard (0,
+    mj-1) gathers, steps and sends back."""
     from mpi_tpu_torch.parallel.step import mesh_evolve
 
     r = rule.radius
     band_cols(C, K * r)  # validate up front at the deepest pass
+    if mesh is not None and mesh.multiprocess:
+        return mesh_evolve(_group_pass(inner, rule, C, band, mesh), K)
 
     def local(shards, k):
         d = k * r
@@ -236,3 +343,37 @@ def make_mesh_seam_stepper(inner, rule: Rule, C: int, K: int,
         return out
 
     return mesh_evolve(local, K)
+
+
+def _group_pass(inner, rule: Rule, C: int, band, mesh):
+    """The seam pass of :func:`make_mesh_seam_stepper` on a mesh whose
+    shards sit on several ranks: the strip's words before and after the
+    pass are gathered onto the root, the owner of shard (0, mj-1), which
+    steps the band and stitches it; the stitched words go back to their
+    shards' owners."""
+    from mpi_tpu_torch.parallel.step import first_shard
+
+    r = rule.radius
+    mi, mj = mesh.dims
+    root = mesh.owner(0, mj - 1)
+    n = mi * mj
+
+    def local(shards, k):
+        d = k * r
+        tw = first_shard(shards).shape[1]
+        words = strip_words(C, d)
+        src = _gather_words_group(shards, mesh, words, tw, root, SEAM_TAG)
+        if src is not None:   # the root: the index plan on its device
+            _, word, bit, stitch = seam_plan(C, d, str(src.device))
+            strip = ((src.index_select(-1, word) >> bit) & 1).to(
+                torch.uint8)
+        out = inner(shards, k)
+        block = _gather_words_group(out, mesh, words, tw, root,
+                                    SEAM_TAG + n)
+        if block is not None:
+            _blend_cols(block, band(strip, rule, k)[..., d:3 * d], stitch)
+        _scatter_words_group(out, mesh, block, words, tw, root,
+                             SEAM_TAG + 2 * n)
+        return out
+
+    return local

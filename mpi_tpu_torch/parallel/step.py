@@ -32,6 +32,13 @@ d-deep edge bands (d = k for SWAR, k·r otherwise) are recomputed from the
 exchanged halo, each by the kernel on its band, and written over the
 interior's invalid fringe.  The grid is bit-identical to the plain
 body's; its launches are five a shard a pass instead of one.
+
+Under a process group (``Mesh.multiprocess``) a grid holds this rank's
+shards only, None in every other rank's place; a pass steps the local
+shards, and the exchange brings the ghosts the other ranks hold
+(``parallel/halo.py``).  The inits build the local shards only: the hash
+init reads global coordinates, so each rank makes its own with no
+communication.
 """
 
 from __future__ import annotations
@@ -48,6 +55,11 @@ from mpi_tpu_torch.parallel.halo import (
 )
 from mpi_tpu_torch.parallel.mesh import AXES, Mesh
 from mpi_tpu_torch.utils.hashinit import init_tile_torch
+
+
+def first_shard(shards: Shards) -> torch.Tensor:
+    """The first shard this process holds (every shard has its shape)."""
+    return next(s for row in shards for s in row if s is not None)
 
 
 def mesh_evolve(local, K: int):
@@ -144,17 +156,19 @@ def _stepper(mesh: Mesh, boundary: str, local: _Local,
     dims = mesh.dims
     periodic = boundary == "periodic"
 
+    shards_here = mesh.local_shards()
+
     def body_exchange_all(shards, k):
         dr, dc = rows_depth(k), cols_depth(k)
         ext = exchange_halo_rc(shards, dr, dc, boundary, axes,
-                               drop_dead=True, width_multiple=width_multiple)
+                               drop_dead=True, width_multiple=width_multiple,
+                               mesh=mesh)
         out = [[None] * dims[1] for _ in range(dims[0])]
-        for i in range(dims[0]):
-            for j in range(dims[1]):
-                h, w = shards[i][j].shape
-                t, _, l, _ = ghost_depths(dims, i, j, dr, dc, periodic)
-                y = local(ext[i][j], k, j * w - l)
-                out[i][j] = y[t:t + h, l:l + w]
+        for i, j in shards_here:
+            h, w = shards[i][j].shape
+            t, _, l, _ = ghost_depths(dims, i, j, dr, dc, periodic)
+            y = local(ext[i][j], k, j * w - l)
+            out[i][j] = y[t:t + h, l:l + w]
         return out
 
     def body_overlap(shards, k):
@@ -162,34 +176,35 @@ def _stepper(mesh: Mesh, boundary: str, local: _Local,
         # the interiors first: k generations from each shard's own data,
         # independent of the exchange below; rows [d, h-d) and columns
         # [dc, w-dc) of each are exact
-        out = [[local(s.contiguous(), k, j * s.shape[1])
+        out = [[None if s is None else local(s.contiguous(), k,
+                                             j * s.shape[1])
                 for j, s in enumerate(row)] for row in shards]
         ext = exchange_halo_rc(shards, dr, dc, boundary, axes,
-                               drop_dead=True, width_multiple=width_multiple)
-        for i in range(dims[0]):
-            for j in range(dims[1]):
-                h, w = shards[i][j].shape
-                t, _, l, _ = ghost_depths(dims, i, j, dr, dc, periodic)
-                x, q = ext[i][j], out[i][j]
-                c0 = j * w - l
-                # edge bands from the exchanged halo, full cross extent so
-                # corners are exact; every kept cell lies d from each side
-                # of its band that is not the global edge
-                top = local(x[:t + 3 * dr], k, c0)
-                q[:dr] = top[t:t + dr, l:l + w]
-                s0 = max(0, t + h - 3 * dr)
-                bot = local(x[s0:], k, c0)
-                q[h - dr:] = bot[t + h - dr - s0:t + h - s0, l:l + w]
-                left = local(x[:, :l + bu].contiguous(), k, c0)
-                q[:, :dc] = left[t:t + h, l:l + dc]
-                wr = min(bu, l + w)
-                e0 = l + w - wr
-                right = local(x[:, e0:].contiguous(), k, c0 + e0)
-                q[:, w - dc:] = right[t:t + h, wr - dc:wr]
+                               drop_dead=True, width_multiple=width_multiple,
+                               mesh=mesh)
+        for i, j in shards_here:
+            h, w = shards[i][j].shape
+            t, _, l, _ = ghost_depths(dims, i, j, dr, dc, periodic)
+            x, q = ext[i][j], out[i][j]
+            c0 = j * w - l
+            # edge bands from the exchanged halo, full cross extent so
+            # corners are exact; every kept cell lies d from each side
+            # of its band that is not the global edge
+            top = local(x[:t + 3 * dr], k, c0)
+            q[:dr] = top[t:t + dr, l:l + w]
+            s0 = max(0, t + h - 3 * dr)
+            bot = local(x[s0:], k, c0)
+            q[h - dr:] = bot[t + h - dr - s0:t + h - s0, l:l + w]
+            left = local(x[:, :l + bu].contiguous(), k, c0)
+            q[:, :dc] = left[t:t + h, l:l + dc]
+            wr = min(bu, l + w)
+            e0 = l + w - wr
+            right = local(x[:, e0:].contiguous(), k, c0 + e0)
+            q[:, w - dc:] = right[t:t + h, wr - dc:wr]
         return out
 
     def local_step(shards, k):
-        h, w = shards[0][0].shape
+        h, w = first_shard(shards).shape
         if fits(h, w, k):
             return body_overlap(shards, k)
         return body_exchange_all(shards, k)
@@ -245,10 +260,12 @@ def make_sharded_stepper(mesh: Mesh, rule: Rule, boundary: str, axes=AXES,
 def make_halo_probe(mesh: Mesh, boundary: str, radius: int = 1, axes=AXES):
     """A function that performs ONE ghost-ring exchange of its shards and
     nothing else, returning each shard's ghost-extended tile: the probe
-    the collective-latency policy (``parallel/policy.py``) times."""
+    the collective-latency policy (``parallel/policy.py``) times.  Under a
+    process group it is a collective: every rank calls it on its own
+    shards (None elsewhere)."""
 
     def probe(shards: Shards) -> Shards:
-        return exchange_halo(shards, radius, boundary, axes)
+        return exchange_halo(shards, radius, boundary, axes, mesh=mesh)
 
     return probe
 
@@ -317,7 +334,7 @@ def _packed_stepper(mesh, rule, boundary, axes, K, overlap, pad_bits,
 
     def pass_(shards, k):
         # the col_limit follows the shards' width, known at the first pass
-        tw = shards[0][0].shape[1]
+        tw = first_shard(shards).shape[1]
         if tw not in passes:
             local = _Local(kernel, rule, chunk, packed=True,
                            col_limit=_packed_col_limit(mesh, tw, pad_bits))
@@ -336,7 +353,8 @@ def _packed_stepper(mesh, rule, boundary, axes, K, overlap, pad_bits,
 def sharded_bit_init(mesh: Mesh, rows: int, cols: int, seed: int,
                      axes=AXES, col_limit=None) -> Shards:
     """The packed grid, each shard hashing and packing its own global
-    coordinates on its device blockwise (decomposition-invariant).
+    coordinates on its device blockwise (decomposition-invariant); under
+    a process group the local shards only (None elsewhere).
     ``col_limit``: global columns >= this start dead (the pad)."""
     mi, mj = mesh.dims
     if rows % mi or cols % mj or (cols // mj) % WORD:
@@ -348,13 +366,15 @@ def sharded_bit_init(mesh: Mesh, rows: int, cols: int, seed: int,
     return [[bitlife.init_packed(lr, lc, seed, row_offset=i * lr,
                                  col_offset=j * lc, col_limit=col_limit,
                                  device=mesh.devices[i][j])
+             if mesh.is_local(i, j) else None
              for j in range(mj)] for i in range(mi)]
 
 
 def sharded_init(mesh: Mesh, rows: int, cols: int, seed: int, axes=AXES,
                  block_rows: int = 1024) -> Shards:
     """The dense grid, each shard hashing its own global coordinates on its
-    device, a block of rows at a time: no host-side global array."""
+    device, a block of rows at a time: no host-side global array; under a
+    process group the local shards only (None elsewhere)."""
     mi, mj = mesh.dims
     if rows % mi or cols % mj:
         raise ValueError(f"mesh {mesh.shape} does not divide grid "
@@ -370,15 +390,17 @@ def sharded_init(mesh: Mesh, rows: int, cols: int, seed: int, axes=AXES,
                                              j * lc, device=dev)
         return out
 
-    return [[tile(i, j) for j in range(mj)] for i in range(mi)]
+    return [[tile(i, j) if mesh.is_local(i, j) else None
+             for j in range(mj)] for i in range(mi)]
 
 
 def make_sharded_unpacker(mesh: Mesh, axes=AXES):
     """unpack(shards) -> the uint8 cells of every packed shard, shard by
-    shard on its device."""
+    shard on its device (None stays None)."""
 
     def unpack(shards: Shards) -> Shards:
-        return [[bitlife.unpack(s) for s in row] for row in shards]
+        return [[None if s is None else bitlife.unpack(s) for s in row]
+                for row in shards]
 
     return unpack
 

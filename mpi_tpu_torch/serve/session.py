@@ -180,8 +180,8 @@ def _parse_spec(spec: dict):
     )
     if mesh is not None and mesh[0] * mesh[1] > 1:
         raise ConfigError(
-            f"mesh {mesh[0]}x{mesh[1]}: serving on a device mesh is the "
-            f"multi-process mesh slice, ROADMAP item 13b (sessions run on "
+            f"mesh {mesh[0]}x{mesh[1]}: serving on a device mesh is "
+            f"ROADMAP item 19, serving and tuning on a mesh (sessions run on "
             f"one device, mesh 1x1)")
     return config, segments
 

@@ -12,7 +12,7 @@ Modes (exit codes: 0 clean, 1 findings, 2 internal error):
 * ``--list``: dump the cache entries.
 
 ``--mesh`` is accepted as ``1x1`` only: tuning on a mesh is ROADMAP queue 1
-item 13b.
+item 19.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("periodic", "dead"))
     p.add_argument("--mesh", default=None, metavar="MIxMJ",
                    help="device mesh: 1x1 only (tuning on a mesh is ROADMAP "
-                   "item 13b)")
+                   "item 19)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cpu probes the kernels' plain versions")
     p.add_argument("--seed", type=int, default=0)
@@ -90,8 +90,8 @@ def main(argv=None) -> int:
             print(f"bad --mesh {args.mesh!r} (want MIxMJ)", file=sys.stderr)
             return 2
         if mesh != (1, 1):
-            print(f"--mesh {args.mesh}: tuning on a device mesh is the "
-                  f"multi-process mesh slice, ROADMAP queue 1 item 13b",
+            print(f"--mesh {args.mesh}: tuning on a device mesh is "
+                  f"ROADMAP queue 1 item 19, serving and tuning on a mesh",
                   file=sys.stderr)
             return 2
     try:

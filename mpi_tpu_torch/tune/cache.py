@@ -134,13 +134,13 @@ def validate_plan(config: GolConfig, mesh_shape: Tuple[int, int],
                   plan: dict, platform: str = "cuda") -> GolConfig:
     """``config`` with ``plan`` applied, under the rules the build path
     runs: ``apply_plan``'s, the ghost ring's size on the one device
-    (``validate_size``; tuning on a mesh is ROADMAP item 13b), and a
+    (``validate_size``; tuning on a mesh is ROADMAP item 19), and a
     ``blocks`` tile's on the engine the plan lands on, for the platform's
     device.
     Raises :class:`ConfigError`."""
     if tuple(mesh_shape) != (1, 1):
         raise ConfigError(f"mesh {tuple(mesh_shape)}: tuning on a device "
-                          f"mesh is ROADMAP queue 1 item 13b")
+                          f"mesh is ROADMAP queue 1 item 19")
     tuned = apply_plan(config, plan)
     validate_size(tuned.rows, tuned.cols,
                   tuned.rule.radius * tuned.comm_every)

@@ -25,7 +25,7 @@ Blessing, before a winner is persisted: a final board bit-identical to
 the default plan's output and, on small boards, to the serial numpy
 oracle (``backends/serial_np.py:evolve_np``).  The reference's second
 check, the halo slabs of a sharded step, applies off mesh (1, 1) only:
-tuning on a mesh is ROADMAP item 13b.
+tuning on a mesh is ROADMAP item 19.
 
 Kernel variants (CTA tiles) are built once, all together, before the
 sweep (``ops/_build.py:build_rules``, one nvcc process per variant).

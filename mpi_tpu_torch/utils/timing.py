@@ -6,8 +6,11 @@
 steady stepping that throughput is derived from.  The reports are the
 human-readable ``<name>_detailed.out`` and the 12-column
 ``<name>_compact.csv`` (``X,Y,#P,{full,nosetup,setup}×{single,avg,sum}``,
-microseconds).  The port runs one process, so each device's time is the
-wall time: single == avg, sum = wall × P.
+microseconds).  In one process each device's time is the wall time:
+single == avg, sum = wall × P.  Under a process group
+(``parallel/dist.py``, ``--multihost``) the avg and sum columns come from
+every process's durations (:func:`gather_process_durations`), the
+reference's ``MPI_Reduce(MPI_SUM)`` of per-rank times.
 """
 
 from __future__ import annotations
@@ -65,6 +68,22 @@ class PhaseTimer:
         return rows * cols * iters / (ns / 1e6) if ns > 0 else 0.0
 
 
+def gather_process_durations(timer: PhaseTimer):
+    """Every process's ``[full, nosetup, setup]`` µs, a (P, 3) int64 array
+    allgathered across the process group (the reference's three
+    ``MPI_Reduce(MPI_SUM)`` of per-rank durations, as an allgather so any
+    process could report).  None outside a group of more than one
+    process.  Collective: under a group every process must call it."""
+    from mpi_tpu_torch.parallel import dist
+
+    if dist.process_count() == 1:
+        return None
+    import numpy as np
+
+    return dist.process_allgather(np.array(
+        [timer.full_us, timer.nosetup_us, timer.setup_us], dtype=np.int64))
+
+
 def write_reports(
     time_file: str,
     timer: PhaseTimer,
@@ -73,13 +92,32 @@ def write_reports(
     processes: int,
     first: bool = False,
     out_dir: str = ".",
+    all_durations=None,
+    extra=None,
 ) -> None:
-    """Append the pair of reports; ``first`` writes the CSV header."""
+    """Append the pair of reports; ``first`` writes the CSV header.
+
+    ``processes`` is the tile-writer count reported in the #P column.
+    ``all_durations``, a (P_proc, 3) array of per-process ``[full,
+    nosetup, setup]`` µs from :func:`gather_process_durations`, feeds the
+    avg and sum columns as the reference's ``MPI_Reduce`` did (single =
+    process 0's time); without it each device's time is the wall time.
+    ``extra``: an ordered mapping of column name → value appended after
+    the 12 CSV columns (and to the header), as the reference's sweeps
+    add them; without it the rows are exactly the reference schema's."""
     p = max(processes, 1)
-    triples = [
-        (d, d, d * p)
-        for d in (timer.full_us, timer.nosetup_us, timer.setup_us)
-    ]
+    if all_durations is not None:
+        import numpy as np
+
+        a = np.asarray(all_durations, dtype=np.int64)
+        sums = a.sum(axis=0)
+        triples = list(zip(a[0].tolist(), (sums // a.shape[0]).tolist(),
+                           sums.tolist()))
+    else:
+        triples = [
+            (d, d, d * p)
+            for d in (timer.full_us, timer.nosetup_us, timer.setup_us)
+        ]
     (full, full_a, full_s), (nos, nos_a, nos_s), (setup, setup_a, setup_s) = triples
     detailed = os.path.join(out_dir, f"{time_file}_detailed.out")
     with open(detailed, "a") as f:
@@ -101,10 +139,17 @@ def write_reports(
     compact = os.path.join(out_dir, f"{time_file}_compact.csv")
     with open(compact, "a") as f:
         if first:
-            f.write(CSV_HEADER)
-        f.write(
+            if extra:
+                f.write(CSV_HEADER.rstrip("\n")
+                        + "".join(f",{k}" for k in extra) + "\n")
+            else:
+                f.write(CSV_HEADER)
+        row = (
             f"{rows},{cols},{p},{full},{full_a},{full_s},"
-            f"{nos},{nos_a},{nos_s},{setup},{setup_a},{setup_s}\n"
+            f"{nos},{nos_a},{nos_s},{setup},{setup_a},{setup_s}"
         )
+        if extra:
+            row += "".join(f",{v}" for v in extra.values())
+        f.write(row + "\n")
         f.flush()
         os.fsync(f.fileno())

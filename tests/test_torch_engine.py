@@ -151,13 +151,13 @@ def test_config_serves_what_earlier_slices_refused(kw, engine):
 
 def test_config_refuses_other_slices():
     # meshes and overlap run since the single-process mesh slice; serving,
-    # batches and tuning on a mesh are the multi-process one, item 13b
+    # batches and tuning on a mesh are item 19
     cfg = GolConfig(rows=64, cols=64, steps=1, mesh_shape=(2, 1))
     eng = port.build_engine(cfg, device="cpu")
     for call in (lambda: eng.step_batched(None, 1),
                  lambda: eng.fetch_window(None, 0, 0, 1, 1),
                  lambda: port.build_engine(cfg, device="cpu", tune="x.json")):
-        with pytest.raises(ConfigError, match="item 13b"):
+        with pytest.raises(ConfigError, match="item 19"):
             call()
     GolConfig(rows=64, cols=64, steps=1, overlap=True)
     GolConfig(rows=64, cols=64, steps=1, mesh_shape=(1, 1))

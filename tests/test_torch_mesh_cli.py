@@ -236,10 +236,10 @@ def test_resolve_auto_on_a_mesh():
     assert 1 <= k <= 8
 
 
-def test_serving_on_a_mesh_is_item_13b():
+def test_serving_on_a_mesh_is_item_19():
     mgr = SessionManager(device="cpu")
     try:
-        with pytest.raises(ConfigError, match="item 13b"):
+        with pytest.raises(ConfigError, match="item 19"):
             mgr.create({"rows": 64, "cols": 64, "mesh": "2x2"})
         sid = mgr.create({"rows": 64, "cols": 64, "mesh": "1x1"})["id"]
         assert sid

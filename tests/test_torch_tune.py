@@ -411,7 +411,7 @@ def test_runner_tunes_on_the_cpu_and_refuses_meshes(tmp_path, capsys):
     assert out["key"].split("|")[1] == "cpu:cpu:1"
     assert tune_main(["--check", "--cache", path]) == 0
     assert tune_main(["--mesh", "2x1", "--device", "cpu"]) == 2
-    assert "item 13" in capsys.readouterr().err
+    assert "item 19" in capsys.readouterr().err
     assert tune_main(["--mesh", "banana", "--device", "cpu"]) == 2
     assert tune_main(["--device", "cpu", "--rows", "0", "--cache", path]) \
         == 2

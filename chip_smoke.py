@@ -199,7 +199,7 @@ Phases; any failure exits non-zero before the result line:
 11. static analysis (``mpi_tpu_torch/analysis``) on the card: ``python -m
    mpi_tpu_torch.analysis`` as a subprocess must exit 0 (no finding, no
    unused suppression); the launch-level verifier's whole matrix
-   (``analysis/ir``: 33 cells of 64 rows, 20 of them on meshes of virtual
+   (``analysis/ir``: 34 cells of 64 rows, 21 of them on meshes of virtual
    shards of the card, two recorded steps each, the steps without sparse
    stepping under ``set_sync_debug_mode("error")``, the mesh cells' halo
    exchanges held to ``ir-collective``) runs on the card with zero
@@ -265,7 +265,32 @@ Phases; any failure exits non-zero before the result line:
    1x4 and resumed on 2x2 (4 ranks), and ``--comm-every auto`` on 2
    ranks, whose ranks must resolve one K.  A rank that exits non-zero, or
    a group that outlasts its limit, kills every rank of the group and
-   fails the script.
+   fails the script;
+14. serving and tuning on a mesh of virtual shards of the one card (a
+   ``SessionManager`` given ``devices=[cuda:0] * n``): phase 6's 32
+   sessions of 4096² Life on 2x2, 1 + 20 rounds of 8 generations from 32
+   threads, each coalesced round one K1 launch a shard (four) for all 32
+   boards, every board equal to ``step_batched``'s of the same seeds on
+   one device, requests/s over phase 6's 1x1 rate and one profiled
+   window's idle share; a 16384² Life session on 2x2 beside the same
+   session on 1x1: 1024² viewports across the shard seams (rows and
+   columns 8192) and across the periodic wrap, one transfer a shard a
+   viewport meets, a region write across a seam, a windowed delta stream
+   over the aio front folded frame by frame against the keyframe stream,
+   and the shard-form checkpoint restored onto 2x2 and onto 1x1, every
+   read and board equal to 1x1's; 4096² Bosco on 1x2 (K3) and dense
+   Bosco on 2x2 at comm_every 7 (K2) through tickets of depths 1, 2, 5
+   and 8, equal to 1x1's; padded periodic 4096 x 4090 sessions on 1x2,
+   Life at comm_every 8 and Bosco at 4 (20 cells of seam band, stepped on
+   K2 in chunks of 3 and 1), each step's launches the shards' windows and
+   the band's chunks, boards equal to 1x1's; the tuner at 4096² Life on
+   2x2 over three candidates, every probe exact, the winner through the
+   halo-slab bless, applied by a fresh manager's cache (a second session
+   compiles nothing, the grid equal to the untuned one's); the devmem
+   sampler's halo probe on the serving mesh; and each batched shard
+   window these paths launch timed against its plain version and bound.
+   Phase 2 holds K1-K3 at those batched windows to their plain versions,
+   and K2 at seam bands deeper than its 16 cells, in chunks.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -352,7 +377,8 @@ from mpi_tpu_torch.ops.stencil import (  # noqa: E402
 from mpi_tpu_torch.parallel import seam  # noqa: E402
 from mpi_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from mpi_tpu_torch.serve import (  # noqa: E402
-    DeadlineError, EngineCache, EngineUnavailableError, SessionManager, wire,
+    DeadlineError, EngineCache, EngineUnavailableError, SessionManager,
+    recovery, wire,
 )
 from mpi_tpu_torch.serve.aio import make_aio_server  # noqa: E402
 from mpi_tpu_torch.serve.httpd import make_server  # noqa: E402
@@ -883,8 +909,9 @@ def _k2_exact(rng) -> tuple:
 def _band_exact(rng) -> dict:
     """K2 stepping a seam band (periodic strip of 4d columns, d = k r)
     against ``evolve_band``: their middle 2d columns, one board and three,
-    at every pass depth of K1 and K3 the seam serves, and at the full
-    height of the padded Life path's passes (its depth and its last)."""
+    at every pass depth of K1 and K3 the seam serves, at the full height
+    of the padded Life path's passes (its depth and its last), and at the
+    mesh's depths past K2's 16 cells, stepped in chunks."""
     rules = ([(LIFE, k) for k in range(1, 17)]
              + [(rule, k) for r, rule in LTL_RULES.items()
                 for k in range(1, max_gens(r) + 1)])
@@ -893,6 +920,13 @@ def _band_exact(rng) -> dict:
     _, _, _, rule, k, steps, _ = PADDED_PATHS[0]
     cases += [(rule, g, (PADDED, 4 * g * rule.radius))
               for g in sorted({k, steps % k} - {0})]
+    # a mesh keeps the bit-sliced engine while k r <= 31: bands deeper than
+    # K2's 16 cells step in chunks of 16/r (every such depth, and phase
+    # 14's padded Bosco session's, 4 x 5, at its height)
+    deep = [(rule, k) for r, rule in LTL_RULES.items()
+            for k in range(1, 31 // r + 1) if k * r > 16]
+    cases += [(rule, k, (130, 4 * k * rule.radius)) for rule, k in deep]
+    cases += [(BOSCO, 4, (3, 130, 80)), (BOSCO, 4, (MESH_PADDED_SHAPE[0], 80))]
     err = 0
     for rule, k, shape in cases:
         d = k * rule.radius
@@ -1043,6 +1077,11 @@ def _mesh_window_exact(rng) -> dict:
                ((Hd + 35, Hd + 35), BOSCO, 3, None),
                ((33, 70), R2, 8, None)],
     }
+    # phase 14's batched shard windows: a coalesced round or a ticket
+    # cohort of B boards on a mesh is one launch a shard, (B, h, w)
+    for kid, rows in _mesh_batch_windows().items():
+        cases[kid] += [(shape, rule, gens, limit)
+                       for _label, shape, rule, gens, limit in rows]
     pairs = {"K1": (cuda_bit_step, bit_step_plain),
              "K3": (cuda_ltl_step, ltl_step_plain),
              "K2": (cuda_dense_step, dense_step_plain)}
@@ -1054,7 +1093,7 @@ def _mesh_window_exact(rng) -> dict:
             x = _cells(rng, shape) if kid == "K2" else _words(rng, shape)
             kw = {} if kid == "K2" else {"col_limit": limit}
             if limit is not None:  # a padded grid's pad is dead
-                x = x & pad_mask(shape[1], limit, "cuda")
+                x = x & pad_mask(shape[-1], limit, "cuda")
             o["max_abs_err"] = max(o["max_abs_err"], _compare(
                 kernel, plain, x, rule, "dead", gens, **kw))
             o["cases"] += 1
@@ -1062,6 +1101,43 @@ def _mesh_window_exact(rng) -> dict:
             del x
         torch.cuda.empty_cache()
     return out
+
+
+def _mesh_batch_windows() -> dict:
+    """The (B, h, w) shard windows phase 14's mesh sessions launch their
+    kernel on, by kernel: (label, shape, rule, gens, local col_limit).
+    Served Life: 32 boards of a 4096² 2x2 shard (2048 rows x 64 words)
+    with 8 ghost rows and a ghost word a side, and a dead mesh's corner
+    shard; Bosco tickets on 1x2 (the 1-wide row axis wraps onto itself, 5
+    ghost rows); dense Bosco on 2x2 at comm_every 7 (35 ghosts a side, the
+    width aligned to 16, chunks of 3 and 1); the padded periodic 4096 x
+    4090 sessions on 1x2, shard 1's window cut to its 65 live words with
+    the local col_limit (Life at comm_every 8, Bosco at 4)."""
+    B, h, w = MESH_SERVE_LIFE[0], MESH_SERVE_LIFE[1] // 2, \
+        MESH_SERVE_LIFE[1] // 2 // WORD
+    d = MESH_TICKET_BOARDS
+    s = MESH_LTL_SIZE
+    dense = s // 2 + 70
+    # the padded width's shard 1: its window starts at its left ghost word,
+    # global word tw - 1, and keeps the words that hold a real cell
+    prow, pcol = MESH_PADDED_SHAPE
+    tw = -(-pcol // 2 // WORD)
+    real = pcol - (tw - 1) * WORD
+    live = -(-real // WORD)
+    return {
+        "K1": [("served_life_2x2", (B, h + 16, w + 2), LIFE, 8, None),
+               ("served_life_2x2_dead_corner", (B, h + 8, w + 1), LIFE, 8,
+                None),
+               ("padded_life_1x2", (d, prow + 16, live), LIFE, 8, real)],
+        "K3": [("bosco_1x2", (d, s + 10, s // 2 // WORD + 2), BOSCO, 1,
+                None),
+               ("padded_bosco_1x2_k4", (d, prow + 40, live), BOSCO, 1,
+                real)],
+        "K2": [("dense_bosco_2x2", (d, dense, dense + (-dense % 16)), BOSCO,
+                3, None),
+               ("dense_bosco_2x2_chunk_1", (d, dense, dense + (-dense % 16)),
+                BOSCO, 1, None)],
+    }
 
 
 def phase2_exact() -> dict:
@@ -4639,8 +4715,8 @@ def _mesh_expected(engine, steps: int, shards=None, band=True) -> dict:
     """The launches of a mesh engine's warm-up and ``steps`` generations:
     every shard one window a pass (five with the overlap body), each window
     in the kernel's chunks (``chunk_gens``), plus one warm-up launch per
-    chunk depth; a seam grid adds K2's band, one a pass and one warm-up a
-    pass depth.  ``shards``: the shards one rank of a process group holds
+    chunk depth; a seam grid adds K2's band, in chunks of 16/r, a pass and
+    a warm-up a pass depth.  ``shards``: the shards one rank of a process group holds
     (default every shard, one process); ``band``: whether it steps the
     seam band (the rank that owns shard (0, mj-1))."""
     K = min(engine.depth, steps)
@@ -4658,7 +4734,13 @@ def _mesh_expected(engine, steps: int, shards=None, band=True) -> dict:
         windows * (full * chunks(K) + (chunks(rem) if rem else 0))
         + len(chunk_gens(engine.kind, rule, engine.depths)))
     if engine.seam and band:
-        out["K2"] += full + bool(rem) + len(engine.depths)
+        # the band steps in chunks of 16/r (seam.band_chunks)
+        def band_launches(k):
+            return len(seam.band_chunks(rule, k))
+
+        out["K2"] += (full * band_launches(K)
+                      + (band_launches(rem) if rem else 0)
+                      + sum(band_launches(k) for k in engine.depths))
     return out
 
 
@@ -5195,6 +5277,569 @@ def phase13_multihost(card: str) -> None:
               "phase_s": time.perf_counter() - t_phase})
 
 
+# -- phase 14: serving and tuning on a mesh of virtual shards -----------------
+
+# phase 6's served Life on a mesh: (sessions, size, comm_every, generations
+# a request, rounds after the warm one, rounds in the profiled window, mesh)
+MESH_SERVE_LIFE = (32, 4096, 8, 8, 20, 4, (2, 2))
+# one large session on 2x2: (size, generations before the reads, the
+# viewports' side, stream frames, checkpoint_every)
+MESH_SESSION = (16384, (2, 2), 16, 1024, 3, 16)
+# ticket cohorts of Bosco at 4096²: (label, kernel, comm_every, mesh)
+MESH_LTL_SIZE = 4096
+MESH_LTL = (("bosco_1x2", "K3", 1, (1, 2)),
+            ("dense_bosco_2x2", "K2", 7, (2, 2)))
+MESH_TICKET_DEPTHS = (1, 2, 5, 8)
+MESH_TICKET_BOARDS = 4
+# padded periodic sessions on 1x2 at 4096 x 4090 (2045 cells a shard):
+# (label, rule, comm_every); Bosco at 4 has 20 cells of seam band, past
+# K2's 16, stepped in chunks of 3 and 1
+MESH_PADDED_SHAPE = (4096, 4090)
+MESH_PADDED = (("padded_life_1x2", LIFE, 8),
+               ("padded_bosco_1x2_k4", BOSCO, 4))
+# the tuner on a mesh: (size, mesh, generations a probe, reps)
+MESH_TUNE = (4096, (2, 2), 64, 2)
+
+
+def _virtual(shape) -> list:
+    """The one card named once a shard: a mesh of virtual shards of it."""
+    return [torch.device("cuda", 0)] * (shape[0] * shape[1])
+
+
+def _mesh_label(shape) -> str:
+    return f"{shape[0]}x{shape[1]}"
+
+
+def _mesh_serve_life(card: str, times: dict) -> dict:
+    """Phase 6's served Life on a 2x2 mesh: 32 sessions stepped by 32
+    threads, each coalesced round one K1 launch a shard a pass for all
+    the boards; every board equal to ``step_batched``'s of the same seeds
+    on one device; requests/s against phase 6's 1x1 rate; one profiled
+    window's idle share."""
+    B, size, k, n, rounds, traced, shape = MESH_SERVE_LIFE
+    mgr = SessionManager(EngineCache(), batch_max=B, devices=_virtual(shape))
+    try:
+        spec = {"rows": size, "cols": size, "rule": "life", "comm_every": k,
+                "segments": [1, k], "mesh": _mesh_label(shape)}
+        infos = [mgr.create(dict(spec, seed=SEED + b)) for b in range(B)]
+        if [i["cache_hit"] for i in infos] != [False] + [True] * (B - 1):
+            fail("the mesh Life sessions' creates were not one miss and hits")
+        sids = [i["id"] for i in infos]
+        engine = mgr.get(sids[0]).engine
+        shards = engine.mi * engine.mj
+        if (engine.mi, engine.mj) != shape or engine.kernel_id != "K1":
+            fail(f"the mesh Life sessions run {engine.kernel_id} on "
+                 f"{engine.mi}x{engine.mj}")
+        _serve_rounds(mgr, sids, 1, n)      # warms the (n, B) batched step
+        builds = _build.builds
+        st0, c0 = mgr.batcher.stats(), engine.compile_count
+        _reset_launches()
+        cpu0 = time.process_time()
+        wall = _serve_rounds(mgr, sids, rounds, n)
+        cpu = time.process_time() - cpu0
+        launches = _launches()
+        st1 = mgr.batcher.stats()
+        calls = (st1["coalesced_calls"] - st0["coalesced_calls"]
+                 + st1["solo_steps"] - st0["solo_steps"])
+        warmups = engine.compile_count - c0
+        # a step of n = k generations is one pass: one K1 launch a shard,
+        # whatever its batch; a width met the first time warms once
+        if launches != {"K1": shards * calls + warmups, "K2": 0, "K3": 0} \
+                or not calls:
+            fail(f"the coalesced mesh rounds launched {launches} for {calls} "
+                 f"steps on {shards} shards and {warmups} warm-ups")
+        boards = st1["batched_boards"] - st0["batched_boards"]
+        _reset_launches()
+        trace = _serve_trace(lambda: _serve_rounds(mgr, sids, traced, n))
+        traced_launches = _launches()["K1"]
+        if _build.builds != builds:
+            fail("a kernel was built while the mesh sessions were served")
+        _no_faults(mgr, "mesh Life")
+        total = n * (1 + rounds + traced)
+        if any(mgr.get(s).generation != total for s in sids):
+            fail("a mesh Life session lost a step")
+        one = backend.build_engine(GolConfig(rows=size, cols=size, steps=0,
+                                             rule=LIFE, comm_every=k))
+        ref = one.step_batched(one.init_grids(
+            seeds=[SEED + b for b in range(B)]), total)
+        for b, sid in enumerate(sids):
+            if not torch.equal(engine.gather(mgr.get(sid).grid), ref[b]):
+                fail(f"mesh Life session {b} differs from the same board "
+                     f"stepped on one device")
+        del ref
+        base = times.get(("serve", "requests_per_s"))
+        rps = B * rounds / wall
+        row = {"phase": "mesh_serve", "part": "coalesced_life",
+               "card": card, "kernel": "K1", "mesh": list(shape),
+               "shards_on": "cuda:0", "sessions": B, "grid": [size, size],
+               "comm_every": k, "generations_a_request": n,
+               "rounds": rounds, "launches": launches, "steps": calls,
+               "warmups": warmups,
+               "launches_a_round": (launches["K1"] - warmups) / calls,
+               "avg_occupancy": boards / max(1, st1["coalesced_calls"]
+                                             - st0["coalesced_calls"]),
+               "boards_equal_to_one_device": True,
+               "builds_while_serving": 0, "serving_wall_s": wall,
+               "requests_per_s": rps,
+               "requests_per_s_1x1_phase6": base,
+               "over_1x1": rps / base if base else None,
+               "host_cpu_ms_per_request": cpu * 1e3 / (B * rounds),
+               "trace": {**trace, "rounds": traced,
+                         "k1_launches": traced_launches,
+                         "idle_share": 1 - trace["busy_ms"]
+                         / trace["wall_ms"]}}
+        emit(row)
+        return row
+    finally:
+        mgr.shutdown()
+        torch.cuda.empty_cache()
+
+
+def _stream_open(address, query: str):
+    sock = socket.create_connection(address, timeout=FRONT_WAIT_S)
+    sock.sendall(f"GET {query} HTTP/1.1\r\nHost: chip\r\n\r\n".encode())
+    buf = bytearray()
+    while b"\r\n\r\n" not in buf:
+        data = sock.recv(65536)
+        if not data:
+            fail("the stream closed before its head")
+        buf += data
+    head, _, rest = bytes(buf).partition(b"\r\n\r\n")
+    if b"200" not in head.split(b"\r\n")[0]:
+        fail(f"the stream answered {head[:200]!r}")
+    return sock, bytearray(rest)
+
+
+def _mesh_session(card: str) -> dict:
+    """A 16384² Life session on 2x2 beside the same session on 1x1 (one
+    manager): 1024² viewports across the shard seams (rows and columns
+    8192) and across the periodic wrap, a region write across a seam, a
+    windowed delta stream folded frame by frame against the keyframe
+    stream, and the shard-form checkpoint restored onto 2x2 and onto
+    1x1; every read and every board equal to the 1x1 session's."""
+    size, shape, gens, side, frames, every = MESH_SESSION
+    h = size // 2
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        state = os.path.join(d, "state")
+        mgr = SessionManager(EngineCache(), devices=_virtual(shape),
+                             state_dir=state, checkpoint_every=every)
+        server = thread = None
+        socks = []
+        try:
+            spec = {"rows": size, "cols": size, "rule": "life",
+                    "comm_every": 8, "segments": [1, 8],
+                    "mesh": _mesh_label(shape)}
+            solo_spec = dict(spec, mesh="1x1")
+            sid = mgr.create(spec)["id"]
+            one = mgr.create(solo_spec)["id"]
+            eng = mgr.get(sid).engine
+            if (eng.mi, eng.mj) != shape or mgr.get(one).engine.mi != 1:
+                fail("the 16384² sessions took the wrong meshes")
+
+            def same() -> bool:
+                return _digest(eng.gather(mgr.get(sid).grid)) == _digest(
+                    mgr.get(one).grid)
+
+            _reset_launches()
+            for s in (sid, one):
+                mgr.step(s, gens)
+            if not same() or _launches()["K1"] == 0:
+                fail("the 2x2 session's board differs from the 1x1 one's")
+            wins = [(h - side // 2, h - side // 2, side, side),   # 4 shards
+                    (h - side // 2, size // 16, side, side),     # row seam
+                    (size // 16, h - side // 2, side, side),     # col seam
+                    (size - side // 2, size - side // 3, side, side)]
+            read = 0
+            t0 = time.perf_counter()
+            for win in wins:
+                a, ga, _ = mgr.snapshot_window(sid, *win)
+                b, gb, _ = mgr.snapshot_window(one, *win)
+                if ga != gb or not np.array_equal(a, b):
+                    fail(f"viewport {win} of the 2x2 session differs")
+                read += a.nbytes
+            view_s = time.perf_counter() - t0
+            transfers = []
+            eng.fetch_window(mgr.get(sid).grid, *wins[0],
+                             shard_timer=transfers.append)
+            if len(transfers) != 4:
+                fail(f"the centre viewport made {len(transfers)} shard "
+                     f"transfers, not 4")
+            rng = np.random.default_rng(SEED)
+            patch = rng.integers(0, 2, size=(side // 2, side),
+                                 dtype=np.uint8)
+            for s in (sid, one):
+                mgr.write_window(s, h - side // 4, size * 3 // 16, patch)
+                mgr.step(s, 3)
+            if not same():
+                fail("the region write across a seam differs from 1x1's")
+            # a windowed delta stream against the keyframe stream
+            server = make_aio_server(port=0, manager=mgr)
+            thread = _serving(server)
+            address = server.server_address[:2]
+            sw = side // 2     # the streamed window, across all four shards
+            q = f"x0={h - sw // 2}&y0={h - sw // 2}&h={sw}&w={sw}&every=1"
+            sk, kbuf = _stream_open(address, f"/stream/{sid}?{q}")
+            sd, dbuf = _stream_open(address, f"/stream/{sid}?{q}&delta=1")
+            socks += [sk, sd]
+            keys, deltas = [], []
+            _read_chunks(sk, kbuf, keys, 1)
+            _read_chunks(sd, dbuf, deltas, 1)
+            recon = deltas[0][0]
+            delta_frames = 0
+            for g in range(1, frames + 1):
+                mgr.step(sid, 1)
+                mgr.step(one, 1)
+                _read_chunks(sk, kbuf, keys, g + 1)
+                _read_chunks(sd, dbuf, deltas, g + 1)
+                grid, meta = deltas[g]
+                if grid is None:
+                    recon = wire.apply_delta(recon, meta["tiles"])
+                    delta_frames += 1
+                else:
+                    recon = grid
+                want, _, _ = mgr.snapshot_window(one, h - sw // 2,
+                                                 h - sw // 2, sw, sw)
+                if not (np.array_equal(recon, keys[g][0])
+                        and np.array_equal(recon, want)):
+                    fail(f"stream frame {g} of the 2x2 session differs")
+            if not same():
+                fail("the streamed 2x2 session differs from the 1x1 one's")
+            # the shard-form checkpoint, restored onto 2x2 and onto 1x1
+            mgr.checkpoint_now(sid)
+            gen = mgr.get(sid).generation
+            digest = _digest(eng.gather(mgr.get(sid).grid))
+            rec = recovery.StateStore(state).load_record(sid)
+            snap = rec["snapshot"]
+            if "shards" not in snap or len(snap["shards"]) != 4:
+                fail("the 2x2 session's checkpoint is not in shard form")
+        finally:
+            for sk in socks:
+                sk.close()
+            if server is not None:
+                _stop_serving(server, thread)
+            mgr.shutdown()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        m2 = SessionManager(EngineCache(), devices=_virtual(shape),
+                            state_dir=state)
+        try:
+            restore_s = time.perf_counter() - t0
+            e2 = m2.get(sid).engine
+            if m2.restored_sessions != 2 or (e2.mi, e2.mj) != shape \
+                    or _digest(e2.gather(m2.get(sid).grid)) != digest:
+                fail("the 2x2 session did not restore onto 2x2 bit for bit")
+        finally:
+            m2.shutdown()
+        torch.cuda.empty_cache()
+        flat = os.path.join(d, "flat")
+        recovery.StateStore(flat).save(sid, solo_spec, gen, snap)
+        m3 = SessionManager(EngineCache(), state_dir=flat)
+        try:
+            e3 = m3.get(sid).engine
+            if m3.restored_sessions != 1 or e3.mi != 1 \
+                    or _digest(m3.get(sid).grid) != digest:
+                fail("the 2x2 session's shard-form checkpoint did not "
+                     "restore onto 1x1 bit for bit")
+        finally:
+            m3.shutdown()
+        torch.cuda.empty_cache()
+    row = {"phase": "mesh_serve", "part": "large_session", "card": card,
+           "kernel": "K1", "mesh": list(shape), "grid": [size, size],
+           "viewports": [list(w) for w in wins],
+           "viewport_bytes": read, "full_read_bytes": size * size,
+           "viewport_over_full": read / (len(wins) * size * size),
+           "viewports_s": view_s, "centre_viewport_transfers": 4,
+           "stream_frames": frames, "delta_frames": delta_frames,
+           "checkpoint_shards": len(snap["shards"]),
+           "restore_2x2_s": restore_s, "generation": gen,
+           "equal_to_1x1": True}
+    emit(row)
+    return row
+
+
+def _mesh_tickets(card: str) -> list:
+    """Bosco sessions on 1x2 (K3) and dense Bosco on 2x2 at comm_every 7
+    (K2), 4096², through tickets of depths 1, 2, 5 and 8, each cohort
+    beside the same sessions on 1x1: every board equal."""
+    size, per, depths = MESH_LTL_SIZE, MESH_TICKET_BOARDS, MESH_TICKET_DEPTHS
+    rows = []
+    mgr = SessionManager(EngineCache(), devices=_virtual((2, 2)))
+    try:
+        for label, kid, k, shape in MESH_LTL:
+            spec = {"rows": size, "cols": size, "rule": "bosco",
+                    "comm_every": k, "mesh": _mesh_label(shape)}
+            sids = [mgr.create(dict(spec, seed=SEED + i))["id"]
+                    for i in range(per)]
+            solos = [mgr.create(dict(spec, seed=SEED + i, mesh="1x1"))["id"]
+                     for i in range(per)]
+            eng = mgr.get(sids[0]).engine
+            if (eng.mi, eng.mj) != shape or eng.kernel_id != kid:
+                fail(f"the {label} sessions run {eng.kernel_id} on "
+                     f"{eng.mi}x{eng.mj}")
+            _reset_launches()
+            t0 = time.perf_counter()
+            _ticket_cycle(mgr, sids, depths)
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            _ticket_cycle(mgr, solos, depths)
+            for a, b in zip(sids, solos):
+                ga, gb = mgr.get(a).grid, mgr.get(b).grid
+                if mgr.get(a).generation != sum(depths) or not torch.equal(
+                        eng.gather(ga), gb):
+                    fail(f"a {label} session differs from its 1x1 twin")
+            if not launches[kid]:
+                fail(f"the {label} tickets launched no {kid}")
+            _no_faults(mgr, label)
+            row = {"phase": "mesh_serve", "part": "tickets", "card": card,
+                   "path": label, "kernel": kid, "mesh": list(shape),
+                   "grid": [size, size], "comm_every": k,
+                   "sessions": per, "depths": list(depths),
+                   "launches": launches, "wall_s": wall,
+                   "board_generations_per_s": per * sum(depths) / wall,
+                   "equal_to_1x1": True}
+            emit(row)
+            rows.append(row)
+    finally:
+        mgr.shutdown()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _mesh_padded(card: str) -> list:
+    """Padded periodic sessions on 1x2 (a width of 2045 cells a shard): Life
+    at comm_every 8 (K1 with a local ``col_limit``, the seam band on K2)
+    and Bosco at comm_every 4 (K3; 20 cells of band, past K2's 16, so the
+    band steps in chunks of 3 and 1), each beside the same session on
+    1x1; a step's launches are the shards' windows and the band's
+    chunks."""
+    rows_, cols = MESH_PADDED_SHAPE
+    rows = []
+    mgr = SessionManager(EngineCache(), devices=_virtual((1, 2)))
+    try:
+        for label, rule, k in MESH_PADDED:
+            steps = 3 * k + 1
+            spec = {"rows": rows_, "cols": cols, "rule": rule.name,
+                    "comm_every": k, "mesh": "1x2", "seed": SEED}
+            sid = mgr.create(spec)["id"]
+            one = mgr.create(dict(spec, mesh="1x1"))["id"]
+            eng = mgr.get(sid).engine
+            if not eng.seam or eng.kind != ("bit" if rule is LIFE else "ltl"):
+                fail(f"the {label} session is not a padded seam mesh: "
+                     f"{eng.kind}, seam {eng.seam}")
+            eng.ensure_compiled(mgr.get(sid).grid, steps)
+            _reset_launches()
+            mgr.step(sid, steps)
+            launches = _launches()
+            # the warm-ups ran before the reset: the step's own launches
+            passes = [k] * (steps // k) + [steps % k] * bool(steps % k)
+            top = max(chunk_gens(eng.kind, rule, [k]))
+            step_only = {kid: 0 for kid in KERNELS}
+            step_only[eng.kernel_id] = eng.mi * eng.mj * sum(
+                -(-p // top) for p in passes)
+            step_only["K2"] += sum(len(seam.band_chunks(rule, p))
+                                   for p in passes)
+            if launches != step_only:
+                fail(f"the {label} step launched {launches}, expected "
+                     f"{step_only}")
+            mgr.step(one, steps)
+            a, _, _ = mgr.snapshot_array(sid)
+            b, _, _ = mgr.snapshot_array(one)
+            if not np.array_equal(a, b):
+                fail(f"the {label} session differs from its 1x1 twin")
+            row = {"phase": "mesh_serve", "part": "padded", "card": card,
+                   "path": label, "kernel": eng.kernel_id, "mesh": [1, 2],
+                   "grid": [rows_, cols], "comm_every": k,
+                   "pad_bits": eng.pad_bits, "steps": steps,
+                   "band_depth": k * rule.radius,
+                   "band_chunks": seam.band_chunks(rule, k),
+                   "launches": launches, "equal_to_1x1": True}
+            emit(row)
+            rows.append(row)
+    finally:
+        mgr.shutdown()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _mesh_tune(card: str) -> dict:
+    """The tuner on a 2x2 mesh of virtual shards: a few candidates at 4096²
+    Life, every measured probe equal to the default plan's board and every
+    comm_every > 1 winner through the halo-slab bless; the cache, reloaded
+    by a fresh manager, gives a mesh session the winner (the best measured
+    candidate written in when the default won), a second session compiles
+    nothing, and the tuned grid equals the untuned one."""
+    size, shape, steps, reps = MESH_TUNE
+    cfg = GolConfig(rows=size, cols=size, steps=0, seed=SEED, rule=LIFE,
+                    mesh_shape=shape)
+    cands = [tune.Candidate(),
+             tune.Candidate({"comm_every": 2}, "comm_every=2"),
+             tune.Candidate({"comm_every": 8}, "comm_every=8")]
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "tune.json")
+        cache = tune.TuneCache(path)
+        t0 = time.perf_counter()
+        res = tune.tune_plan(cfg, devices=_virtual(shape), steps=steps,
+                             reps=reps, cache=cache, cands=cands)
+        tune_s = time.perf_counter() - t0
+        bad = [p.as_dict() for p in res.probes
+               if p.status != "measured" or not p.parity]
+        if bad:
+            fail(f"a mesh tuning probe failed: {bad}")
+        plan = res.winner
+        if not plan:
+            best = max((p for p in res.probes if p.plan),
+                       key=lambda p: p.cells_per_s)
+            plan = dict(best.plan)
+            cache.record(cfg, shape, plan, {"written_in": True},
+                         device="cuda")
+            cache.save()
+        mesh = make_mesh(shape, devices=_virtual(shape))
+        tuned = backend.build_engine(cfg, mesh=mesh, tune=path)
+        if tuned.tuned_plan != plan:
+            fail(f"the mesh engine took {tuned.tuned_plan}, not {plan}")
+        ok, why = tune.tuner._slab_depths_ok(tuned, tuned.init_grid(),
+                                             tuned.depth)
+        if not ok:
+            fail(f"the mesh winner fails the halo-slab bless: {why}")
+        mgr = SessionManager(EngineCache(), devices=_virtual(shape),
+                             tune_cache=path)
+        try:
+            spec = {"rows": size, "cols": size, "mesh": _mesh_label(shape)}
+            a = mgr.create(dict(spec, seed=SEED))
+            eng = mgr.get(a["id"]).engine
+            if eng.tuned_plan != plan:
+                fail(f"the tuned mesh session took {eng.tuned_plan}")
+            mgr.step(a["id"], steps)
+            c0 = eng.compile_count
+            b = mgr.create(dict(spec, seed=SEED + 1))
+            mgr.step(b["id"], steps)
+            if not b["cache_hit"] or eng.compile_count != c0 \
+                    or mgr.get(b["id"]).engine is not eng:
+                fail(f"the second tuned mesh session compiled "
+                     f"{eng.compile_count - c0} times")
+            untuned = backend.build_engine(cfg, mesh=mesh)
+            g = untuned.step(untuned.init_grid(seed=SEED), steps)
+            if not torch.equal(untuned.gather(g),
+                               eng.gather(mgr.get(a["id"]).grid)):
+                fail("the tuned mesh session's grid differs from the "
+                     "untuned engine's")
+        finally:
+            mgr.shutdown()
+    torch.cuda.empty_cache()
+    row = {"phase": "mesh_tune", "card": card, "grid": [size, size],
+           "mesh": list(shape), "steps": steps, "reps": reps,
+           "winner": res.winner, "applied_plan": plan,
+           "written_in": not res.winner, "key": res.key,
+           "default_cells_per_s": res.default_cells_per_s,
+           "speedup": res.speedup,
+           "probes": [p.as_dict() for p in res.probes],
+           "slab_bless": True, "second_session_compiles": 0,
+           "grid_equal_to_untuned": True, "tune_s": tune_s}
+    emit(row)
+    return row
+
+
+def _mesh_halo_probe(card: str) -> dict:
+    """The devmem sampler's halo probe on the serving mesh: a 2x2 session
+    on a manager with a full ``Obs``; each telemetry sample times one
+    ghost-ring exchange, ``mpi_tpu_halo_exchange_seconds{mesh="2x2"}``."""
+    obs = Obs()
+    mgr = SessionManager(EngineCache(), devices=_virtual((2, 2)), obs=obs)
+    try:
+        obs.arm_telemetry(manager=mgr, start=False)
+        obs.arm_flight(manager=mgr)
+        mgr.create({"rows": MESH_LTL_SIZE, "cols": MESH_LTL_SIZE,
+                    "mesh": "2x2"})
+        for _ in range(3):
+            obs.telemetry.sample_once()
+        count = obs.devmem.halo_hist.count(mesh="2x2")
+        st = obs.devmem.stats()
+        if count != 3 or st["errors"]:
+            fail(f"the halo probe sampled {count} times ({st})")
+        scrape = obs.metrics.render()
+        lines = [ln for ln in scrape.splitlines()
+                 if ln.startswith("mpi_tpu_halo_exchange_seconds_sum")]
+    finally:
+        mgr.shutdown()
+    row = {"phase": "mesh_obs", "card": card, "mesh": [2, 2],
+           "halo_samples": count, "scrape": lines}
+    emit(row)
+    return row
+
+
+def _mesh_batch_times(card: str) -> list:
+    """Each batched shard window of :func:`_mesh_batch_windows` timed (ms a
+    pass by CUDA events, ping-ponging), beside its plain version's ms and
+    the bound of phase 4's formula; no PyTorch call computes a step."""
+    rng = np.random.default_rng(SEED)
+    pairs = {"K1": (cuda_bit_step, bit_step_plain),
+             "K3": (cuda_ltl_step, ltl_step_plain),
+             "K2": (cuda_dense_step, dense_step_plain)}
+    rows = []
+    for kid, cases in _mesh_batch_windows().items():
+        kernel, plain = pairs[kid]
+        for label, shape, rule, gens, limit in cases:
+            x = _cells(rng, shape) if kid == "K2" else _words(rng, shape)
+            kw = {} if kid == "K2" else {"col_limit": limit}
+            if limit is not None:
+                x = x & pad_mask(shape[-1], limit, "cuda")
+            one_pass = _ping_pong(
+                lambda a, b: kernel(a, rule, "dead", gens, out=b, **kw), x)
+            for _ in range(3):
+                one_pass()
+            ms = _events_ms(one_pass, 10)
+            plain_ms = _plain_ms(plain, x, rule, gens, boundary="dead", **kw)
+            n = x.numel()
+            if kid == "K2":
+                t_bytes = 2 * n / HBM_BYTES_PER_S * 1e3
+                t_ops = gens * n * K2_CELL_OPS / INT32_OPS_PER_S * 1e3
+            else:
+                ops = word_ops(rule) if kid == "K1" \
+                    else ltl_word_ops_lower(rule)
+                t_bytes = 8 * n / HBM_BYTES_PER_S * 1e3
+                t_ops = gens * n * ops / INT32_OPS_PER_S * 1e3
+            row = {"phase": "mesh_batch_times", "card": card,
+                   "kernel": kid, "window": label, "shape": list(shape),
+                   "rule": str(rule), "gens": gens, "col_limit": limit,
+                   "boundary": "dead", "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops
+                   else "operations", "library_ms": None}
+            emit(row)
+            rows.append(row)
+            del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase14_mesh_serve(card: str, times: dict) -> None:
+    """Serving and tuning on a mesh of virtual shards of the one card."""
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(name, t0):
+        laps[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    _mesh_serve_life(card, times)
+    t0 = lap("served_life", t0)
+    _mesh_session(card)
+    t0 = lap("large_session", t0)
+    _mesh_tickets(card)
+    t0 = lap("tickets", t0)
+    _mesh_padded(card)
+    t0 = lap("padded", t0)
+    _mesh_tune(card)
+    t0 = lap("tune", t0)
+    _mesh_halo_probe(card)
+    t0 = lap("halo_probe", t0)
+    _mesh_batch_times(card)
+    lap("batch_times", t0)
+    emit({"phase": "mesh_serve_seconds", "card": card, **laps,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     card = phase0_card()
     seconds, t0 = {}, time.perf_counter()
@@ -5230,6 +5875,8 @@ def main() -> int:
     lap("mesh")
     phase13_multihost(card)
     lap("multihost")
+    phase14_mesh_serve(card, times)
+    lap("mesh_serve")
     emit({"phase": "seconds", **seconds})
     k1 = times["K1", MAIN_GENS]
     k2 = times["K2", DENSE_PATH[2]]

@@ -19,7 +19,9 @@ import hashlib
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
-from mpi_tpu_torch.analysis.ir.harness import Launch, Op, RecordedCell, Step
+from mpi_tpu_torch.analysis.ir.harness import (
+    Exchange, Launch, Op, RecordedCell, Step,
+)
 from mpi_tpu_torch.analysis.ir.matrix import near_pairs
 
 
@@ -238,15 +240,29 @@ def check_collectives(rc: RecordedCell) -> List[IRFinding]:
                 f"{rec.axis!r} (pairs={list(rec.pairs)}): an edge shard's "
                 f"ghosts would arrive as zeros — dead-boundary semantics "
                 f"on a periodic run"))
-        thin = min(rec.shape) if rec.shape else 0
+    for rec, thin in bad_slabs(rc.collectives, allowed):
+        out.append(IRFinding(
+            "ir-collective", rc.cell.id,
+            f"halo slab shape {rec.shape} over axis {rec.axis!r} has "
+            f"depth {thin}, expected one of {sorted(allowed)} (rule "
+            f"radius {rc.config.rule.radius} x comm_every "
+            f"{rc.config.comm_every}"
+            f"{', or one ghost word column' if rc.engine.bitpacked else ''})"))
+    return out
+
+
+def bad_slabs(records: Sequence[Exchange],
+              allowed) -> List[Tuple[Exchange, int]]:
+    """The halo slabs among ``records`` whose depth is not in ``allowed``
+    (``parallel/halo.py:expected_slab_depths``), each with its depth: the
+    thinner side of the slab's own plane, its last two axes (a batch's
+    leading board axis is no depth).  The slab contract of
+    :func:`check_collectives` and of the tuner's winner-side bless."""
+    out = []
+    for rec in records:
+        thin = min(rec.shape[-2:]) if rec.shape else 0
         if thin not in allowed:
-            out.append(IRFinding(
-                "ir-collective", rc.cell.id,
-                f"halo slab shape {rec.shape} over axis {rec.axis!r} has "
-                f"depth {thin}, expected one of {sorted(allowed)} (rule "
-                f"radius {rc.config.rule.radius} x comm_every "
-                f"{rc.config.comm_every}"
-                f"{', or one ghost word column' if rc.engine.bitpacked else ''})"))
+            out.append((rec, thin))
     return out
 
 

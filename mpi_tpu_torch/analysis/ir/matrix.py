@@ -12,8 +12,8 @@ boundary) and ``dense_r2_k16`` (radius 2 at comm_every 16 takes K2, in
 passes of 8).  A cell on a mesh other than (1, 1) runs on that many
 virtual shards of the one device (``make_mesh(shape, devices=[dev] *
 n)``), on the CPU and on the card alike, and its halo exchanges are
-recorded for ``ir-collective``.  The reference's ``batched_packed_1x2``
-is left out: batches on a mesh are ROADMAP item 19.
+recorded for ``ir-collective``; ``batched_packed_1x2`` steps a batch of
+two boards on one, one K1 launch a shard a pass for both.
 
 Grids are 64 rows, so a cell's steps are tiny; the ``fast`` tier runs
 in the tests and every tier in ``chip_smoke.py`` on the card.  Which
@@ -97,6 +97,8 @@ CELLS: List[Cell] = [
     Cell("seam_1x1", 64, 48, depth=2, tier="fast"),
     Cell("dense_bosco_1x1", 64, 64, rule="bosco", depth=1, tier="fast"),
     Cell("sparse_1x1", 64, 64, sparse_tile=32, depth=2, tier="fast"),
+    Cell("batched_packed_1x2", 64, 64, mesh=(1, 2), depth=2, batch=2,
+         tier="fast"),
     Cell("batched_seam_1x1", 64, 48, depth=2, batch=2, tier="fast"),
     # the reference's mesh cells: K1, K3 and K2 as tile interiors, the
     # halo exchange's slabs, dead and periodic rings

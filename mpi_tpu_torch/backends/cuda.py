@@ -307,7 +307,140 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-class Engine:
+class ServeSurface:
+    """What the serve layer calls on an engine besides stepping, shared by
+    :class:`Engine` and the mesh engine (``backends/cuda_mesh.py``), as
+    the reference's one ``Engine`` carries it on every mesh: the warm-up
+    of each step depth and batch width once (``compile_count``), the cost
+    cards obs reads, chained depth-1 steps and the pinned batched
+    stepper.  A subclass gives ``_warm_step(n, boards)`` (warm the
+    launches a step of ``n`` generations makes, for a batch of ``boards``
+    when > 0) and ``_batch_width(grids)`` (B of a stacked batch, None for
+    one grid), and calls :meth:`_init_serving` in its ``__init__``."""
+
+    def _init_serving(self) -> None:
+        # the step depths and (depth, B) widths warmed, under one lock; the
+        # hook a fault injector installs, called before a step takes a
+        # buffer or launches; obs (mpi_tpu_torch.obs.Obs, set by the serve
+        # layer): the first warm-up of each (depth, B) records its wall and
+        # a cost card from the kernel's own counts (obs/cost.py); the
+        # tune-cache plan build_engine applied (tune/), or None
+        self._compile_lock = threading.Lock()
+        self._compiled = set()
+        self._compiled_batched = set()
+        self.compile_count = 0
+        self.batched_compile_count = 0
+        self.compile_wall_s = 0.0
+        self.step_calls = 0
+        self.batched_step_calls = 0
+        self.fault_hook = None
+        self.sig_label = None
+        self.obs = None
+        self._cost_cards = {}
+        self.tuned_plan = None
+
+    def init_grids(self, seeds=None, initials=None):
+        """A fresh stacked batch: one board per entry of ``seeds`` (hash
+        init) or ``initials`` (uint8 grids)."""
+        if initials is not None:
+            boards = [self.init_grid(initial=i) for i in initials]
+        else:
+            boards = [self.init_grid(seed=s) for s in seeds]
+        return self.stack_grids(boards)
+
+    def ensure_compiled(self, grid, n: int) -> None:
+        """Warm every launch that a step of ``n`` generations makes, once
+        per ``n``: the first call for a new rule is where its kernel
+        library is built.  Each first call counts in ``compile_count`` and
+        its time in ``compile_wall_s`` (the serve layer charges it to
+        setup); ``grid`` is the grid that will step, and is not read."""
+        self._ensure(self._compiled, n, n, 0)
+
+    def ensure_compiled_batched(self, grids, n: int) -> None:
+        """:meth:`ensure_compiled` for a stacked batch, once per ``(n,
+        B)``, counted in ``batched_compile_count`` too."""
+        B = self._batch_width(grids)
+        self._ensure(self._compiled_batched, (n, B), n, B)
+
+    def _ensure(self, warmed: set, key, n: int, boards: int) -> None:
+        if n <= 0 or key in warmed:
+            return
+        with self._compile_lock:
+            if key in warmed:
+                return
+            t0 = time.perf_counter()
+            self._warm_step(n, boards)
+            self.sync()
+            dt = time.perf_counter() - t0
+            warmed.add(key)
+            self.compile_count += 1
+            self.batched_compile_count += bool(boards)
+            self.compile_wall_s += dt
+            if self.obs is not None:
+                self.obs.compile_wall.observe(dt)
+                if boards:
+                    self.obs.event("compile", dt, t0, depth=n, B=boards)
+                else:
+                    self.obs.event("compile", dt, t0, depth=n)
+                self._capture_cost_card(n, boards)
+
+    def _capture_cost_card(self, depth: int, batch: int) -> None:
+        """The (depth, B) cost card from the kernel's counts
+        (``obs/cost.py``); the caller holds ``_compile_lock`` and checked
+        ``self.obs``.  A card that cannot be built is dropped: metering
+        never fails a step."""
+        try:
+            from mpi_tpu_torch.obs.cost import capture_card
+
+            self._cost_cards[(depth, batch)] = capture_card(
+                self, depth=depth, batch=batch)
+        except Exception:  # noqa: BLE001 — metering must never break serving
+            pass
+
+    def cost_card(self, depth: int, batch: int = 0):
+        """The captured card for the (depth, B) step, or None (no obs, or
+        that step was not warmed with obs on)."""
+        return self._cost_cards.get((depth, batch))
+
+    def cost_cards(self) -> list:
+        """Snapshot of every captured card."""
+        with self._compile_lock:
+            return list(self._cost_cards.values())
+
+    def compile_segments(self, grid, segments) -> None:
+        """:meth:`ensure_compiled` for every distinct segment length."""
+        for n in sorted(set(segments)):
+            self.ensure_compiled(grid, n)
+
+    def step_units(self, grid, n: int):
+        """``n`` chained depth-1 steps with no sync between them (the one
+        depth every serve session warms); consumes ``grid``."""
+        for _ in range(max(0, int(n))):
+            grid = self.step(grid, 1)
+        return grid
+
+    def step_batched_units(self, grids, n: int):
+        """Batched :meth:`step_units`: ``n`` chained depth-1 batched steps
+        with no sync between them; consumes ``grids``."""
+        for _ in range(max(0, int(n))):
+            grids = self.step_batched(grids, 1)
+        return grids
+
+    def batched_stepper(self, B: int):
+        """A ``step(grids, n)`` callable pinned to batch width ``B``; it
+        raises on a batch of another width."""
+        def step(grids, n):
+            got = self._batch_width(grids)
+            if got != B:
+                raise ValueError(f"batched stepper built for B={B}, got {got}")
+            return self.step_batched(grids, n)
+
+        step.B = B
+        step.engine = self
+        return step
+
+
+class Engine(ServeSurface):
     """The kernel stepper for one configuration on one device: packed
     int32 words (``bitpacked``, engines "bit" and "ltl") or uint8 cells
     (engine "dense").
@@ -381,27 +514,7 @@ class Engine:
         self._spares = {}
         self._spare_streams = {}
         self._spare_lock = threading.Lock()
-        self.step_calls = 0
-        self.batched_step_calls = 0
-        # the serve layer's surfaces (the reference's Engine members): the
-        # step depths and (depth, B) widths warmed, under one lock; one
-        # engine, one tile; the hook a fault injector installs, called
-        # before a step takes a buffer or launches
-        self._compile_lock = threading.Lock()
-        self._compiled = set()
-        self._compiled_batched = set()
-        self.compile_count = 0
-        self.batched_compile_count = 0
-        self.compile_wall_s = 0.0
-        self.fault_hook = None
-        self.sig_label = None
-        # observability (mpi_tpu_torch.obs.Obs, set by the serve layer):
-        # the first warm-up of each (depth, B) records its wall and a cost
-        # card from the kernel's own counts (obs/cost.py)
-        self.obs = None
-        self._cost_cards = {}
-        # the tune-cache plan build_engine applied (tune/), or None
-        self.tuned_plan = None
+        self._init_serving()
         self.mi = self.mj = 1
         # every step consumes its input (the spare of the ping-pong pair),
         # the reference's donated buffer; flight records report it
@@ -476,15 +589,6 @@ class Engine:
                                    col_limit=self.col_limit,
                                    device=self.device)
 
-    def init_grids(self, seeds=None, initials=None):
-        """A fresh stacked (B, ...) batch: one board per entry of ``seeds``
-        (hash init) or ``initials`` (uint8 grids)."""
-        if initials is not None:
-            boards = [self.init_grid(initial=i) for i in initials]
-        else:
-            boards = [self.init_grid(seed=s) for s in seeds]
-        return self.stack_grids(boards)
-
     def stack_grids(self, grids):
         """One (B, ...) batch from B grids (or sparse states) of this
         engine."""
@@ -544,70 +648,12 @@ class Engine:
             return self.depths
         return sorted(segment_depths([n], self.depth))
 
-    def ensure_compiled(self, grid, n: int) -> None:
-        """Warm (:meth:`warm_up`) every pass depth that a step of ``n``
-        generations launches, once per ``n``: the first call for a new
-        rule is where its kernel library is built.  Each first call counts
-        in ``compile_count`` and its time in ``compile_wall_s`` (the serve
-        layer charges it to setup); ``grid`` is the grid that will step,
-        and is not read."""
-        self._ensure(self._compiled, n, n, 0)
+    def _warm_step(self, n: int, boards: int) -> None:
+        self._warm(self._step_depths(n), boards)
 
-    def ensure_compiled_batched(self, grids, n: int) -> None:
-        """:meth:`ensure_compiled` for a stacked (B, ...) batch, once per
-        ``(n, B)``, counted in ``batched_compile_count`` too."""
-        B = self.raw_grid(grids).shape[0]
-        self._ensure(self._compiled_batched, (n, B), n, B)
-
-    def _ensure(self, warmed: set, key, n: int, boards: int) -> None:
-        if n <= 0 or key in warmed:
-            return
-        with self._compile_lock:
-            if key in warmed:
-                return
-            t0 = time.perf_counter()
-            self._warm(self._step_depths(n), boards)
-            self.sync()
-            dt = time.perf_counter() - t0
-            warmed.add(key)
-            self.compile_count += 1
-            self.batched_compile_count += bool(boards)
-            self.compile_wall_s += dt
-            if self.obs is not None:
-                self.obs.compile_wall.observe(dt)
-                if boards:
-                    self.obs.event("compile", dt, t0, depth=n, B=boards)
-                else:
-                    self.obs.event("compile", dt, t0, depth=n)
-                self._capture_cost_card(n, boards)
-
-    def _capture_cost_card(self, depth: int, batch: int) -> None:
-        """The (depth, B) cost card from the kernel's counts
-        (``obs/cost.py``); the caller holds ``_compile_lock`` and checked
-        ``self.obs``.  A card that cannot be built is dropped: metering
-        never fails a step."""
-        try:
-            from mpi_tpu_torch.obs.cost import capture_card
-
-            self._cost_cards[(depth, batch)] = capture_card(
-                self, depth=depth, batch=batch)
-        except Exception:  # noqa: BLE001 — metering must never break serving
-            pass
-
-    def cost_card(self, depth: int, batch: int = 0):
-        """The captured card for the (depth, B) step, or None (no obs, or
-        that step was not warmed with obs on)."""
-        return self._cost_cards.get((depth, batch))
-
-    def cost_cards(self) -> list:
-        """Snapshot of every captured card."""
-        with self._compile_lock:
-            return list(self._cost_cards.values())
-
-    def compile_segments(self, grid, segments) -> None:
-        """:meth:`ensure_compiled` for every distinct segment length."""
-        for n in sorted(set(segments)):
-            self.ensure_compiled(grid, n)
+    def _batch_width(self, grids):
+        raw = self.raw_grid(grids)
+        return raw.shape[0] if raw.dim() == 3 else None
 
     def _warm_sparse(self, dtype) -> None:
         # 3 x 3 tiles of zeros: a dense chunk of 8 and the probe (every tile
@@ -701,13 +747,6 @@ class Engine:
             return self._advance_sparse(grid, n)
         return self._advance(grid, n)
 
-    def step_units(self, grid, n: int):
-        """``n`` chained depth-1 steps with no sync between them (the one
-        depth every serve session warms); consumes ``grid``."""
-        for _ in range(max(0, int(n))):
-            grid = self.step(grid, 1)
-        return grid
-
     def step_batched(self, grids, n: int):
         """Advance every board of a stacked (B, ...) batch by ``n``
         generations, one kernel launch per pass for the whole batch (a
@@ -739,27 +778,6 @@ class Engine:
             c.copy_(changed)
         self._keep_spare(spare)
         return states
-
-    def step_batched_units(self, grids, n: int):
-        """Batched :meth:`step_units`: ``n`` chained depth-1 batched steps
-        with no sync between them; consumes ``grids``."""
-        for _ in range(max(0, int(n))):
-            grids = self.step_batched(grids, 1)
-        return grids
-
-    def batched_stepper(self, B: int):
-        """A ``step(grids, n)`` callable pinned to batch width ``B``; it
-        raises on a batch of another width."""
-        def step(grids, n):
-            raw = self.raw_grid(grids)
-            got = raw.shape[0] if raw.dim() == 3 else None
-            if got != B:
-                raise ValueError(f"batched stepper built for B={B}, got {got}")
-            return self.step_batched(grids, n)
-
-        step.B = B
-        step.engine = self
-        return step
 
     def fetch(self, grid) -> np.ndarray:
         """The grid as a host uint8 0/1 array cropped to the real width,
@@ -961,14 +979,25 @@ def build_mesh_engine(config: GolConfig, mesh, depths=None, tune=None,
     (``validate_mesh`` on the mesh's shape, ``overlap`` on tiles too small
     for its bands), and a check of every window a pass launches the
     kernel on, at every depth, against the kernel's refusal: a shape the
-    kernel declines raises :class:`ConfigError`, never a fallback."""
+    kernel declines raises :class:`ConfigError`, never a fallback.
+
+    ``tune`` and ``blocks`` as for :func:`build_engine`: a cached winner
+    for this (device, requested plan, mesh shape) replaces the requested
+    knobs before planning, and a CTA tile builds every shard window's
+    launch with that variant of K1 or K3."""
     from mpi_tpu_torch.backends.cuda_mesh import MeshEngine, chunk_gens
     from mpi_tpu_torch.config import validate_mesh
 
     mi, mj = mesh.dims
-    if tune is not None or blocks is not None:
-        raise ConfigError("a tuned plan or a CTA tile on a device mesh is "
-                          "ROADMAP item 19, serving and tuning on a mesh")
+    dev = mesh.devices[0][0]
+    tuned_plan = None
+    if tune is not None:
+        from mpi_tpu_torch.tune import resolve_tuned
+
+        config, tuned_plan = resolve_tuned(config, (mi, mj), tune,
+                                           device=dev)
+        if tuned_plan is not None and blocks is None:
+            blocks = tuned_plan.get("blocks")
     validate_mesh(config.rows, config.cols, (mi, mj),
                   config.rule.radius * config.comm_every,
                   processes=mesh.processes)
@@ -1007,6 +1036,15 @@ def build_mesh_engine(config: GolConfig, mesh, depths=None, tune=None,
                          f"packed engine without overlap")
             overlap = False
     kernel_id, kernel, refusal = KERNELS[kind]
+    if blocks is not None:
+        check_blocks(config, kind, dev, blocks)
+        kernel = functools.partial(kernel,
+                                   defines=BLOCK_DEFINES[kind](blocks))
+        notes.append(f"kernel {kernel_id} built with CTA tile "
+                     f"{[int(v) for v in blocks]}")
+    if tuned_plan is not None:
+        notes.append(f"autotuned plan applied: {tuned_plan} (tune cache "
+                     f"winner for this signature)")
     for msg in notes:
         print(f"note: {msg}", file=sys.stderr)
     if depths is None:
@@ -1027,8 +1065,11 @@ def build_mesh_engine(config: GolConfig, mesh, depths=None, tune=None,
                     f"kernel {kernel_id} cannot run {rule} at depth {g} on "
                     f"a {shape[0]}x{shape[1]} shard window of the {mi}x{mj} "
                     f"mesh: {reason}")
-    return MeshEngine(config, mesh, kind, kernel, kernel_id, depths,
-                      cols_eff, pad_bits, overlap, notes)
+    engine = MeshEngine(config, mesh, kind, kernel, kernel_id, depths,
+                        cols_eff, pad_bits, overlap, notes)
+    engine.tuned_plan = tuned_plan
+    engine.blocks = None if blocks is None else [int(v) for v in blocks]
+    return engine
 
 
 def run_cuda(

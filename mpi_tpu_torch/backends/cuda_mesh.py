@@ -15,28 +15,34 @@ place of every other rank's: the engine builds, loads, steps, writes and
 counts the local shards, and ``fetch`` returns None, as the reference's
 does under ``jax.process_count() > 1``.
 
-What the serve layer calls on an engine beyond one run's (``step_batched``,
-windows, batches) is ROADMAP item 19, serving and tuning on a mesh, and
-raises :class:`ConfigError` here.
+The serve layer's surfaces are the one-device engine's
+(``backends/cuda.py:Engine``), as the reference's one ``Engine`` carries
+them on every mesh.  A batch of B boards is one (B, h, w) tensor a shard
+(``stack_grids``): the exchange, the windows and the seam take the board
+axis (``parallel/step.py``), so ``step_batched`` launches one kernel a
+shard a pass for all B boards, where the reference vmaps the sharded
+step.  ``fetch_window`` copies only the shards a viewport meets, cropped
+on the device, one transfer each; ``write_window`` edits only the shards a
+patch meets, in place, and leaves the pad dead; ``shard_snapshots`` gives
+the checkpoint's tiles.  Under a process group the window reads and
+writes and ``fetch_batched`` answer None, and ``stack_grids`` and
+``step_batched`` raise ConfigError: the group's seam path has no board
+axis, and the reference serves no batch under several processes.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import List
 
 import numpy as np
 import torch
 
+from mpi_tpu_torch.backends.cuda import ServeSurface
 from mpi_tpu_torch.config import WORD, ConfigError, GolConfig
 from mpi_tpu_torch.ops import bitlife, cuda_bitltl, cuda_stencil
 from mpi_tpu_torch.parallel import seam, step
 from mpi_tpu_torch.parallel.mesh import Mesh
-
-SERVING_ITEM = ("serving, batches and windows on a device mesh are "
-                "ROADMAP item 19, serving and tuning on a mesh")
-
 
 def chunk_gens(kind: str, rule, depths) -> List[int]:
     """The gens of every kernel launch a pass of each depth in ``depths``
@@ -54,7 +60,7 @@ def chunk_gens(kind: str, rule, depths) -> List[int]:
     return sorted(out)
 
 
-class MeshEngine:
+class MeshEngine(ServeSurface):
     """The stepper for one configuration on a mesh of more than one shard:
     packed int32 words (``bitpacked``, engines "bit" and "ltl") or uint8
     cells ("dense") in every shard.  Grid state lives outside the engine:
@@ -108,10 +114,8 @@ class MeshEngine:
                 inner, rule, config.cols, config.comm_every, mesh=mesh)
         else:
             self._evolve = inner
-        self._compile_lock = threading.Lock()
-        self._compiled = set()
-        self.compile_count = 0
-        self.compile_wall_s = 0.0
+        self._init_serving()
+        self.blocks = None   # the CTA tile build_mesh_engine built, if any
 
     # -- geometry -------------------------------------------------------
 
@@ -178,12 +182,13 @@ class MeshEngine:
 
     # -- build and warm-up ------------------------------------------------
 
-    def warm_up(self) -> None:
+    def warm_up(self, boards: int = 0) -> None:
         """Build and load the kernel and launch it once at each gens its
         passes launch, on a one-word or one-cell grid (and for a seam grid
         the band's K2 step at its height), so the first timed pass pays no
         build or first-launch setup.  Under a process group each rank warms
-        its own cards, and the band only where it is stepped."""
+        its own cards, and the band only where it is stepped.  A batch of
+        ``boards`` launches the same kernels, so it warms nothing more."""
         self._warm(self.depths)
 
     def _steps_band(self) -> bool:
@@ -211,22 +216,18 @@ class MeshEngine:
                     (self.config.rows, 4 * k * rule.radius),
                     dtype=torch.uint8, device=self.device), rule, k)
 
-    def ensure_compiled(self, grid, n: int) -> None:
-        """Warm every launch a step of ``n`` generations makes, once per
-        ``n`` (counted in ``compile_count``, timed in ``compile_wall_s``)."""
-        if n <= 0 or n in self._compiled:
-            return
+    def _warm_step(self, n: int, boards: int) -> None:
+        # a batch launches the kernels a solo step does, on a board axis
         from mpi_tpu_torch.utils.segmenting import segment_depths
 
-        with self._compile_lock:
-            if n in self._compiled:
-                return
-            t0 = time.perf_counter()
-            self._warm(sorted(segment_depths([n], self.depth)))
-            self.sync()
-            self._compiled.add(n)
-            self.compile_count += 1
-            self.compile_wall_s += time.perf_counter() - t0
+        self._warm(sorted(segment_depths([n], self.depth)))
+
+    def _batch_width(self, grids):
+        return _boards(grids) or None
+
+    def sparse_stats(self, grid):
+        """None: a mesh engine never steps sparsely."""
+        return None
 
     def sync(self) -> None:
         """Wait for every card of the mesh this process holds: closes every
@@ -235,26 +236,88 @@ class MeshEngine:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
+    def block_until_ready(self, grid):
+        """Wait until the launches queued so far on this thread's stream of
+        every card of the mesh, those that produce ``grid`` among them,
+        have run; returns ``grid``.  A no-op on the CPU."""
+        for dev in self.mesh.local_devices():
+            if dev.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                event.synchronize()
+        return grid
+
     # -- stepping -------------------------------------------------------
 
     def step(self, grid, n: int):
         """Advance ``grid`` by ``n`` generations; consumes ``grid``."""
         if n <= 0:
             return grid
+        if self.fault_hook is not None:
+            # before any launch: an injected failure leaves the grid intact
+            self.fault_hook("step")
+        self.step_calls += 1
         return self._evolve(grid, n)
 
-    def step_units(self, grid, n: int):
-        for _ in range(max(0, int(n))):
-            grid = self.step(grid, 1)
-        return grid
+    # -- batches --------------------------------------------------------
 
-    def _serving(self, *args, **kwargs):
-        raise ConfigError(SERVING_ITEM)
+    def stack_grids(self, grids):
+        """One batch from B grids of this engine: each shard a (B, h, w)
+        tensor on its device, board b's shard at index b.  Refused under a
+        process group."""
+        self._no_group_batch()
+        grids = list(grids)
+        return [[None if s is None else
+                 torch.stack([g[i][j] for g in grids])
+                 for j, s in enumerate(row)]
+                for i, row in enumerate(grids[0])]
 
-    step_batched = step_batched_units = batched_stepper = _serving
-    init_grids = stack_grids = unstack_grids = _serving
-    ensure_compiled_batched = fetch_batched = population_batched = _serving
-    fetch_window = write_window = _serving
+    def unstack_grids(self, batched) -> list:
+        """The B grids of a stacked batch, each shard in a buffer of its
+        own."""
+        return [[[None if s is None else s[b].clone() for s in row]
+                 for row in batched] for b in range(_boards(batched))]
+
+    def step_batched(self, grids, n: int):
+        """Advance every board of a stacked batch by ``n`` generations: one
+        kernel launch a shard a window a pass for all B boards, as many as
+        a solo step makes; consumes ``grids``.  Refused under a process
+        group."""
+        self._no_group_batch()
+        if n <= 0:
+            return grids
+        if step.first_shard(grids).dim() != 3:
+            raise ValueError(f"a batch is (B, rows, cols) a shard, got "
+                             f"{tuple(step.first_shard(grids).shape)}")
+        if self.fault_hook is not None:
+            self.fault_hook("batched")
+        self.batched_step_calls += 1
+        return self._evolve(grids, n)
+
+    def _no_group_batch(self) -> None:
+        if self.mesh.multiprocess:
+            raise ConfigError("a stacked batch runs on a mesh of one "
+                              "process; this mesh spans a process group")
+
+    def fetch_batched(self, grids) -> list:
+        """Each board of a stacked batch as a host array cropped to the
+        real width (None under a process group)."""
+        if self.mesh.multiprocess:
+            return None
+        return [self.fetch([[s[b] for s in row] for row in grids])
+                for b in range(_boards(grids))]
+
+    def population_batched(self, grids) -> List[int]:
+        """Live cells of each board of a stacked batch: one reduction a
+        shard on its device, B counts a shard to the host."""
+        total = np.zeros(_boards(grids), dtype=np.int64)
+        for row in grids:
+            for s in row:
+                if s is None:
+                    continue
+                cells = bitlife.popcount(s) if self.bitpacked else s
+                total += cells.sum(dim=(1, 2), dtype=torch.int64).cpu().numpy()
+        return [int(v) for v in total]
 
     # -- reads ----------------------------------------------------------
 
@@ -281,7 +344,81 @@ class MeshEngine:
         return out
 
     def shard_snapshots(self, grid):
+        """``[(r0, c0, tile), ...]``: the checkpoint's tiles, one a shard
+        this process holds, each fetched alone (never the whole board)."""
         return [(r0, c0, tile) for _pid, tile, r0, c0 in self.tiles(grid)]
+
+    def _meets(self, r0: int, c0: int, h: int, w: int):
+        """For each local shard the window ``[r0, r0+h) x [c0, c0+w)`` of
+        the real board meets: ``(i, j, rows, units, off, out_rows,
+        out_cols)``, the shard's rows and word (or cell) columns to slice,
+        the first cell column in that slice, and where the piece lands in
+        the window."""
+        rows, cols = self.config.rows, self.config.cols
+        if not (h > 0 and w > 0 and 0 <= r0 and r0 + h <= rows
+                and 0 <= c0 and c0 + w <= cols):
+            raise ValueError(f"window [{r0}:{r0 + h}, {c0}:{c0 + w}] is not "
+                             f"on the {rows}x{cols} board")
+        th, tw = self._shard_cells()
+        for i, j in self.mesh.local_shards():
+            sr0, sc0 = i * th, j * tw
+            ir0, ir1 = max(r0, sr0), min(r0 + h, sr0 + th)
+            ic0, ic1 = max(c0, sc0), min(c0 + w, sc0 + tw)
+            if ir0 >= ir1 or ic0 >= ic1:
+                continue
+            lc0, lc1 = ic0 - sc0, ic1 - sc0
+            if self.bitpacked:
+                units = slice(lc0 // WORD, -(-lc1 // WORD))
+                off = lc0 - units.start * WORD
+            else:
+                units, off = slice(lc0, lc1), 0
+            yield (i, j, slice(ir0 - sr0, ir1 - sr0), units, off,
+                   slice(ir0 - r0, ir1 - r0), slice(ic0 - c0, ic1 - c0))
+
+    def fetch_window(self, grid, r0: int, c0: int, h: int, w: int,
+                     shard_timer=None):
+        """The host window ``[r0, r0+h) x [c0, c0+w)`` of the board (uint8
+        0/1): only the shards it meets are read, each cropped on its
+        device to the rows and words the window covers and copied to the
+        host in one transfer; ``shard_timer(dt_s)`` is called once a
+        shard.  The window must not wrap.  None under a process group, as
+        :meth:`fetch`."""
+        if self.mesh.multiprocess:
+            return None
+        out = np.zeros((h, w), dtype=np.uint8)
+        for i, j, rs, units, off, out_r, out_c in self._meets(r0, c0, h, w):
+            block = grid[i][j][rs, units]
+            n = out_c.stop - out_c.start
+            if self.bitpacked:
+                block = bitlife.unpack(block)[:, off:off + n]
+            t0 = time.perf_counter()
+            out[out_r, out_c] = block.to("cpu", copy=True).numpy()
+            if shard_timer is not None:
+                shard_timer(time.perf_counter() - t0)
+        return out
+
+    def write_window(self, grid, r0: int, c0: int, patch):
+        """``grid`` with the uint8 0/1 ``patch`` written at ``(r0, c0)``:
+        only the shards the patch meets are edited, in place on their
+        devices, and on a packed grid only the words it covers (read,
+        changed, written back), so the pad bits stay zero.  The patch must
+        not wrap.  None under a process group, where the caller re-inits
+        the board."""
+        if self.mesh.multiprocess:
+            return None
+        patch = np.asarray(patch, dtype=np.uint8)
+        h, w = patch.shape
+        for i, j, rs, units, off, out_r, out_c in self._meets(r0, c0, h, w):
+            shard = grid[i][j]
+            cells = torch.from_numpy(
+                np.ascontiguousarray(patch[out_r, out_c])).to(shard.device)
+            if not self.bitpacked:
+                shard[rs, units] = cells
+                continue
+            block = bitlife.unpack(shard[rs, units])
+            block[:, off:off + cells.shape[1]] = cells
+            shard[rs, units] = bitlife.pack(block)
+        return grid
 
     def fetch(self, grid):
         """The grid as a host uint8 0/1 array cropped to the real width
@@ -315,3 +452,10 @@ class MeshEngine:
                 total += (bitlife.population(s) if self.bitpacked
                           else int(s.sum(dtype=torch.int64).item()))
         return total
+
+
+def _boards(grids) -> int:
+    """B of a stacked batch on a mesh (its first local shard's board axis),
+    0 for a solo grid."""
+    x = step.first_shard(grids)
+    return int(x.shape[0]) if x.dim() == 3 else 0

@@ -15,11 +15,17 @@ after_sample``) and, once per tick:
 * records EngineCache / batched-stepper occupancy
   (``mpi_tpu_engine_cache_entries{cache}`` reads the authoritative
   ``OrderedDict`` sizes at scrape time — the no-shadow-counting rule);
-* would time one ghost-ring exchange on a multi-device serving mesh into
-  ``mpi_tpu_halo_exchange_seconds{mesh}``: the port serves on one
-  device (serving on a mesh is ROADMAP queue 1 item 19), so the probe
-  finds no mesh and samples nothing, as the reference's does on one
-  device.
+* times one ghost-ring exchange on the serving mesh (the first live
+  engine on more than one shard) into
+  ``mpi_tpu_halo_exchange_seconds{mesh}``: ``parallel/step.py:
+  make_halo_probe`` on a ``HALO_PROBE_TILE``-square uint8 tile a shard,
+  warmed once outside the timed window.  On the card the sample is the
+  probe's own device time, between two CUDA events on each card's current
+  stream (the longest card's), so serving rounds queued ahead of it on
+  that card do not count; on the host, where every exchange is
+  synchronous, it is the call's wall time.  With every session on one
+  device the probe finds no mesh and samples nothing, as the reference's
+  does.  The family's help text is the reference's, word for word.
 
 Armed-only: constructed by ``Obs.arm_flight`` when telemetry is armed;
 unarmed builds register none of these families.
@@ -33,7 +39,11 @@ from typing import Callable, Dict, Optional, Tuple
 
 from mpi_tpu_torch.obs.metrics import LATENCY_BUCKETS
 
-__all__ = ["DevMemSampler", "read_device_memory"]
+__all__ = ["DevMemSampler", "HALO_PROBE_TILE", "read_device_memory",
+           "time_probe"]
+
+# side of the square uint8 tile a shard that the halo probe exchanges
+HALO_PROBE_TILE = 128
 
 
 def read_device_memory() -> Dict[Tuple[str, str], float]:
@@ -56,6 +66,35 @@ def read_device_memory() -> Dict[Tuple[str, str], float]:
     return out
 
 
+def time_probe(fn: Callable, operand, devices) -> float:
+    """Seconds that ``fn(operand)`` itself takes.  On the card: the device
+    time between two CUDA events recorded on each of ``devices``' current
+    streams around the call, the longest card's; work queued on a card
+    before the call (a serving round) runs before the first event and is
+    not counted.  With no card among ``devices``: the call's wall time,
+    every host op being synchronous."""
+    import torch
+
+    cards = sorted({d for d in devices if d.type == "cuda"}, key=str)
+    if not cards:
+        t0 = time.perf_counter()
+        fn(operand)
+        return time.perf_counter() - t0
+    marks = []
+    for dev in cards:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(dev))
+        marks.append((dev, start))
+    fn(operand)
+    spans = []
+    for dev, start in marks:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(torch.cuda.current_stream(dev))
+        end.synchronize()
+        spans.append(start.elapsed_time(end) / 1e3)
+    return max(spans)
+
+
 class DevMemSampler:
     """One tick of device-memory + cache telemetry.
 
@@ -70,6 +109,9 @@ class DevMemSampler:
         self._manager = manager
         self._halo_enabled = halo_probe
         self._clock = clock
+        # the memoized probe: (mesh key) -> (probe, operand, its series)
+        self._probe_key = None
+        self._probe = None
         self._lock = threading.Lock()
         self._mem: Dict[Tuple[str, str], float] = {}
         self._samples = 0
@@ -91,6 +133,13 @@ class DevMemSampler:
         except Exception:  # noqa: BLE001 — the ticker must outlive a driver error
             with self._lock:
                 self._errors += 1
+            return
+        if self._halo_enabled:
+            try:
+                self._probe_halo()
+            except Exception:  # noqa: BLE001 — a probe must not kill the tick
+                with self._lock:
+                    self._errors += 1
 
     def memory_total(self, kind: str = "in_use") -> float:
         """Summed bytes across devices for one kind — the telemetry-ring
@@ -98,6 +147,48 @@ class DevMemSampler:
         with self._lock:
             mem = dict(self._mem)
         return sum(v for (_, k), v in mem.items() if k == kind)
+
+    # -- halo probe ------------------------------------------------------
+
+    def _serving_mesh(self):
+        """(mesh, boundary) of the first live engine on more than one shard
+        of one process, or (None, None): a one-device engine exchanges with
+        itself, nothing worth timing."""
+        mgr = self._manager
+        if mgr is None:
+            return None, None
+        from mpi_tpu_torch.obs.profile import _live_engines
+
+        for e in _live_engines(mgr):
+            mesh = getattr(e, "mesh", None)
+            if mesh is not None and mesh.size > 1 and not mesh.multiprocess:
+                return mesh, getattr(e.config, "boundary", "periodic")
+        return None, None
+
+    def _probe_halo(self) -> None:
+        mesh, boundary = self._serving_mesh()
+        if mesh is None:
+            return
+        import torch
+
+        from mpi_tpu_torch.parallel.mesh import AXES
+        from mpi_tpu_torch.parallel.step import make_halo_probe
+
+        key = (mesh.dims, boundary,
+               tuple(str(d) for row in mesh.devices for d in row))
+        if key != self._probe_key:
+            n = HALO_PROBE_TILE
+            operand = [[torch.zeros((n, n), dtype=torch.uint8, device=d)
+                        for d in row] for row in mesh.devices]
+            fn = make_halo_probe(mesh, boundary)
+            # warmed outside the timed window: the first exchange pays the
+            # allocator's first blocks, not the halo's time
+            time_probe(fn, operand, mesh.local_devices())
+            label = "x".join(str(mesh.shape[a]) for a in AXES)
+            self._probe_key = key
+            self._probe = (fn, operand, self.halo_hist.series(mesh=label))
+        fn, operand, series = self._probe
+        series.observe(time_probe(fn, operand, mesh.local_devices()))
 
     # -- readouts --------------------------------------------------------
 

@@ -91,9 +91,10 @@ def ghost_depths(dims, i: int, j: int, radius_rows: int, radius_cols: int,
 
 def exchange_halo(shards: Shards, radius: int, boundary: str,
                   axes=AXES, drop_dead: bool = False, mesh=None) -> Shards:
-    """Every (h, w) shard → (h+2r, w+2r) with its ghost ring filled.  Rows
-    phase then columns phase on the row-extended arrays → corners
-    correct."""
+    """Every (h, w) shard → (h+2r, w+2r) with its ghost ring filled (a
+    (B, h, w) batch of boards a shard → (B, h+2r, w+2r), every board's
+    ring in the same copies).  Rows phase then columns phase on the
+    row-extended arrays → corners correct."""
     return exchange_halo_rc(shards, radius, radius, boundary, axes,
                             drop_dead=drop_dead, mesh=mesh)
 
@@ -114,7 +115,10 @@ def exchange_halo_rc(shards: Shards, radius_rows: int, radius_cols: int,
     the row and column neighbours, and each corner from the diagonal
     neighbour, which is the block the reference's columns phase carries
     over from the row-extended array.  The ppermutes are recorded as the
-    reference's two phases issue them.
+    reference's two phases issue them.  A shard may carry a leading board
+    axis, (B, h, w): each block then copies every board's slab at once,
+    and a recorded slab keeps that axis in front, as a ppermute under the
+    reference's ``vmap`` over boards carries it.
 
     ``mesh``: a mesh whose shards sit on several ranks
     (``Mesh.multiprocess``); ``shards`` then holds None in the place of
@@ -139,8 +143,9 @@ def exchange_halo_rc(shards: Shards, radius_rows: int, radius_cols: int,
     fwd_c, bwd_c, left, right = _ghost_sources(mj, periodic)
     local = [(i, j) for i in range(mi) for j in range(mj)
              if shards[i][j] is not None]
-    # every shard of a mesh has one shape
-    h0, w0 = shards[local[0][0]][local[0][1]].shape
+    # every shard of a mesh has one shape; a batch of boards leads it
+    lead = tuple(shards[local[0][0]][local[0][1]].shape[:-2])
+    h0, w0 = shards[local[0][0]][local[0][1]].shape[-2:]
 
     def depths(i, j):  # (top, bottom, left, right) ghosts of shard (i, j)
         if not drop_dead:
@@ -164,26 +169,27 @@ def exchange_halo_rc(shards: Shards, radius_rows: int, radius_cols: int,
                 yield 3 * bi + bj, si, sj, dst_r, dst_c, src_r, src_c
 
     if mi > 1:
-        record_exchange(axes[0], fwd_r, (rr, w0))
-        record_exchange(axes[0], bwd_r, (rr, w0))
+        record_exchange(axes[0], fwd_r, lead + (rr, w0))
+        record_exchange(axes[0], bwd_r, lead + (rr, w0))
     if mj > 1:
         t, b, _, _ = depths(0, 0)
-        record_exchange(axes[1], fwd_c, (t + h0 + b, rc))
-        record_exchange(axes[1], bwd_c, (t + h0 + b, rc))
+        record_exchange(axes[1], fwd_c, lead + (t + h0 + b, rc))
+        record_exchange(axes[1], bwd_c, lead + (t + h0 + b, rc))
     received = {}
     if mesh is not None and mesh.multiprocess:
         received = _remote_blocks(shards, mesh, blocks)
     out = [[None] * mj for _ in range(mi)]
     for i, j in local:
         x = shards[i][j]
-        h, w = x.shape
+        h, w = x.shape[-2:]
         t, b, l, r = depths(i, j)
         W = l + w + r
         if r:
             W += -W % width_multiple
-        ext = torch.empty((t + h + b, W), dtype=x.dtype, device=x.device)
+        ext = torch.empty(lead + (t + h + b, W), dtype=x.dtype,
+                          device=x.device)
         for blk, si, sj, dst_r, dst_c, src_r, src_c in blocks(i, j):
-            dst = ext[dst_r, dst_c]
+            dst = ext[..., dst_r, dst_c]
             if not dst.numel():
                 continue
             if si is None or sj is None:
@@ -191,9 +197,10 @@ def exchange_halo_rc(shards: Shards, radius_rows: int, radius_cols: int,
             elif (i, j, blk) in received:
                 dst.copy_(received[i, j, blk], non_blocking=True)
             else:
-                dst.copy_(shards[si][sj][src_r, src_c], non_blocking=True)
+                dst.copy_(shards[si][sj][..., src_r, src_c],
+                          non_blocking=True)
         if W > l + w + r:
-            ext[:, l + w + r:].zero_()
+            ext[..., l + w + r:].zero_()
         out[i][j] = ext
     return out
 
@@ -206,7 +213,8 @@ def _remote_blocks(shards: Shards, mesh, blocks) -> dict:
 
     mi, mj = mesh.dims
     n = mi * mj
-    dtype = next(s for row in shards for s in row if s is not None).dtype
+    first = next(s for row in shards for s in row if s is not None)
+    dtype, lead = first.dtype, tuple(first.shape[:-2])
     sends, recvs, keys = [], [], []
     for i in range(mi):
         for j in range(mj):
@@ -215,13 +223,13 @@ def _remote_blocks(shards: Shards, mesh, blocks) -> dict:
                 if si is None or sj is None:
                     continue
                 src_owner = mesh.owner(si, sj)
-                shape = (_extent(dst_r), _extent(dst_c))
+                shape = lead + (_extent(dst_r), _extent(dst_c))
                 if src_owner == dst_owner or 0 in shape:
                     continue
                 tag = ((si * mj + sj) * n + i * mj + j) * 9 + blk
                 if src_owner == mesh.rank:
                     sends.append((dst_owner, tag,
-                                  shards[si][sj][src_r, src_c]))
+                                  shards[si][sj][..., src_r, src_c]))
                 elif dst_owner == mesh.rank:
                     recvs.append((src_owner, tag, shape, dtype))
                     keys.append((i, j, blk))

@@ -186,6 +186,26 @@ def make_mesh(
     return Mesh(rows, tuple(axis_names))
 
 
+def mesh_over(shape: Tuple[int, int],
+              devices: Optional[Sequence[torch.device]] = None,
+              device=None) -> Mesh:
+    """The one-process mesh of ``shape`` that a serving session or a tuning
+    run builds its engine on.  (1, 1) is ``device`` itself (the card when
+    None).  A larger shape spans ``devices``, by default every device of
+    ``device``'s kind (every card, or the CPU's virtual devices); a list
+    that names one device several times gives virtual shards of it, and a
+    smaller shape a prefix, as the CPU's virtual devices do."""
+    dev = torch.device("cuda" if device is None else device)
+    shape = (int(shape[0]), int(shape[1]))
+    if devices is None or shape == (1, 1):
+        # raises when the card is asked for and absent
+        every = visible_devices(dev.type)
+        devices = [dev] if shape == (1, 1) else every
+    elif len(set(devices)) == 1:
+        devices = list(devices)[:shape[0] * shape[1]]
+    return make_mesh(shape, devices=devices, platform=dev.type)
+
+
 def world_mesh(shape: Tuple[int, int], processes: int, rank: int,
                devices: Sequence[torch.device],
                axis_names: Tuple[str, str] = AXES) -> Mesh:

@@ -13,22 +13,24 @@ with the true periodic row wrap, whose middle 2d columns are then exact
 (``evolve_band``, the trapezoid argument), and written over the kernel's
 output by word masking (``stitch_band``).
 
-On the device the band is stepped by kernel K2 in one launch
-(:func:`step_band`): the (H, 4d) strip with a periodic boundary, whose
-middle 2d columns after k generations depend only on the strip's own
-columns, so the column wrap never reaches them and they equal
-``evolve_band``'s.  Every piece takes a leading board axis, so a batch of
-padded boards stitches in the same few launches as one board.
+On the device the band is stepped by kernel K2, one launch for each
+chunk of at most ⌊16/r⌋ generations (:func:`step_band`): the (H, 4d)
+strip with a periodic boundary, whose middle 2d columns after k
+generations depend only on the strip's own columns, so the column wrap
+never reaches them and they equal ``evolve_band``'s.  Every piece takes a
+leading board axis, so a batch of padded boards stitches in the same few
+launches as one board.
 
 On a mesh (:func:`make_mesh_seam_stepper`) the strip's words lie in the
 shards that hold them, the last and the first shard column when the tiles
 are wider than the band: each pass gathers those word columns from every
 row of shards into one thin packed block on the first shard's device,
 extracts the strip from it, steps it by K2 and stitches the exact columns
-back into the same shards.  Under a process group those shards may sit on
-several ranks: the strip's words travel to one rank, the owner of shard
-(0, mj-1), which steps the band and sends the stitched words back to
-their owners (:func:`_gather_words_group`, :func:`_scatter_words_group`).
+back into the same shards; shards that carry a board axis stitch every
+board in the same few launches.  Under a process group those shards may
+sit on several ranks: the strip's words travel to one rank, the owner of
+shard (0, mj-1), which steps the band and sends the stitched words back
+to their owners (:func:`_gather_words_group`, :func:`_scatter_words_group`).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch
 
 from mpi_tpu_torch.config import WORD
 from mpi_tpu_torch.models.rules import Rule
-from mpi_tpu_torch.ops.cuda_stencil import cuda_dense_step
+from mpi_tpu_torch.ops.cuda_stencil import MAX_DEPTH, cuda_dense_step
 from mpi_tpu_torch.ops.stencil import apply_rule, counts_from_padded
 from mpi_tpu_torch.utils.hashinit import i32_bits
 from mpi_tpu_torch.utils.segmenting import segmented_evolve
@@ -114,13 +116,27 @@ def evolve_band(band: torch.Tensor, rule: Rule, k: int) -> torch.Tensor:
     return band
 
 
+def band_chunks(rule: Rule, k: int) -> list:
+    """The gens of each K2 launch that steps the band k generations: chunks
+    of ⌊16/r⌋ (K2's deepest halo, ``cuda_stencil.MAX_DEPTH``) and the
+    rest."""
+    top = max(1, MAX_DEPTH // rule.radius)
+    full, rem = divmod(k, top)
+    return [top] * full + ([rem] if rem else [])
+
+
 def step_band(band: torch.Tensor, rule: Rule, k: int) -> torch.Tensor:
     """k generations of the strip (..., H, 4d) by kernel K2 with a periodic
-    boundary, one launch for every board: its middle 2d columns equal
-    :func:`evolve_band`'s (the rest differ and are never read).  A strip
-    narrower than K2's 256-column tile runs K2's narrow instance, which
-    loads and steps only the columns it needs."""
-    return cuda_dense_step(band, rule, "periodic", gens=k)
+    boundary, in chunks of at most ⌊16/r⌋ generations (:func:`band_chunks`),
+    each one launch for every board: the strip is stepped as a torus, so
+    the chunks compose to the k-generation torus step and its middle 2d
+    columns equal :func:`evolve_band`'s (the rest differ and are never
+    read).  A mesh keeps the bit-sliced engine while k·r <= 31, past K2's
+    16.  A strip narrower than K2's 256-column tile runs K2's narrow
+    instance, which loads and steps only the columns it needs."""
+    for g in band_chunks(rule, k):
+        band = cuda_dense_step(band, rule, "periodic", gens=g)
+    return band
 
 
 def _blend_cols(packed: torch.Tensor, dense: torch.Tensor, cols) -> None:
@@ -195,12 +211,14 @@ def seam_plan(C: int, d: int, device: str):
 
 def _gather_words(shards, words, tile_words: int) -> torch.Tensor:
     """(H, len(words)) packed block of the global word columns ``words``,
-    every row of shards stacked, on the first shard's device."""
+    every row of shards stacked, on the first shard's device; (B, H,
+    len(words)) for shards that carry a board axis."""
     dev = shards[0][0].device
     return torch.cat([
-        torch.cat([row[w // tile_words][:, w % tile_words:w % tile_words + 1]
-                   .to(dev, non_blocking=True) for w in words], dim=1)
-        for row in shards], dim=0)
+        torch.cat([row[w // tile_words][..., w % tile_words:
+                                        w % tile_words + 1]
+                   .to(dev, non_blocking=True) for w in words], dim=-1)
+        for row in shards], dim=-2)
 
 
 def _scatter_words(shards, block: torch.Tensor, words,
@@ -209,10 +227,10 @@ def _scatter_words(shards, block: torch.Tensor, words,
     shards' word columns, in place."""
     r0 = 0
     for row in shards:
-        h = row[0].shape[0]
+        h = row[0].shape[-2]
         for i, w in enumerate(words):
             dst = row[w // tile_words]
-            dst[:, w % tile_words] = block[r0:r0 + h, i].to(
+            dst[..., w % tile_words] = block[..., r0:r0 + h, i].to(
                 dst.device, non_blocking=True)
         r0 += h
 
@@ -331,7 +349,7 @@ def make_mesh_seam_stepper(inner, rule: Rule, C: int, K: int,
 
     def local(shards, k):
         d = k * r
-        tw = shards[0][0].shape[1]
+        tw = shards[0][0].shape[-1]
         words, word, bit, stitch = seam_plan(C, d,
                                               str(shards[0][0].device))
         src = _gather_words(shards, words, tw)

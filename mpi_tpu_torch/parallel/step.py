@@ -33,6 +33,12 @@ exchanged halo, each by the kernel on its band, and written over the
 interior's invalid fringe.  The grid is bit-identical to the plain
 body's; its launches are five a shard a pass instead of one.
 
+A shard may be a (B, h, w) batch of boards (``MeshEngine.step_batched``,
+the serve layer's coalesced rounds): the exchange fills every board's
+ghosts in the same copies and each window is one launch for all B boards,
+since K1-K3 take a board axis, so a batched pass launches as many kernels
+as a solo one.
+
 Under a process group (``Mesh.multiprocess``) a grid holds this rank's
 shards only, None in every other rank's place; a pass steps the local
 shards, and the exchange brings the ghosts the other ranks hold
@@ -124,12 +130,13 @@ class _Local:
         global column unit ``first_col`` (a word, or a cell when dense)."""
         if not self.packed:
             return self._launch(x, k, None)
-        live, limit = _mask_pad_cols(first_col, x.shape[1], self.col_limit)
-        if live == x.shape[1]:
+        live, limit = _mask_pad_cols(first_col, x.shape[-1], self.col_limit)
+        if live == x.shape[-1]:
             return self._launch(x, k, limit)
         out = torch.zeros_like(x)
         if live:
-            out[:, :live] = self._launch(x[:, :live].contiguous(), k, limit)
+            out[..., :live] = self._launch(x[..., :live].contiguous(), k,
+                                           limit)
         return out
 
 
@@ -165,10 +172,10 @@ def _stepper(mesh: Mesh, boundary: str, local: _Local,
                                mesh=mesh)
         out = [[None] * dims[1] for _ in range(dims[0])]
         for i, j in shards_here:
-            h, w = shards[i][j].shape
+            h, w = shards[i][j].shape[-2:]
             t, _, l, _ = ghost_depths(dims, i, j, dr, dc, periodic)
             y = local(ext[i][j], k, j * w - l)
-            out[i][j] = y[t:t + h, l:l + w]
+            out[i][j] = y[..., t:t + h, l:l + w]
         return out
 
     def body_overlap(shards, k):
@@ -177,34 +184,35 @@ def _stepper(mesh: Mesh, boundary: str, local: _Local,
         # independent of the exchange below; rows [d, h-d) and columns
         # [dc, w-dc) of each are exact
         out = [[None if s is None else local(s.contiguous(), k,
-                                             j * s.shape[1])
+                                             j * s.shape[-1])
                 for j, s in enumerate(row)] for row in shards]
         ext = exchange_halo_rc(shards, dr, dc, boundary, axes,
                                drop_dead=True, width_multiple=width_multiple,
                                mesh=mesh)
         for i, j in shards_here:
-            h, w = shards[i][j].shape
+            h, w = shards[i][j].shape[-2:]
             t, _, l, _ = ghost_depths(dims, i, j, dr, dc, periodic)
             x, q = ext[i][j], out[i][j]
             c0 = j * w - l
             # edge bands from the exchanged halo, full cross extent so
             # corners are exact; every kept cell lies d from each side
             # of its band that is not the global edge
-            top = local(x[:t + 3 * dr], k, c0)
-            q[:dr] = top[t:t + dr, l:l + w]
+            top = local(x[..., :t + 3 * dr, :].contiguous(), k, c0)
+            q[..., :dr, :] = top[..., t:t + dr, l:l + w]
             s0 = max(0, t + h - 3 * dr)
-            bot = local(x[s0:], k, c0)
-            q[h - dr:] = bot[t + h - dr - s0:t + h - s0, l:l + w]
-            left = local(x[:, :l + bu].contiguous(), k, c0)
-            q[:, :dc] = left[t:t + h, l:l + dc]
+            bot = local(x[..., s0:, :].contiguous(), k, c0)
+            q[..., h - dr:, :] = bot[..., t + h - dr - s0:t + h - s0,
+                                     l:l + w]
+            left = local(x[..., :l + bu].contiguous(), k, c0)
+            q[..., :dc] = left[..., t:t + h, l:l + dc]
             wr = min(bu, l + w)
             e0 = l + w - wr
-            right = local(x[:, e0:].contiguous(), k, c0 + e0)
-            q[:, w - dc:] = right[t:t + h, wr - dc:wr]
+            right = local(x[..., e0:].contiguous(), k, c0 + e0)
+            q[..., w - dc:] = right[..., t:t + h, wr - dc:wr]
         return out
 
     def local_step(shards, k):
-        h, w = first_shard(shards).shape
+        h, w = first_shard(shards).shape[-2:]
         if fits(h, w, k):
             return body_overlap(shards, k)
         return body_exchange_all(shards, k)
@@ -334,7 +342,7 @@ def _packed_stepper(mesh, rule, boundary, axes, K, overlap, pad_bits,
 
     def pass_(shards, k):
         # the col_limit follows the shards' width, known at the first pass
-        tw = first_shard(shards).shape[1]
+        tw = first_shard(shards).shape[-1]
         if tw not in passes:
             local = _Local(kernel, rule, chunk, packed=True,
                            col_limit=_packed_col_limit(mesh, tw, pad_bits))

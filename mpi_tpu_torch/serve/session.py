@@ -102,9 +102,6 @@ _SPEC_KEYS = {
 }
 
 
-# the one device a session's plan spans (the port runs one device)
-MESH_SHAPE = (1, 1)
-
 
 def _span(obs, name, **fields):
     """A trace span when observability is on, a no-op context otherwise —
@@ -178,11 +175,6 @@ def _parse_spec(spec: dict):
         overlap=bool(spec.get("overlap", False)),
         sparse_tile=int(spec.get("sparse_tile", 0)),
     )
-    if mesh is not None and mesh[0] * mesh[1] > 1:
-        raise ConfigError(
-            f"mesh {mesh[0]}x{mesh[1]}: serving on a device mesh is "
-            f"ROADMAP item 19, serving and tuning on a mesh (sessions run on "
-            f"one device, mesh 1x1)")
     return config, segments
 
 
@@ -340,10 +332,19 @@ class SessionManager:
     the fault-tolerance machinery: the state store, the fault injector,
     the per-signature breakers (in the cache), and the degradation path.
 
-    One device, ``device`` (the GPU when None; tests pass ``"cpu"``, which
-    steps the kernels' plain versions): every cuda session's engine is
-    built there.  ``shutdown`` stops the manager's threads (the dispatch
-    loop, running watchdog workers) and keeps the state dir's records.
+    ``device`` is the kind of device the cuda sessions run on (the GPU
+    when None; tests pass ``"cpu"``, which steps the kernels' plain
+    versions), ``devices`` the devices a session's mesh may span: by
+    default every card, or one device on the CPU.  A list that names one
+    card several times gives virtual shards of it, as the reference's
+    virtual devices, and a smaller mesh takes a prefix of it.  A session
+    runs on its spec's ``mesh``, or on ``choose_mesh_shape`` of the
+    manager's device count (the reference's rule), so 1x1 on one card and
+    on the CPU; on the CPU a spec's mesh of up to 8 shards runs on the
+    virtual CPU devices (``parallel/mesh.py:make_mesh``).  A mesh that
+    does not fit is refused with the reference's ``make_mesh`` message.
+    ``shutdown`` stops the manager's threads (the dispatch loop, running
+    watchdog workers) and keeps the state dir's records.
 
     ``batching=False`` (or ``batch_window_ms=0`` with no concurrency)
     steps every request solo; engine-backed steps otherwise route through
@@ -371,7 +372,7 @@ class SessionManager:
                  obs=None,
                  tune_cache=None,
                  defer_restore: bool = False,
-                 device=None):
+                 device=None, devices=None):
         self.obs = obs                  # mpi_tpu_torch.obs.Obs or None (off)
         # autotuned-plan application is OPT-IN: a TuneCache (or a path to
         # one) makes every cuda create consult the cache on a compile miss;
@@ -382,6 +383,14 @@ class SessionManager:
             tune_cache = TuneCache(tune_cache)
         self.tune_cache = tune_cache
         self.device = device
+        # the devices a session's mesh may span, as given (None: every
+        # card, or the CPU's one device, resolved by ``devices``)
+        if devices is not None:
+            import torch
+
+            devices = [torch.device(d) for d in devices]
+        self._given_devices = devices
+        self._devices = devices
         self._workers = set()           # running watchdog workers
         self.cache = cache if cache is not None else EngineCache()
         self.batcher = (
@@ -687,11 +696,27 @@ class SessionManager:
         info["cache"] = self.cache.stats()
         return info
 
+    @property
+    def devices(self) -> list:
+        """The devices a session's mesh may span: those the manager was
+        given, else every card (one device on the CPU)."""
+        if self._devices is None:
+            from mpi_tpu_torch.backends.cuda import resolve_device
+            from mpi_tpu_torch.parallel.mesh import visible_devices
+
+            dev = resolve_device(self.device)
+            self._devices = ([dev] if dev.type == "cpu"
+                             else visible_devices("cuda"))
+        return self._devices
+
     def _create_cuda(self, config: GolConfig, segments,
                      initial=None) -> Session:
         from mpi_tpu_torch.backends.cuda import build_engine
+        from mpi_tpu_torch.parallel.mesh import choose_mesh_shape, mesh_over
 
-        sig = plan_signature(config, MESH_SHAPE, segments)
+        mesh_shape = tuple(config.mesh_shape
+                           or choose_mesh_shape(len(self.devices)))
+        sig = plan_signature(config, mesh_shape, segments)
         if not self.cache.breaker_allows(sig):
             # quarantined plan: never hand a fresh board to a sick engine
             if not self._may_degrade(sig):
@@ -705,8 +730,10 @@ class SessionManager:
         # REQUESTED plan's, so a cached winner costs no extra compiles and
         # hit sessions share the tuned engine
         engine, hit = self.cache.get_or_build(
-            sig, lambda: build_engine(config, device=self.device,
-                                      tune=self.tune_cache))
+            sig, lambda: build_engine(
+                config, mesh=mesh_over(mesh_shape, self._given_devices,
+                                       self.device),
+                tune=self.tune_cache))
         if self.faults is not None:
             # idempotent: cached engines get the same hook re-installed
             engine.fault_hook = self.faults.engine_hook

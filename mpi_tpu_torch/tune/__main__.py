@@ -11,8 +11,9 @@ Modes (exit codes: 0 clean, 1 findings, 2 internal error):
   missing cache file is clean: no entries, nothing stale;
 * ``--list``: dump the cache entries.
 
-``--mesh`` is accepted as ``1x1`` only: tuning on a mesh is ROADMAP queue 1
-item 19.
+``--mesh MIxMJ`` tunes on that mesh (default: ``choose_mesh_shape`` of
+every card, or 1x1 on the CPU, whose meshes run on its virtual devices);
+the key and the cache entry carry the shape, as the reference's do.
 """
 
 from __future__ import annotations
@@ -33,8 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--boundary", default="periodic",
                    choices=("periodic", "dead"))
     p.add_argument("--mesh", default=None, metavar="MIxMJ",
-                   help="device mesh: 1x1 only (tuning on a mesh is ROADMAP "
-                   "item 19)")
+                   help="device mesh (default: auto)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cpu probes the kernels' plain versions")
     p.add_argument("--seed", type=int, default=0)
@@ -89,16 +89,13 @@ def main(argv=None) -> int:
         except ValueError:
             print(f"bad --mesh {args.mesh!r} (want MIxMJ)", file=sys.stderr)
             return 2
-        if mesh != (1, 1):
-            print(f"--mesh {args.mesh}: tuning on a device mesh is "
-                  f"ROADMAP queue 1 item 19, serving and tuning on a mesh",
-                  file=sys.stderr)
-            return 2
+    else:
+        mesh = None
     try:
         config = GolConfig(
             rows=args.rows, cols=args.cols, steps=0, seed=args.seed,
             rule=rule_from_name(args.rule), boundary=args.boundary,
-            backend="cuda", mesh_shape=(1, 1) if args.mesh else None)
+            backend="cuda", mesh_shape=mesh)
         res = tune_plan(config, device=args.device, steps=args.steps,
                         reps=args.reps, settle=args.settle,
                         cache=cache, include_batch=args.batch,

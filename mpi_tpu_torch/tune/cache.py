@@ -35,7 +35,8 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 from mpi_tpu_torch.config import (
-    ConfigError, GolConfig, SIGNATURE_FIELDS, apply_plan, validate_size,
+    ConfigError, GolConfig, SIGNATURE_FIELDS, apply_plan, validate_mesh,
+    validate_size,
 )
 from mpi_tpu_torch.models.rules import Rule, _intervals, rule_from_name
 
@@ -134,24 +135,29 @@ def validate_plan(config: GolConfig, mesh_shape: Tuple[int, int],
                   plan: dict, platform: str = "cuda") -> GolConfig:
     """``config`` with ``plan`` applied, under the rules the build path
     runs: ``apply_plan``'s, the ghost ring's size on the one device
-    (``validate_size``; tuning on a mesh is ROADMAP item 19), and a
-    ``blocks`` tile's on the engine the plan lands on, for the platform's
-    device.
+    (``validate_size``) or the shards' on a mesh (``validate_mesh``, the
+    reference's feasibility rule), and a ``blocks`` tile's on the engine
+    the plan lands on, for the platform's device.
     Raises :class:`ConfigError`."""
-    if tuple(mesh_shape) != (1, 1):
-        raise ConfigError(f"mesh {tuple(mesh_shape)}: tuning on a device "
-                          f"mesh is ROADMAP queue 1 item 19")
+    mesh_shape = tuple(int(v) for v in mesh_shape)
     tuned = apply_plan(config, plan)
-    validate_size(tuned.rows, tuned.cols,
-                  tuned.rule.radius * tuned.comm_every)
+    ghost = tuned.rule.radius * tuned.comm_every
+    if mesh_shape == (1, 1):
+        validate_size(tuned.rows, tuned.cols, ghost)
+    else:
+        validate_mesh(tuned.rows, tuned.cols, mesh_shape, ghost)
     if plan.get("blocks") is not None:
         import torch
 
-        from mpi_tpu_torch.backends.cuda import check_blocks, plan_engine
+        from mpi_tpu_torch.backends.cuda import (
+            check_blocks, plan_engine, plan_mesh_engine,
+        )
 
         device = torch.device("cpu" if platform.startswith("cpu:")
                               else "cuda")
-        check_blocks(tuned, plan_engine(tuned)[0], device, plan["blocks"])
+        kind = (plan_engine(tuned)[0] if mesh_shape == (1, 1)
+                else plan_mesh_engine(tuned, *mesh_shape)[0])
+        check_blocks(tuned, kind, device, plan["blocks"])
     return tuned
 
 

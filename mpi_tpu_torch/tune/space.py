@@ -15,8 +15,11 @@ The search space is the knobs the port already has:
 
 Feasibility is judged by the rules the build path runs
 (:func:`~mpi_tpu_torch.tune.cache.validate_plan`: ``apply_plan``, then
-``GolConfig.__post_init__``, the ghost ring's size on the one device, and
-a tile's screen): the space enumerates, the config rules decide.  The
+``GolConfig.__post_init__``, the ghost ring's size on the one device or
+the shards' on a mesh (``validate_mesh``), and a tile's screen): the space
+enumerates, the config rules decide.  On a mesh it proposes what the
+reference's does there: comm_every (and the batch hint), no sparse tile
+and no CTA tile.  The
 default plan is always candidate 0: the incumbent every bound is measured
 against and the parity reference every winner must match bit for bit.
 """

@@ -23,9 +23,17 @@ the board, and the card counts the dense pass.
 
 Blessing, before a winner is persisted: a final board bit-identical to
 the default plan's output and, on small boards, to the serial numpy
-oracle (``backends/serial_np.py:evolve_np``).  The reference's second
-check, the halo slabs of a sharded step, applies off mesh (1, 1) only:
-tuning on a mesh is ROADMAP item 19.
+oracle (``backends/serial_np.py:evolve_np``); and on a mesh, for a plan
+with comm_every > 1, the reference's halo-slab contract
+(:func:`_slab_depths_ok`): every slab one pass of the candidate exchanges
+is one of ``parallel/halo.py:expected_slab_depths`` deep, read off the
+launch verifier's recorder (``analysis/ir/harness.py:Recorder``) where
+the reference walks a jaxpr for its ppermutes.
+
+A mesh is the config's ``mesh_shape``, or ``choose_mesh_shape`` of the
+devices given (every card, or one device on the CPU), as the reference
+picks its mesh; ``devices`` may name one card several times, for virtual
+shards of it.
 
 Kernel variants (CTA tiles) are built once, all together, before the
 sweep (``ops/_build.py:build_rules``, one nvcc process per variant).
@@ -160,6 +168,34 @@ def _card_ops_per_cell(engine, depth: int, cells: int) -> Optional[float]:
     return ops_per_cell_detail([card], cells)[0]
 
 
+def _slab_depths_ok(engine, grid, depth: int) -> Tuple[bool, str]:
+    """The winner-side ir-collective bless: one step of ``depth``
+    generations of ``grid`` under the launch verifier's recorder, and
+    every halo slab it exchanged must be one of the depths
+    ``expected_slab_depths(radius, comm_every, packed)`` allows (its
+    thinner side, as the reference reads a ppermute's operand)."""
+    from mpi_tpu_torch.analysis.ir.checks import bad_slabs
+    from mpi_tpu_torch.analysis.ir.harness import Recorder
+    from mpi_tpu_torch.parallel.halo import expected_slab_depths
+
+    cfg = engine.config
+    allowed = expected_slab_depths(cfg.rule.radius, cfg.comm_every,
+                                   engine.bitpacked)
+    try:
+        _, step = Recorder().record(
+            lambda: engine.step(grid, depth), grid[0][0],
+            lambda g: g[0][0], sync_debug=False,
+            shards=[t for row in grid for t in row])
+    except Exception as e:  # noqa: BLE001 — report, don't crash the tuner
+        return False, f"slab record failed: {type(e).__name__}: {e}"
+    bad = bad_slabs(step.exchanges, allowed)
+    if bad:
+        ex, thin = bad[0]
+        return False, (f"halo slab {ex.shape} depth {thin} not in "
+                       f"{sorted(allowed)}")
+    return True, ""
+
+
 def _measure(engine, board: np.ndarray, steps: int, reps: int,
              batch: int = 0, settle: int = 0) -> Tuple[float, np.ndarray]:
     """(best wall seconds, fetched final board) for ``steps`` generations:
@@ -236,7 +272,7 @@ def _prebuild(config: GolConfig, space: List[Candidate], device,
             f"{time.perf_counter() - t0:.1f} s")
 
 
-def tune_plan(config: GolConfig, *, device=None,
+def tune_plan(config: GolConfig, *, device=None, devices=None,
               board: Optional[np.ndarray] = None,
               steps: int = 64, reps: int = 2, settle: int = 0,
               cache: Optional[TuneCache] = None,
@@ -246,7 +282,9 @@ def tune_plan(config: GolConfig, *, device=None,
               min_speedup: float = 1.05,
               verbose: bool = False) -> TuneResult:
     """Search the plan space for ``config`` on ``device`` (the card when
-    None); persist the blessed winner.
+    None); persist the blessed winner.  ``devices``: those a mesh may
+    span (default every card, or one device on the CPU, whose meshes run
+    on its virtual devices).
 
     ``board`` defaults to the config's seeded grid (every probe starts
     from the same state).  ``settle`` advances untimed generations before
@@ -255,10 +293,21 @@ def tune_plan(config: GolConfig, *, device=None,
     The winner is recorded in ``cache`` (when given) even when the default
     plan wins: an empty-plan entry tells the next run that tuning already
     happened."""
-    from mpi_tpu_torch.backends.cuda import build_engine
+    from mpi_tpu_torch.backends.cuda import build_engine, resolve_device
+    from mpi_tpu_torch.parallel.mesh import (
+        choose_mesh_shape, mesh_over, visible_devices,
+    )
 
-    mesh_shape = (1, 1)
+    dev = resolve_device(device)
+    if devices is None and dev.type == "cuda":
+        devices = visible_devices("cuda")
+    mesh_shape = tuple(config.mesh_shape or choose_mesh_shape(
+        1 if devices is None else len(devices)))
     cells = config.cells
+
+    def build(cfg, blocks=None):
+        return build_engine(cfg, mesh=mesh_over(mesh_shape, devices, device),
+                            blocks=blocks)
 
     def log(msg):
         if verbose:
@@ -268,7 +317,7 @@ def tune_plan(config: GolConfig, *, device=None,
     space = cands if cands is not None else candidates(
         config, mesh_shape, include_batch=include_batch, device=device)
     # -- incumbent: the default plan, measured first -----------------------
-    default_eng = build_engine(config, device=device)
+    default_eng = build(config)
     if board is None:
         board = default_eng.fetch(default_eng.init_grid())
     wall, default_out = _measure(default_eng, board, steps, reps,
@@ -322,9 +371,8 @@ def tune_plan(config: GolConfig, *, device=None,
             continue
         try:
             eng = default_eng if batch and not cand.plan.get("blocks") \
-                and tuned_cfg == config else build_engine(
-                    tuned_cfg, device=device,
-                    blocks=cand.plan.get("blocks"))
+                and tuned_cfg == config else build(
+                    tuned_cfg, blocks=cand.plan.get("blocks"))
             opc = None
             if not cand.data_dependent and not batch:
                 opc = _card_ops_per_cell(eng, tuned_cfg.comm_every, cells)
@@ -351,6 +399,15 @@ def tune_plan(config: GolConfig, *, device=None,
                 res.probes.append(probe)
                 log(f"{cand.label}: PARITY FAILURE — discarded")
                 continue
+            if tuned_cfg.comm_every > 1 and mesh_shape != (1, 1):
+                ok, why = _slab_depths_ok(
+                    eng, eng.init_grid(initial=board), tuned_cfg.comm_every)
+                if not ok:
+                    probe.status = "failed"
+                    probe.detail = why
+                    res.probes.append(probe)
+                    log(f"{cand.label}: IR contract failure ({why})")
+                    continue
             res.probes.append(probe)
             if opc:
                 demonstrated = max(demonstrated, tput * opc)

@@ -26,9 +26,13 @@ from mpi_tpu_torch.config import ConfigError, validate_mesh
 from mpi_tpu_torch.parallel import dist
 from mpi_tpu_torch.parallel.halo import exchange_halo_rc
 from mpi_tpu_torch.parallel.mesh import make_mesh, world_mesh
+from mpi_tpu_torch.backends.serial_np import evolve_np
+from mpi_tpu_torch.models.rules import rule_from_name
+from mpi_tpu_torch.utils.hashinit import init_tile_np
 from mpi_tpu_torch.utils.timing import (
     PhaseTimer, gather_process_durations, write_reports,
 )
+from torch_groups import assert_same_files, reference, run_group
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -235,3 +239,83 @@ def test_two_rank_exchange_equals_one_process(halo_ranks, k):
         for j in range(shape[1]):
             np.testing.assert_array_equal(halo_ranks[f"{k}/{i}/{j}"],
                                           want[i][j].numpy())
+
+
+# -- the seam band past K2's depth, across a 2-rank group ------------------
+
+@pytest.mark.parametrize("argv", [
+    ["39", "90", "4", "11", "--rule", "bosco", "--comm-every", "4",
+     "--seed", "47"],
+    ["40", "140", "4", "11", "--rule", "R2,B8-12,S9-14", "--comm-every",
+     "9", "--seed", "47"],
+], ids=["bosco-k4", "r2-k9"])
+def test_two_rank_seam_band_deeper_than_k2(tmp_path, argv):
+    """A padded periodic 1x2 mesh over 2 ranks with comm_every x r in
+    17..31: the band the owner of shard (0, 1) steps goes in chunks of
+    16/r, and the group's files equal the reference's single-process run
+    and its final board the oracle's."""
+    port, ref = str(tmp_path / "port"), str(tmp_path / "ref")
+    run_group(argv + ["--save", "--quiet", "--mesh", "1x2"], 2, port)
+    name = f"run-{argv[0]}x{argv[1]}-11-s47"
+    reference(argv + ["--save"], "1x2", name, ref)
+    assert_same_files(ref, port)
+    rows, cols = int(argv[0]), int(argv[1])
+    from mpi_tpu_torch import golio
+
+    np.testing.assert_array_equal(
+        golio.assemble(port, name, 11),
+        evolve_np(init_tile_np(rows, cols, 47), 11,
+                  rule_from_name(argv[5]), "periodic"))
+
+
+# -- no stacked batch across a 2-rank group --------------------------------
+
+BATCH_WORKER = """
+import sys
+from mpi_tpu_torch.backends.cuda import build_engine
+from mpi_tpu_torch.config import ConfigError, GolConfig
+from mpi_tpu_torch.parallel import dist
+from mpi_tpu_torch.parallel.mesh import make_mesh
+coordinator, rank = sys.argv[1:3]
+dist.initialize(coordinator, 2, int(rank), device="cpu")
+try:
+    mesh = make_mesh((1, 2), platform="cpu")
+    assert mesh.multiprocess
+    eng = build_engine(GolConfig(rows=24, cols=90, steps=1), mesh=mesh)
+    grid = eng.init_grid(seed=3)
+    for call in (lambda: eng.stack_grids([grid, grid]),
+                 lambda: eng.init_grids(seeds=[1, 2]),
+                 lambda: eng.step_batched(grid, 1)):
+        try:
+            call()
+        except ConfigError as e:
+            assert "process group" in str(e), e
+        else:
+            raise AssertionError("a batch ran across the group")
+    assert eng.fetch_batched(grid) is None
+    assert eng.batched_step_calls == 0
+    print("refused")
+finally:
+    dist.shutdown()
+"""
+
+
+def test_two_rank_group_refuses_a_stacked_batch():
+    """Under a process group the seam has no board axis: ``stack_grids``,
+    ``init_grids`` and ``step_batched`` raise ConfigError on every rank
+    before any launch, and ``fetch_batched`` answers None, on a padded
+    periodic 1x2 mesh whose group seam path a batch would misread."""
+    port = free_port("127.0.0.1")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", BATCH_WORKER, f"127.0.0.1:{port}", str(r)],
+        env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert out.strip() == "refused"

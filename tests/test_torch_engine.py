@@ -149,16 +149,27 @@ def test_config_serves_what_earlier_slices_refused(kw, engine):
     np.testing.assert_array_equal(port.run_cuda(cfg, device="cpu"), want)
 
 
-def test_config_refuses_other_slices():
-    # meshes and overlap run since the single-process mesh slice; serving,
-    # batches and tuning on a mesh are item 19
+def test_config_refuses_other_slices(tmp_path):
+    # meshes and overlap run since the single-process mesh slice, and
+    # batches, windows and tuned plans on a mesh since serving on a mesh;
+    # sparse stepping on a mesh stays refused, as the reference refuses it
     cfg = GolConfig(rows=64, cols=64, steps=1, mesh_shape=(2, 1))
     eng = port.build_engine(cfg, device="cpu")
-    for call in (lambda: eng.step_batched(None, 1),
-                 lambda: eng.fetch_window(None, 0, 0, 1, 1),
-                 lambda: port.build_engine(cfg, device="cpu", tune="x.json")):
-        with pytest.raises(ConfigError, match="item 19"):
-            call()
+    batch = eng.step_batched(eng.init_grids(seeds=[2, 3]), 1)
+    for board, seed in zip(eng.fetch_batched(batch), (2, 3)):
+        np.testing.assert_array_equal(board, evolve_np(
+            init_tile_np(64, 64, seed), 1, LIFE, "periodic"))
+    g = eng.init_grid(seed=2)
+    np.testing.assert_array_equal(eng.fetch_window(g, 30, 5, 4, 50),
+                                  init_tile_np(64, 64, 2)[30:34, 5:55])
+    tuned = port.build_engine(cfg, device="cpu",
+                              tune=str(tmp_path / "x.json"))
+    assert tuned.tuned_plan is None and (tuned.mi, tuned.mj) == (2, 1)
+    with pytest.raises(ConfigError, match="sparse_tile requires a "
+                       "single-device mesh"):
+        port.build_engine(GolConfig(rows=64, cols=64, steps=1,
+                                    mesh_shape=(2, 1), sparse_tile=32),
+                          device="cpu")
     GolConfig(rows=64, cols=64, steps=1, overlap=True)
     GolConfig(rows=64, cols=64, steps=1, mesh_shape=(1, 1))
     GolConfig(rows=64, cols=80, steps=1, rule=BOSCO, backend="serial")

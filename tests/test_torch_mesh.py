@@ -76,6 +76,10 @@ CASES = [
     ((1, 2), "life", "periodic", 64, 80, 3, False, 7),
     ((1, 2), R2, "periodic", 64, 80, 2, False, 5),
     ((2, 4), "life", "periodic", 32, 32, 1, False, 4),
+    # the seam band deeper than K2's 16 cells (comm_every x r in 17..31),
+    # stepped in chunks of 16/r: Bosco at comm_every 4, R2 at 9
+    ((1, 2), "bosco", "periodic", 39, 90, 4, False, 11),
+    ((1, 2), R2, "periodic", 40, 140, 9, False, 11),
 ]
 
 
@@ -216,6 +220,40 @@ def test_padded_dead_stepper_equals_the_reference(K):
     np.testing.assert_array_equal(interop.shards_to_numpy(g), np.asarray(h))
     np.testing.assert_array_equal(interop.shards_to_numpy(ev(g, 2 * K + 1)),
                                   np.asarray(jev(h, 2 * K + 1)))
+
+
+@pytest.mark.parametrize("rule,rows,cols,k,seed", [
+    ("bosco", 39, 90, 4, 47), (R2, 40, 140, 9, 47)], ids=["bosco", "r2"])
+def test_seam_band_deeper_than_k2_steps_in_chunks(monkeypatch, rule, rows,
+                                                   cols, k, seed):
+    """A padded periodic mesh keeps the bit-sliced engine while
+    comm_every x r <= 31, past K2's 16: the seam band steps in chunks of
+    16/r generations (``parallel/seam.py:band_chunks``), and the grid
+    equals the reference engine's and the oracle's after 11 steps."""
+    from mpi_tpu_torch.parallel import seam
+
+    calls = []
+    step_band_k2 = seam.cuda_dense_step
+
+    def counting(x, rule, boundary, gens=1, **kw):
+        calls.append(gens)
+        return step_band_k2(x, rule, boundary, gens=gens, **kw)
+
+    monkeypatch.setattr(seam, "cuda_dense_step", counting)
+    case = ((1, 2), rule, "periodic", rows, cols, k, False, 11)
+    eng, ref, _, _ = _build_both(case, seed=seed)
+    assert eng.kind == "ltl" and eng.seam
+    g = eng.step(eng.init_grid(), 11)
+    r = eng.config.rule.radius
+    top = 16 // r
+    want_calls = []
+    for kp in [k] * (11 // k) + [11 % k]:
+        want_calls += [top] * (kp // top) + ([kp % top] if kp % top else [])
+    assert calls == want_calls and max(calls) * r <= 16 < k * r
+    np.testing.assert_array_equal(eng.fetch(g), ref.fetch(ref.step(
+        ref.init_grid(), 11)))
+    np.testing.assert_array_equal(eng.fetch(g), evolve_np(
+        init_tile_np(rows, cols, seed), 11, eng.config.rule, "periodic"))
 
 
 def test_every_local_launch_is_the_engines_kernel(monkeypatch):

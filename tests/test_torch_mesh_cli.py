@@ -29,7 +29,7 @@ from mpi_tpu_torch.analysis.ir.matrix import cell_by_id
 from mpi_tpu_torch.backends.serial_np import evolve_np
 from mpi_tpu_torch.cli import main as port_main
 from mpi_tpu_torch.config import ConfigError, GolConfig, validate_mesh
-from mpi_tpu_torch.models.rules import rule_from_name
+from mpi_tpu_torch.models.rules import LIFE, rule_from_name
 from mpi_tpu_torch.parallel import halo
 from mpi_tpu_torch.parallel import step as port_step
 from mpi_tpu_torch.parallel.mesh import make_mesh
@@ -69,6 +69,26 @@ def test_cli_mesh_files_equal_the_reference(tmp_path, extra):
     mi, mj = (int(v) for v in extra[1].split("x"))
     assert golio.read_master(golio.master_path(p, "r"))[4] == mi * mj
     assert golio.iteration_tile_pids(p, "r", 8) == list(range(mi * mj))
+
+
+def test_cli_seam_band_deeper_than_k2_like_the_reference(tmp_path):
+    """Bosco at comm_every 4 on a padded periodic 1x2 mesh: 20 cells of
+    seam band depth, past K2's 16, stepped in chunks; the files equal the
+    reference CLI's (the master alone without snapshots, then every tile
+    with a snapshot each 4 generations) and the final board the
+    oracle's."""
+    for gap in ("0", "4"):
+        j, p = _both_cli(tmp_path / gap, ["20", "84", gap, "4", "--rule",
+                                          "bosco", "--mesh", "1x2",
+                                          "--comm-every", "4"])
+        assert _files(j) == _files(p) and _files(p)
+        for f in _files(j):
+            assert filecmp.cmp(os.path.join(j, f), os.path.join(p, f),
+                               shallow=False), f
+    np.testing.assert_array_equal(
+        golio.load_snapshot(p, "r", 4),
+        evolve_np(init_tile_np(20, 84, 0), 4, rule_from_name("bosco"),
+                  "periodic"))
 
 
 def test_cli_padded_mesh_drops_the_pad_shards_like_the_reference(tmp_path):
@@ -237,12 +257,23 @@ def test_resolve_auto_on_a_mesh():
 
 
 def test_serving_on_a_mesh_is_item_19():
+    """Serving on a mesh (item 19) runs: a 2x2 session on the CPU's
+    virtual devices steps to the oracle's board, a CPU manager's default
+    stays 1x1, and a mesh past the 8 virtual devices is refused with the
+    reference's make_mesh message."""
     mgr = SessionManager(device="cpu")
     try:
-        with pytest.raises(ConfigError, match="item 19"):
-            mgr.create({"rows": 64, "cols": 64, "mesh": "2x2"})
-        sid = mgr.create({"rows": 64, "cols": 64, "mesh": "1x1"})["id"]
-        assert sid
+        sid = mgr.create({"rows": 64, "cols": 64, "mesh": "2x2"})["id"]
+        mgr.step(sid, 3)
+        grid, gen, _ = mgr.snapshot_array(sid)
+        assert gen == 3 and mgr.get(sid).engine.mesh.dims == (2, 2)
+        np.testing.assert_array_equal(grid, evolve_np(
+            init_tile_np(64, 64, 0), 3, LIFE, "periodic"))
+        one = mgr.create({"rows": 64, "cols": 64})["id"]
+        assert (mgr.get(one).engine.mi, mgr.get(one).engine.mj) == (1, 1)
+        with pytest.raises(ValueError, match=r"mesh shape \(3, 3\) needs 9 "
+                           r"devices, have 8"):
+            mgr.create({"rows": 96, "cols": 96, "mesh": "3x3"})
     finally:
         mgr.shutdown()
 

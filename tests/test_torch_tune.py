@@ -410,8 +410,16 @@ def test_runner_tunes_on_the_cpu_and_refuses_meshes(tmp_path, capsys):
     assert out["oracle"] == "serial-numpy" and out["probed"] >= 1
     assert out["key"].split("|")[1] == "cpu:cpu:1"
     assert tune_main(["--check", "--cache", path]) == 0
-    assert tune_main(["--mesh", "2x1", "--device", "cpu"]) == 2
-    assert "item 19" in capsys.readouterr().err
+    capsys.readouterr()
+    assert tune_main(["--mesh", "2x1", "--device", "cpu", "--rows", "64",
+                      "--cols", "64", "--steps", "2", "--reps", "1",
+                      "--quiet", "--cache", path]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["mesh"] == [2, 1] and "|mesh2x1|" in out["key"]
+    assert tune_main(["--check", "--cache", path]) == 0
+    assert tune_main(["--mesh", "3x3", "--device", "cpu", "--rows", "96",
+                      "--cols", "96", "--quiet", "--cache", path]) == 2
+    assert "needs 9 devices, have 8" in capsys.readouterr().err
     assert tune_main(["--mesh", "banana", "--device", "cpu"]) == 2
     assert tune_main(["--device", "cpu", "--rows", "0", "--cache", path]) \
         == 2

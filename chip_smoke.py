@@ -180,22 +180,32 @@ Phases; any failure exits non-zero before the result line:
    dir, repairs what the SIGKILL tore and verifies it clean;
 10. the plan tuner (``mpi_tpu_torch/tune``) on the card: every CTA tile
    ``tune.candidates`` proposes for Life, Bosco and R2,B10-13,S8-12 at
-   2048² and 4096² (K1 ``[rows, words a lane]``, K3 ``[rows]``) built in
-   one ``build_rules`` call per kernel and held against the plain version
-   exactly (both boundaries at gens 1 and the deepest depth, a batch, a
-   padded grid); each tile timed against the default build in turns at
-   2048² and 65536², with its bound; ``tune_plan`` over the reference's
-   tuning regime (2048² Life, one blinker in ~1% of the 128² tiles, 200
-   generations after 32, best of 2), every measured probe's board equal
-   to the default plan's; the cache reloaded from disk by a fresh
-   ``SessionManager(tune_cache=...)`` (the best measured candidate written
-   in when the default won), whose first session's engine holds the
-   plan, whose second same-spec session compiles nothing, both boards
-   equal to the default plan's and the plain version's; and ``python -m
-   mpi_tpu_torch.cli 4096 4096 0 64 --profile DIR`` on the card, whose
-   Chrome trace holds K1 records equal to the K1 launches the process
-   counted (the trace rule, one retake).  The speedup is printed, not
-   judged;
+   2048² and 4096², the paired (comm_every, blocks) plane included, and
+   for Bosco at comm_every 3 (K1 ``[rows, words a lane]``, K3 ``[rows]``,
+   K2 ``[rows, cols]``, and K2's larger tiles 256x256, 128x512 and
+   512x128, which the tuner's cap leaves out), built in one call per
+   kernel (``build_rules`` for K1 and K3, ``build_variants`` for K2's
+   variants of the common library, beside the others; each K2 variant's
+   registers and spills) and held against the plain version
+   exactly (both boundaries
+   at gens 1 and the deepest depth; K1 and K3 on a ragged grid, a batch
+   and a padded grid; K2 on a 16-aligned 2048² grid, ragged widths below
+   and above the tile's narrow threshold, and a batch); each tile timed
+   against the default build in turns at 2048² and 65536² (K2: 2048² and
+   16384² Bosco at gens 3 and 1), with its bound; ``tune_plan`` over the
+   reference's tuning regime (2048² Life, one blinker in ~1% of the 128²
+   tiles, 200 generations after 32, best of 2), every measured probe's
+   board equal to the default plan's; the cache reloaded from disk by a
+   fresh ``SessionManager(tune_cache=...)`` (the best measured candidate
+   written in when the default won), whose first session's engine holds
+   the plan, whose second same-spec session compiles nothing, both
+   boards equal to the default plan's and the plain version's; the same
+   for 2048² Bosco at comm_every 3 with the fastest K2 tile written in,
+   every K2 launch of its sessions on that variant's library; and
+   ``python -m mpi_tpu_torch.cli 4096 4096 0 64 --profile DIR`` on the
+   card, whose Chrome trace holds K1 records equal to the K1 launches the
+   process counted (the trace rule, one retake).  The speedup is printed,
+   not judged;
 11. static analysis (``mpi_tpu_torch/analysis``) on the card: ``python -m
    mpi_tpu_torch.analysis`` as a subprocess must exit 0 (no finding, no
    unused suppression); the launch-level verifier's whole matrix
@@ -317,6 +327,7 @@ import tempfile
 import threading
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -4304,6 +4315,9 @@ def phase9_cluster(card: str) -> None:
 # builds and holds against the plain versions
 TUNE_SIZES = (2048, 4096)
 TUNE_RULES = (("life", LIFE), ("bosco", BOSCO), ("r2", R2))
+# and one dense plan, whose own (unpaired) plane of K2 tiles the tuner
+# proposes: PERF.md's dense Bosco path at comm_every 3 (K2 in passes of 3)
+TUNE_DENSE = ("bosco", BOSCO, 3)
 # the reference's tuning regime (bench.py:2101-2118): 2048² Life with one
 # blinker in each of ~1% of the 128² tiles, 200 timed generations after 32
 # untimed ones, best of 2
@@ -4312,32 +4326,49 @@ TUNE_REGIME = (2048, 128, 0.01, 200, 2, 32)
 PROFILE_RUN = ("4096", "4096", "0", "64")
 # the application check: generations a session steps
 TUNE_SESSION_STEPS = 40
+# the engine kinds whose kernels take a CTA tile, by kernel id
+TILE_KINDS = {"bit": "K1", "ltl": "K3", "dense": "K2"}
+# K2 tiles larger than the default, which the screen passes at Bosco's
+# depth 3 but the tuner's cap leaves out (it keeps the tiles that add
+# CTAs): built, held exact and timed beside the proposed ones, because a
+# larger tile loads fewer halo cells per owned cell
+K2_LARGER_TILES = ([256, 256], [128, 512], [512, 128])
 
 
 def _tile_variants() -> dict:
     """Every CTA tile ``tune.candidates`` proposes on the card for
-    TUNE_RULES at TUNE_SIZES, as {engine kind: {rule label: [tile, ...]}}
-    (kind "bit" is K1, "ltl" K3)."""
-    out = {"bit": {}, "ltl": {}}
-    for size in TUNE_SIZES:
-        for label, rule in TUNE_RULES:
-            config = GolConfig(rows=size, cols=size, steps=0, rule=rule)
-            for cand in tune.candidates(config, (1, 1)):
-                tile = cand.plan.get("blocks")
-                if tile is None:
-                    continue
-                kind = backend.plan_engine(apply_plan(config, cand.plan))[0]
-                tiles = out[kind].setdefault(label, [])
-                if list(tile) not in tiles:
-                    tiles.append(list(tile))
+    TUNE_RULES at TUNE_SIZES (the paired (comm_every, blocks) plane
+    included) and for TUNE_DENSE, as {engine kind: {rule label: [tile,
+    ...]}} (kind "bit" is K1, "ltl" K3, "dense" K2)."""
+    out = {kind: {} for kind in TILE_KINDS}
+    label, rule, k = TUNE_DENSE
+    configs = [(lbl, GolConfig(rows=size, cols=size, steps=0, rule=r))
+               for size in TUNE_SIZES for lbl, r in TUNE_RULES]
+    configs += [(label, GolConfig(rows=size, cols=size, steps=0, rule=rule,
+                                  comm_every=k)) for size in TUNE_SIZES]
+    for lbl, config in configs:
+        for cand in tune.candidates(config, (1, 1)):
+            tile = cand.plan.get("blocks")
+            if tile is None:
+                continue
+            kind = backend.plan_engine(apply_plan(config, cand.plan))[0]
+            tiles = out[kind].setdefault(lbl, [])
+            if list(tile) not in tiles:
+                tiles.append(list(tile))
     return out
 
 
 def _variant_exact(rng, kind: str, rule, tile) -> tuple:
-    """(cases, max |variant - plain|) of one tile variant of K1 or K3: both
-    boundaries at gens 1 and the deepest depth on the tuner's grid (2048
-    rows, 64 words) and a ragged one (300 x 67 words), a batch of 3
-    boards, and a padded grid (``col_limit``)."""
+    """(cases, max |variant - plain|) of one tile variant of K1, K3 or K2.
+    K1 and K3: both boundaries at gens 1 and the deepest depth on the
+    tuner's grid (2048 rows, 64 words) and a ragged one (300 x 67 words),
+    a batch of 3 boards, and a padded grid (``col_limit``).  K2: both
+    boundaries at gens 1 and the deepest pass (⌊16/r⌋) on a 16-aligned
+    grid with interior tiles (2048²) and on ragged widths, not multiples
+    of 16, below and above the tile's narrow threshold (its width), and a
+    batch of 3 boards."""
+    if kind == "dense":
+        return _dense_variant_exact(rng, rule, tile)
     wrapper, plain, deepest = {
         "bit": (cuda_bit_step, bit_step_plain, 16),
         "ltl": (cuda_ltl_step, ltl_step_plain, max_gens(rule.radius)),
@@ -4364,18 +4395,54 @@ def _variant_exact(rng, kind: str, rule, tile) -> tuple:
     return cases + 2, err
 
 
+def _dense_variant_exact(rng, rule, tile) -> tuple:
+    defines = backend.BLOCK_DEFINES["dense"](tile)
+    cols = tile[1]
+
+    def variant(x, rule, boundary, gens, **kw):
+        return cuda_dense_step(x, rule, boundary, gens, defines=defines, **kw)
+
+    variant.__name__ = f"cuda_dense_step[{tile}]"
+    deepest = 16 // rule.radius
+    cases, err = 0, 0
+    for shape in ((2048, 2048), (300, 333), (300, 600), (300, cols - 5),
+                  (300, cols + 77)):
+        x = _cells(rng, shape)
+        for boundary in ("periodic", "dead"):
+            for gens in sorted({1, deepest}):
+                err = max(err, _compare(variant, dense_step_plain, x, rule,
+                                        boundary, gens))
+                cases += 1
+    err = max(err, _compare(variant, dense_step_plain,
+                            _cells(rng, (3, 130, cols + 21)), rule,
+                            "periodic", deepest))
+    return cases + 1, err
+
+
+def _k2_variant_registers(lib) -> list:
+    """The registers of a K2 variant's kernels, which may not spill."""
+    resources = _build.kernel_resources(lib)
+    if len(resources) != 14 or _spills(resources):
+        fail(f"K2 variant {lib.name}: expected 14 kernels without spills, "
+             f"got {resources}")
+    return sorted({r.get("registers") for r in resources})
+
+
 def _variant_times(card: str, variants: dict) -> list:
-    """Each tile variant against the default build, ms per pass in turns,
-    at 2048² and 65536²: K1 (Life) at gens 1 and 8, K3 at Bosco's gens 1
-    and R2's gens 1 and 4, with the bound of phase 4."""
+    """Each tile variant against the default build, ms per pass in turns:
+    K1 (Life) at gens 1 and 8 and K3 at Bosco's gens 1 and R2's gens 1
+    and 4, at 2048² and 65536²; K2 (the proposed tiles and
+    K2_LARGER_TILES) on Bosco at gens 3 and 1, at 2048² and the dense
+    path's 16384²; each with the bound of phase 4."""
     rows = []
     rules = dict(TUNE_RULES)
-    for size in (2048, FLAGSHIP):
+    packed = {kind: v for kind, v in variants.items() if kind != "dense"}
+    for size in (TUNE_SIZES[0], FLAGSHIP):
         x = init_packed(size, size, SEED, device="cuda")
         words = x.numel()
         out = torch.empty_like(x)
         t_bytes = 8 * words / HBM_BYTES_PER_S * 1e3
-        for kind, by_rule in variants.items():
+        for kind, by_rule in packed.items():
             wrapper = cuda_bit_step if kind == "bit" else cuda_ltl_step
             for label, tiles in by_rule.items():
                 rule = rules[label]
@@ -4385,28 +4452,48 @@ def _variant_times(card: str, variants: dict) -> list:
                     depths = sorted({1, max_gens(rule.radius)})
                     per_word = ltl_word_ops_lower(rule)
                 for gens in depths:
-                    fns = {"default": lambda w=wrapper, r=rule, g=gens:
-                           w(x, r, "periodic", g, out=out)}
-                    for tile in tiles:
-                        d = backend.BLOCK_DEFINES[kind](tile)
-                        fns["x".join(map(str, tile))] = (
-                            lambda w=wrapper, r=rule, g=gens, d=d:
-                            w(x, r, "periodic", g, out=out, defines=d))
-                    ms = _turns(fns)
                     t_ops = gens * words * per_word / INT32_OPS_PER_S * 1e3
-                    row = {"phase": "tile_times", "card": card,
-                           "kernel": "K1" if kind == "bit" else "K3",
-                           "rule": label, "grid": [size, size],
-                           "gens": gens, "ms": ms,
-                           "fastest": min(ms, key=lambda n: sum(ms[n])),
-                           "bound_ms": max(t_bytes, t_ops),
-                           "bound_by": ("bytes" if t_bytes >= t_ops
-                                        else "operations")}
-                    emit(row)
-                    rows.append(row)
+                    rows.append(_tile_row(card, kind, wrapper, tiles, x, out,
+                                          [size, size], rule, label, gens,
+                                          t_bytes, t_ops))
+        del x, out
+        torch.cuda.empty_cache()
+    tiles = sorted({tuple(t) for by in variants["dense"].values() for t in by})
+    tiles += [tuple(t) for t in K2_LARGER_TILES]
+    label, rule, k = TUNE_DENSE
+    for size in (TUNE_SIZES[0], DENSE):
+        x = init_dense(size, size, SEED, device="cuda")
+        out = torch.empty_like(x)
+        t_bytes = 2 * x.numel() / HBM_BYTES_PER_S * 1e3
+        for gens in (k, 1):
+            t_ops = gens * x.numel() * K2_CELL_OPS / INT32_OPS_PER_S * 1e3
+            rows.append(_tile_row(card, "dense", cuda_dense_step,
+                                  [list(t) for t in tiles], x, out,
+                                  [size, size], rule, label, gens, t_bytes,
+                                  t_ops))
         del x, out
         torch.cuda.empty_cache()
     return rows
+
+
+def _tile_row(card, kind, wrapper, tiles, x, out, grid, rule, label, gens,
+              t_bytes, t_ops) -> dict:
+    """The default build and each tile variant of one kernel on ``x``, in
+    turns, as one ``tile_times`` row."""
+    fns = {"default": lambda: wrapper(x, rule, "periodic", gens, out=out)}
+    for tile in tiles:
+        d = backend.BLOCK_DEFINES[kind](tile)
+        fns["x".join(map(str, tile))] = (
+            lambda d=d: wrapper(x, rule, "periodic", gens, out=out,
+                                defines=d))
+    ms = _turns(fns)
+    row = {"phase": "tile_times", "card": card, "kernel": TILE_KINDS[kind],
+           "rule": label, "grid": grid, "gens": gens, "ms": ms,
+           "fastest": min(ms, key=lambda n: sum(ms[n])),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    emit(row)
+    return row
 
 
 def _tune_board() -> np.ndarray:
@@ -4482,6 +4569,93 @@ def _tune_apply(card: str, path: str, config: GolConfig, res) -> dict:
             "boards_equal_to_default_and_plain": 2}
 
 
+def _tune_dense(card: str, variants: dict, times: list) -> dict:
+    """A K2 tile forced into a tune cache for TUNE_DENSE at 2048² (the
+    fastest variant of the 2048² turns at its depth), reloaded by a fresh
+    ``SessionManager``: the first session's engine is K2 holding the tile,
+    every K2 launch of both sessions goes to the variant's library and
+    none to the default build's, a second same-spec session compiles
+    nothing, and both boards equal the default plan's and the plain
+    version's."""
+    label, rule, k = TUNE_DENSE
+    size, n = TUNE_SIZES[0], TUNE_SESSION_STEPS
+    row = next(r for r in times if r["kernel"] == "K2"
+               and r["grid"] == [size, size] and r["gens"] == k)
+    named = {"x".join(map(str, t)): list(t)       # the proposed tiles
+             for by in variants["dense"].values() for t in by}
+    tile = named[min(named, key=lambda nm: sum(row["ms"][nm]))]
+    plan = {"blocks": tile}
+    macros = backend.BLOCK_DEFINES["dense"](tile)
+    config = GolConfig(rows=size, cols=size, steps=0, rule=rule,
+                       comm_every=k, seed=SEED)
+    loads = {"variant": 0, "other_variant": 0, "default": 0}
+    load_variant, load_default = (_build.load_variant_library,
+                                  _build.load_library)
+
+    def counted_variant(defines):
+        loads["variant" if defines == macros else "other_variant"] += 1
+        return load_variant(defines)
+
+    def counted_default():
+        loads["default"] += 1
+        return load_default()
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "tune_cache.json")
+        cache = tune.TuneCache(path)
+        cache.record(config, (1, 1), plan, {"forced_by": "chip_smoke.py"})
+        cache.save()
+        mgr = SessionManager(tune_cache=path, batching=False,
+                             async_enabled=False)
+        _build.load_variant_library = counted_variant
+        _build.load_library = counted_default
+        try:
+            _reset_launches()
+            spec = {"rows": size, "cols": size, "rule": label,
+                    "comm_every": k, "seed": SEED}
+            s1 = mgr.create(spec)
+            engine = mgr.get(s1["id"]).engine
+            if (engine.kernel_id != "K2" or engine.blocks != tile
+                    or engine.tuned_plan != plan
+                    or s1.get("tuned_plan") != plan):
+                fail(f"the tuned dense session's engine is "
+                     f"{engine.kernel_id} with tile {engine.blocks} and "
+                     f"plan {engine.tuned_plan}; the cache holds {plan}")
+            mgr.step(s1["id"], n)
+            compiles = engine.compile_count
+            s2 = mgr.create(spec)
+            mgr.step(s2["id"], n)
+            if (not s2["cache_hit"] or mgr.get(s2["id"]).engine is not engine
+                    or engine.compile_count != compiles):
+                fail(f"the second tuned dense session compiled: hit "
+                     f"{s2['cache_hit']}, compiles {compiles} -> "
+                     f"{engine.compile_count}")
+            torch.cuda.synchronize()
+            launches = _launches()
+            boards = [mgr.snapshot_array(s["id"])[0] for s in (s1, s2)]
+        finally:
+            _build.load_variant_library = load_variant
+            _build.load_library = load_default
+            mgr.shutdown()
+    if (not launches["K2"] or loads["variant"] != launches["K2"]
+            or loads["default"] or loads["other_variant"]):
+        fail(f"the tuned dense sessions launched K2 {launches['K2']} times, "
+             f"loading the libraries {loads}: every launch must take the "
+             f"tile's variant")
+    default = backend.build_engine(config)
+    want = default.fetch(default.step(default.init_grid(seed=SEED), n))
+    plain = _plain_final("dense", size, size, rule, n).cpu().numpy()
+    if not (np.array_equal(want, plain)
+            and all(np.array_equal(b, want) for b in boards)):
+        fail(f"the tuned dense sessions' boards differ from the default "
+             f"plan's or the plain version's (plan {plan})")
+    return {"plan": plan, "engine_kind": engine.kind,
+            "engine_blocks": engine.blocks, "k2_launches": launches["K2"],
+            "library_loads": loads, "first_compiles": compiles,
+            "second_compiles": 0, "generations": n,
+            "boards_equal_to_default_and_plain": 2}
+
+
 def _tune_profile(card: str) -> dict:
     """``python -m mpi_tpu_torch.cli ... --profile DIR`` on the card, as a
     subprocess that prints its wrappers' launch counts as it exits: the
@@ -4527,25 +4701,49 @@ def _tune_profile(card: str) -> dict:
 
 def phase10_tune(card: str, errs: dict) -> dict:
     """The plan tuner on the card: every CTA tile it can propose built in
-    one ``build_rules`` call per kernel and held against the plain
-    version, exact; each timed against the default build in turns; the
-    reference's tuning regime swept with every measured probe's parity;
-    the winner (or the best measured candidate) applied from disk by a
-    fresh ``SessionManager``; and the one-shot CLI's ``--profile``.
-    Returns the tile variants by kernel id."""
+    one call per kernel (``build_rules`` for K1 and K3, ``build_variants``
+    for K2) and held against the plain version, exact; each timed against
+    the default build in turns; the reference's tuning regime swept with
+    every measured probe's parity; the winner (or the best measured
+    candidate) applied from disk by a fresh ``SessionManager``; a K2 tile
+    applied the same way to dense Bosco; and the one-shot CLI's
+    ``--profile``.  Returns the tile variants by kernel id."""
     t_phase = time.perf_counter()
     variants = _tile_variants()
-    t0 = time.perf_counter()
     rules = dict(TUNE_RULES)
-    for kind, by_rule in variants.items():
-        todo = [(rules[label], backend.BLOCK_DEFINES[kind](tile))
-                for label, tiles in by_rule.items() for tile in tiles]
-        _build.build_rules(kind, [r for r, _ in todo], [d for _, d in todo])
-    build_s = time.perf_counter() - t0
+    if not all(variants.values()):
+        fail(f"the tuner proposed no tile for a kernel: {variants}")
+    build_s = {}
+    k2_tiles = [t for ts in variants["dense"].values() for t in ts]
+    k2_tiles += K2_LARGER_TILES
+
+    def timed(kid, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        build_s[kid] = time.perf_counter() - t0
+        return res
+
+    # K2's variants (nvcc of both common sources each) beside K1's and
+    # K3's (one rule header each), all on the host's cores at once
+    with ThreadPoolExecutor(1) as pool:
+        k2_build = pool.submit(
+            timed, "K2", _build.build_variants,
+            [backend.BLOCK_DEFINES["dense"](t) for t in k2_tiles])
+        for kind in ("bit", "ltl"):
+            by_rule = variants[kind]
+            timed(TILE_KINDS[kind], _build.build_rules, kind,
+                  [rules[label] for label, ts in by_rule.items()
+                   for _ in ts],
+                  [backend.BLOCK_DEFINES[kind](t)
+                   for ts in by_rule.values() for t in ts])
+        k2_libs = k2_build.result()
+    emit({"phase": "k2_variant_builds", "registers": {
+        "x".join(map(str, t)): _k2_variant_registers(lib)
+        for t, lib in zip(k2_tiles, k2_libs)}})
     rng = np.random.default_rng(SEED + 10)
     out = {}
     for kind, by_rule in variants.items():
-        kid = "K1" if kind == "bit" else "K3"
+        kid = TILE_KINDS[kind]
         cases, err = 0, 0
         for label, tiles in by_rule.items():
             for tile in tiles:
@@ -4553,15 +4751,23 @@ def phase10_tune(card: str, errs: dict) -> dict:
                 cases, err = cases + c, max(err, e)
         out[kid] = {lbl: ["x".join(map(str, t)) for t in tiles]
                     for lbl, tiles in by_rule.items()}
+        if kind == "dense":
+            for tile in K2_LARGER_TILES:
+                c, e = _variant_exact(rng, kind, TUNE_DENSE[1], tile)
+                cases, err = cases + c, max(err, e)
         emit({"phase": "variant_vs_plain", "kernel": kid, "cases": cases,
               "max_abs_err": err, "variants": out[kid],
-              "build_seconds_all_variants": build_s})
+              "not_proposed": (["x".join(map(str, t)) for t in
+                                K2_LARGER_TILES] if kind == "dense" else []),
+              "build_seconds_all_variants": build_s[kid]})
         errs[kid] = max(errs[kid], err)
         if err:
             fail(f"a {kid} tile variant disagrees with its plain version "
                  f"(tolerance: exact)")
     torch.cuda.synchronize()
-    _variant_times(card, variants)
+    times = _variant_times(card, variants)
+    emit({"phase": "tune_dense", "card": card,
+          **_tune_dense(card, variants, times)})
 
     size, _, _, steps, reps, settle = TUNE_REGIME
     config = GolConfig(rows=size, cols=size, steps=0, seed=SEED)
@@ -5896,7 +6102,7 @@ def main() -> int:
          "launches": launches["K2"], "max_abs_err": errs["K2"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": k2["library_ms"]},
+         "library_ms": k2["library_ms"], "tile_variants": tiles["K2"]},
         {"name": "K3 ltl_step", "route": "cuda",
          "source": "mpi_tpu_torch/csrc/bitltl.cu",
          "replaces": "mpi_tpu/ops/pallas_bitltl.py:264",

@@ -26,8 +26,8 @@ Guard regions are ``with <base>.<lockattr>:`` blocks plus lexical
 
 New serve-layer shared attributes MUST be added here (see
 MIGRATION.md); the fixture corpus pins the detection behavior.  The
-manifest lists the reference's classes only: the locks of the port's
-``cluster/node.py`` and ``admission/`` are not in it yet (ROADMAP).
+manifest lists the reference's classes only, as the reference's does:
+``cluster/node.py``'s and ``admission/``'s own locks are not in it.
 """
 
 from __future__ import annotations

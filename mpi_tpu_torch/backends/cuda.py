@@ -91,28 +91,26 @@ KERNELS = {
 }
 
 
-# engine -> the macros of its kernel's build with a given CTA tile, for the
-# engines whose kernel takes one (K2 lives in the common library: no tile)
+# engine -> the macros of its kernel's build with a given CTA tile
 BLOCK_DEFINES = {"bit": cuda_bitlife.block_defines,
-                 "ltl": cuda_bitltl.block_defines}
+                 "ltl": cuda_bitltl.block_defines,
+                 "dense": cuda_stencil.block_defines}
 
 
 def check_blocks(config: GolConfig, kind: str, device: torch.device,
                  blocks) -> None:
     """Raise :class:`ConfigError` unless the CTA tile ``blocks`` ([rows,
-    words a lane] for K1, [rows] for K3) can run ``config`` on engine
-    ``kind``: a tile is never quietly ignored, so K2, the host backends
-    and the CPU (whose plain versions have no tile) refuse one."""
+    words a lane] for K1, [rows] for K3, [rows, cols] for K2) can run
+    ``config`` on engine ``kind``: a tile is never quietly ignored, so the
+    host backends and the CPU (whose plain versions have no tile) refuse
+    one.  K2's is screened at the deepest pass the engine launches
+    (``deepest_pass``)."""
     if config.backend != "cuda":
         raise ConfigError(f"blocks {list(blocks)}: backend "
                           f"{config.backend!r} runs no kernel of the card")
     if device.type != "cuda":
         raise ConfigError(f"blocks {list(blocks)}: a CTA tile needs the "
                           f"card; the plain versions on the CPU have none")
-    if kind not in BLOCK_DEFINES:
-        raise ConfigError(f"blocks {list(blocks)}: kernel "
-                          f"{KERNELS[kind][0]} takes no CTA tile (K1 and K3 "
-                          f"do)")
     vals = [int(v) for v in blocks]
     if kind == "bit":
         ok = len(vals) == 2 and cuda_bitlife.blocks_ok(
@@ -121,14 +119,32 @@ def check_blocks(config: GolConfig, kind: str, device: torch.device,
                 f"{cuda_bitlife.BLOCK_ROWS}, words in "
                 f"{cuda_bitlife.BLOCK_WPL}, within "
                 f"{cuda_bitlife.SMEM_OPTIN_BYTES} bytes of shared memory")
-    else:
+    elif kind == "ltl":
         ok = len(vals) == 1 and cuda_bitltl.blocks_ok(
             vals[0], config.rule.radius, config.rows)
         want = (f"[rows], rows in {cuda_bitltl.BLOCK_ROWS}, within the "
                 f"kernel's shared memory")
+    else:
+        depth = deepest_pass(config, kind)
+        ok = len(vals) == 2 and cuda_stencil.blocks_ok(
+            vals[0], vals[1], config.rule.radius, depth, config.rows)
+        want = (f"[rows, cols], rows in {cuda_stencil.BLOCK_ROWS}, cols in "
+                f"{cuda_stencil.BLOCK_COLS}, within "
+                f"{cuda_stencil.SMEM_OPTIN_BYTES} bytes of shared memory "
+                f"at passes of {depth} generations of radius "
+                f"{config.rule.radius}")
     if not ok:
         raise ConfigError(f"blocks {vals}: kernel {KERNELS[kind][0]} takes "
                           f"{want}")
+
+
+def _tile_note(kernel_id: str, blocks, seam_band: bool) -> str:
+    """The note ``build_engine`` prints for a CTA tile."""
+    note = f"kernel {kernel_id} built with CTA tile {[int(v) for v in blocks]}"
+    if seam_band:
+        note += (" (the seam band keeps K2's default build: the tile is "
+                 "the engine's kernel's)")
+    return note
 
 
 def plan_pad_width(config: GolConfig, mj: int = 1) -> Tuple[int, int]:
@@ -252,6 +268,16 @@ def pass_depth(config: GolConfig, kind: Optional[str] = None) -> int:
         return min(config.comm_every,
                    cuda_stencil.MAX_DEPTH // config.rule.radius)
     return config.comm_every
+
+
+def deepest_pass(config: GolConfig, kind: str) -> int:
+    """Generations of the deepest pass engine ``kind`` launches for
+    ``config``: ``pass_depth``, or a sparse engine's dense chunks where
+    they are deeper (what a K2 tile's shared memory is screened at)."""
+    depth = pass_depth(config, kind)
+    if config.sparse_tile:
+        depth = max(depth, sparse_dense_depth(kind, config.rule))
+    return depth
 
 
 def sparse_dense_depth(kind: str, rule) -> int:
@@ -489,7 +515,7 @@ class Engine(ServeSurface):
         self.bitpacked = kind != "dense"
         self.kernel_id, self._kernel, _ = KERNELS[kind]
         # a CTA tile other than the default build's: every launch of the
-        # engine goes to that build of K1 or K3
+        # engine goes to that build of its kernel
         self.blocks = None if blocks is None else [int(v) for v in blocks]
         if self.blocks is not None:
             self._kernel = functools.partial(
@@ -895,9 +921,11 @@ def build_engine(config: GolConfig, device=None, depths=None, tune=None,
     path): a winner cached for this (device, requested plan) replaces the
     requested knobs before planning and is kept on ``Engine.tuned_plan``;
     None never reads a cache.  ``blocks``: the CTA tile of K1 ([rows,
-    words a lane]) or K3 ([rows]), a build variant of the kernel (the
-    tuner probes them; a cached winner's arrives through ``tune``); any
-    other route raises :class:`ConfigError`."""
+    words a lane]), K3 ([rows]) or K2 ([rows, cols]), a build variant of
+    the engine's kernel, which every launch of the engine takes (the
+    tuner probes them; a cached winner's arrives through ``tune``); the
+    seam band of a padded periodic grid keeps K2's default build.  The
+    CPU and the host backends raise :class:`ConfigError`."""
     if mesh is None and config.mesh_shape is not None \
             and tuple(config.mesh_shape) != (1, 1):
         from mpi_tpu_torch.parallel.mesh import make_mesh
@@ -950,8 +978,8 @@ def build_engine(config: GolConfig, device=None, depths=None, tune=None,
         depths = range(1, depth + 1)
     if blocks is not None:
         check_blocks(config, kind, dev, blocks)
-        notes.append(f"kernel {kernel_id} built with CTA tile "
-                     f"{[int(v) for v in blocks]}")
+        notes.append(_tile_note(kernel_id, blocks, pad_bits > 0 and
+                                config.boundary == "periodic"))
     if tuned_plan is not None:
         notes.append(f"autotuned plan applied: {tuned_plan} (tune cache "
                      f"winner for this signature)")
@@ -984,7 +1012,7 @@ def build_mesh_engine(config: GolConfig, mesh, depths=None, tune=None,
     ``tune`` and ``blocks`` as for :func:`build_engine`: a cached winner
     for this (device, requested plan, mesh shape) replaces the requested
     knobs before planning, and a CTA tile builds every shard window's
-    launch with that variant of K1 or K3."""
+    launch with that variant of K1, K3 or K2."""
     from mpi_tpu_torch.backends.cuda_mesh import MeshEngine, chunk_gens
     from mpi_tpu_torch.config import validate_mesh
 
@@ -1040,8 +1068,8 @@ def build_mesh_engine(config: GolConfig, mesh, depths=None, tune=None,
         check_blocks(config, kind, dev, blocks)
         kernel = functools.partial(kernel,
                                    defines=BLOCK_DEFINES[kind](blocks))
-        notes.append(f"kernel {kernel_id} built with CTA tile "
-                     f"{[int(v) for v in blocks]}")
+        notes.append(_tile_note(kernel_id, blocks, pad_bits > 0 and
+                                config.boundary == "periodic"))
     if tuned_plan is not None:
         notes.append(f"autotuned plan applied: {tuned_plan} (tune cache "
                      f"winner for this signature)")

@@ -32,12 +32,16 @@
 // row loop: 135 per 16 cells, chip_smoke.py phase 1), against 50-58 when a
 // lane took one byte cell and summed its windows from shared memory.
 //
-// Tiling: a CTA owns 128 rows x 256 columns and loads a halo of gens * r
-// rows and of 16 columns (the deepest halo) on either side, so generation g
-// computes a window that shrinks by r cells per side, and the last one
-// covers the owned tile.  A grid narrower than a tile (the seam band of a
-// padded periodic grid is 4d columns) runs its own instance, which loads
-// and steps only the W owned columns and their halo.  Cells stay bytes in two shared buffers.  A tile
+// Tiling: a CTA owns K2_ROWS x K2_COLS cells (128 x 256 unless the build
+// says otherwise: the tuner's tile variants, ops/_build.py) and loads a
+// halo of gens * r rows and of 16 columns (the deepest halo) on either
+// side, so generation g computes a window that shrinks by r cells per
+// side, and the last one covers the owned tile.  Shared memory is two
+// buffers of (K2_ROWS + 2 gens r) rows of 8 + (K2_COLS + 32) / 4 words.  A
+// grid narrower than a tile (W < K2_COLS; the seam band of a padded
+// periodic grid is 4d columns) runs its own instance, which loads and
+// steps only the W owned columns and their halo, so that threshold moves
+// with the tile's width.  Cells stay bytes in two shared buffers.  A tile
 // that lies inside the grid, where the width is a multiple of 16, moves in
 // 16-byte chunks with several loads in flight per thread; tiles at an edge
 // load byte by byte (wrapping, or zero beyond a dead edge).  Every byte a
@@ -61,8 +65,15 @@
 
 namespace {
 
-constexpr int kTileRows = 128;   // owned rows per CTA
-constexpr int kTileCols = 256;   // owned columns per CTA
+#ifndef K2_ROWS
+#define K2_ROWS 128
+#endif
+#ifndef K2_COLS
+#define K2_COLS 256
+#endif
+
+constexpr int kTileRows = K2_ROWS;   // owned rows per CTA
+constexpr int kTileCols = K2_COLS;   // owned columns per CTA
 constexpr int kThreads = 256;
 constexpr int kGroup = 4;        // words a thread owns per row
 constexpr int kPad = 4;          // zero words on either side of a tile row
@@ -70,10 +81,18 @@ constexpr int kMaxDepth = 16;    // gens * r
 // columns of halo on either side: the deepest halo, so every tile row
 // starts 16-byte aligned in the grid and in shared memory
 constexpr int kHaloCols = 16;
-constexpr int kCellWords = (kTileCols + 2 * kHaloCols) / 4;  // 72
+constexpr int kCellWords = (kTileCols + 2 * kHaloCols) / 4;  // 72 at 256
 constexpr int kStride = kPad + kCellWords + kPad;  // words per tile row
 constexpr int kChunks = kStride / 4;               // 16-byte chunks per row
+static_assert(kTileRows >= 1, "K2_ROWS must be positive");
+static_assert(kTileCols >= 16 && kTileCols % 16 == 0,
+              "K2_COLS must be a positive multiple of 16");
 static_assert(kStride % 4 == 0 && kCellWords % kGroup == 0, "tile layout");
+// every thread has a chunk column to load, and every word group of a row
+// a thread to step it
+static_assert(kChunks <= kThreads &&
+                  (2 * kHaloCols + kTileCols) / (4 * kGroup) + 1 <= kThreads,
+              "tile too wide for one CTA");
 
 struct DenseRule {
   uint32_t w[16];  // bit c of w[0..7]: born on c; of w[8..15]: stays on c
@@ -126,12 +145,12 @@ __device__ __forceinline__ void load_window(const uint32_t* row, int w,
   }
 }
 
-// One pass of a CTA.  NARROW (a grid narrower than one tile, W < 256,
+// One pass of a CTA.  NARROW (a grid narrower than one tile, W < K2_COLS,
 // such as the seam band of a padded periodic grid, 4d columns): only the
 // chunks and word groups that the W owned columns need are loaded and
-// stepped, where a full tile would compute all 256.  It is a kernel of its
-// own (dense_narrow_kernel) so that every other grid runs this body with
-// the tile width a constant.
+// stepped, where a full tile would compute all K2_COLS.  It is a kernel of
+// its own (dense_narrow_kernel) so that every other grid runs this body
+// with the tile width a constant.
 template <int R, bool NARROW>
 __device__ __forceinline__ void dense_step_body(
     const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int H, int W,

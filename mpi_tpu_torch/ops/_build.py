@@ -1,12 +1,18 @@
 """Build the port's CUDA kernels from ``mpi_tpu_torch/csrc`` at first use.
 
-Two kinds of library, both compiled by ``nvcc`` for Hopper (``sm_90a``)
+Three kinds of library, all compiled by ``nvcc`` for Hopper (``sm_90a``)
 with a plain C interface and loaded with ``ctypes``:
 
 * the common library (:func:`load_library`): every ``csrc/*.cu`` that is
   not built per rule, which is ``stencil.cu`` (kernel K2) and
   ``errors.cu`` (the error text), one nvcc process per source, all
   started together, linked into one shared library;
+* variants of the common library (:func:`load_variant_library`): the
+  same sources built with ``-D`` macros, which pick K2's CTA tile
+  (``K2_ROWS``, ``K2_COLS``; ``ops/cuda_stencil.py:block_defines``).  K2
+  reads its rule at run time, so a variant is keyed by the sources and
+  its macros, never by a rule; :func:`build_variants` builds many of
+  them in parallel nvcc processes, one a variant;
 * one library per rule (:func:`load_rule_library`) for the kernels that
   have the rule compiled in, :data:`PER_RULE`: ``"bit"`` is
   ``csrc/bitlife.cu`` (kernel K1, radius 1) and ``"ltl"`` is
@@ -19,8 +25,8 @@ with a plain C interface and loaded with ``ctypes``:
   host).
 
 Libraries land in ``build/mpi_tpu_torch/`` at the root of the checkout,
-named by a hash of what went into them (source, flags, and for a rule its
-canonical text, its generated header and its macros), so an edited source
+named by a hash of what went into them (sources, flags, macros, and for a
+rule its canonical text and its generated header), so an edited source
 or a new rule is built on the next run and an unchanged one is reused;
 rules with equal birth and survive sets share a library whatever their
 names.  Beside each, ``<library>.ptxas.txt`` keeps ptxas's report of its
@@ -130,13 +136,18 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    """Where the library built from the current sources lives."""
+def library_path(defines: Optional[dict] = None) -> Path:
+    """Where the common library built from the current sources lives; with
+    ``defines``, the variant built with those ``-D`` macros (the same
+    sources' hash and the macros: no rule)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libmpi_tpu_torch_{h.hexdigest()[:16]}.so"
+    if not defines:
+        return BUILD_DIR / f"libmpi_tpu_torch_{h.hexdigest()[:16]}.so"
+    h.update(repr(sorted(defines.items())).encode())
+    return BUILD_DIR / f"libmpi_tpu_torch_dense_{h.hexdigest()[:16]}.so"
 
 
 def ptxas_log(library: Path) -> Path:
@@ -242,31 +253,58 @@ def build_rules(kind: str, rules, defines: Defines = None,
     if todo:
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        jobs = jobs or os.cpu_count() or 1
-        queue, running, failed = list(todo.items()), [], []
-        while queue or running:
-            while queue and len(running) < jobs:
-                lib, (rule, name, text, macros) = queue.pop(0)
-                (BUILD_DIR / name).write_text(text)
-                tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-                cmd = [nvcc, *NVCC_FLAGS, f"-D{kernel.header_macro}={name}",
-                       *(f"-D{k}={v}" for k, v in sorted(macros.items())),
-                       f"-I{BUILD_DIR}", "-shared", "-o", str(tmp),
-                       str(kernel.source)]
-                running.append((lib, tmp, rule, _nvcc(cmd)))
-            lib, tmp, rule, proc = running.pop(0)
-            stdout, stderr = proc.communicate()
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                failed.append(f"nvcc failed ({proc.returncode}) on "
-                              f"{kernel.source.name} for {rule}:\n"
-                              f"{stderr}{stdout}")
-                continue
-            ptxas_log(lib).write_text(stdout + stderr)
-            os.replace(tmp, lib)
-        if failed:
-            raise BuildError("\n".join(failed))
+        cmds = []
+        for lib, (rule, name, text, macros) in todo.items():
+            (BUILD_DIR / name).write_text(text)
+            cmd = [nvcc, *NVCC_FLAGS, f"-D{kernel.header_macro}={name}",
+                   *(f"-D{k}={v}" for k, v in sorted(macros.items())),
+                   f"-I{BUILD_DIR}", "-shared", str(kernel.source)]
+            cmds.append((lib, cmd, f"{kernel.source.name} for {rule}"))
+        _run_all(cmds, jobs)
     return [lib for lib, *_ in parts]
+
+
+def build_variants(defines: Sequence[dict], jobs: int = 0) -> list:
+    """Build the variant of the common library for every set of macros in
+    ``defines`` that is not built yet (e.g. ``{"K2_ROWS": 64, "K2_COLS":
+    128}``), one nvcc process a variant (both sources, linked), ``jobs`` at
+    a time (default: one per CPU), and return their paths in order."""
+    paths = [library_path(d) for d in defines]
+    todo = {lib: d for d, lib in zip(defines, paths) if not lib.exists()}
+    if todo:
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        _run_all([(lib, [nvcc, *NVCC_FLAGS,
+                         *(f"-D{k}={v}" for k, v in sorted(d.items())),
+                         "-shared", *map(str, sources())],
+                   f"the common sources with {d}")
+                  for lib, d in todo.items()], jobs)
+    return paths
+
+
+def _run_all(todo: list, jobs: int = 0) -> None:
+    """Run each ``(library, nvcc command, what)`` of ``todo`` into a
+    temporary file, ``jobs`` at a time (default: one per CPU), and move it
+    to its library when it succeeds, its ptxas report beside it; raise
+    :class:`BuildError` with every failure's message."""
+    jobs = jobs or os.cpu_count() or 1
+    queue, running, failed = list(todo), [], []
+    while queue or running:
+        while queue and len(running) < jobs:
+            lib, cmd, what = queue.pop(0)
+            tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+            running.append((lib, tmp, what, _nvcc([*cmd, "-o", str(tmp)])))
+        lib, tmp, what, proc = running.pop(0)
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}) on {what}:\n"
+                          f"{stderr}{stdout}")
+            continue
+        ptxas_log(lib).write_text(stdout + stderr)
+        os.replace(tmp, lib)
+    if failed:
+        raise BuildError("\n".join(failed))
 
 
 def kernel_resources(library: Path) -> list:
@@ -299,7 +337,23 @@ def load_library() -> ctypes.CDLL:
     """The built common library with its C signatures declared (pointers
     and the stream as ``c_void_p``, so ctypes never truncates them to 32
     bits)."""
-    lib = ctypes.CDLL(str(build()))
+    return _dense_signatures(ctypes.CDLL(str(build())))
+
+
+_VARIANT_LIBS: dict = {}  # macros -> variant of the common library
+
+
+def load_variant_library(defines: dict) -> ctypes.CDLL:
+    """The variant of the common library built with the macros
+    ``defines`` (K2's CTA tile), built at first use and loaded once."""
+    key = tuple(sorted(defines.items()))
+    if key not in _VARIANT_LIBS:
+        _VARIANT_LIBS[key] = _dense_signatures(
+            ctypes.CDLL(str(build_variants([defines])[0])))
+    return _VARIANT_LIBS[key]
+
+
+def _dense_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gol_dense_step.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32,
                                    ctypes.POINTER(ctypes.c_uint), ptr]

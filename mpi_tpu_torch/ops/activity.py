@@ -38,8 +38,8 @@ the host reads the dilated active count once per phase decision, that is
 once after each sparse gather of ``g`` generations and after each probe
 (a dense chunk leaves an all-ones map, whose count needs no read).  Each
 read waits for the device, so the device idles while the host queues the
-next phase's launches; the sparse path is host-bound by design until the
-phases run as a CUDA graph (ROADMAP queue 2).
+next phase's launches; the sparse path is host-bound by design, as the
+phases do not run as a CUDA graph.
 
 Tiles are in array units: rows are cells, columns are words on the
 packed engines (T a multiple of 32) and cells on the dense engine.

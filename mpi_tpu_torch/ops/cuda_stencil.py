@@ -6,6 +6,10 @@ one read and one write of device memory, on one grid or on each board of
 a (B, H, W) batch in one launch.  The kernel is
 ``csrc/stencil.cu`` (its header says what bounds it and how it is tiled);
 ``ops/_build.py`` builds it.  Unlike the TPU kernel it takes any H, W >= 1.
+Like the TPU kernel's ``blocks=(BM, SR)`` override, a build may take
+another CTA tile (``-DK2_ROWS``/``-DK2_COLS``; :func:`block_defines`,
+screened by :func:`blocks_ok`): a variant of the common library, which
+the tuner proposes and ``build_engine(blocks=)`` launches.
 
 :func:`cuda_dense_step` launches the kernel for a CUDA tensor.  For a
 tensor on the CPU it runs :func:`dense_step_plain`, the plain PyTorch
@@ -26,6 +30,47 @@ from mpi_tpu_torch.ops._launch import (
 from mpi_tpu_torch.ops.stencil import step
 
 MAX_DEPTH = 16  # gens x radius: the deepest halo a tile carries
+# the CTA tile a build takes from -DK2_ROWS and -DK2_COLS (csrc/stencil.cu):
+# rows as the reference's PALLAS_BLOCK_SIZES, columns multiples of 16 from
+# half to twice the default (narrower tiles load their 32 halo columns for
+# fewer owned ones; at 512 the 256 threads of a CTA already step 34 word
+# groups of a row between them)
+BLOCK_ROWS = (512, 256, 128, 64, 32)
+BLOCK_COLS = (128, 256, 512)
+DEFAULT_TILE = [128, 256]
+# the dynamic shared memory one CTA may take on an H100 once the kernel
+# opts in (cudaFuncAttributeMaxDynamicSharedMemorySize, which every launch
+# sets): 227 KB; the rule's 512-byte table is static shared memory beside it
+SMEM_OPTIN_BYTES = 227 * 1024
+TABLE_BYTES = 512
+
+
+def tile_bytes(rows: int, cols: int, radius: int, depth: int) -> int:
+    """Shared memory of a pass of ``depth`` generations of a radius-r
+    rule by a build whose CTA owns ``rows`` x ``cols`` cells
+    (``csrc/stencil.cu:launch_kernel``): two buffers of ``rows + 2 h``
+    rows of ``8 + (cols + 32) / 4`` words, h = gens r for the deepest pass
+    K2 launches there (gens = min(depth, ⌊16/r⌋)), and the rule table."""
+    h = min(depth, MAX_DEPTH // radius) * radius
+    return 2 * (rows + 2 * h) * (8 + (cols + 32) // 4) * 4 + TABLE_BYTES
+
+
+def blocks_ok(rows: int, cols: int, radius: int, depth: int,
+              H: int = 1) -> bool:
+    """Whether a build with a CTA tile of ``rows`` x ``cols`` cells can
+    run passes of up to ``depth`` generations of a radius-r rule on an H
+    grid: a tile in the sets, its shared memory at that depth within the
+    card's, and at most 65535 row tiles."""
+    return (rows in BLOCK_ROWS and cols in BLOCK_COLS
+            and 1 <= radius <= 7 and depth >= 1
+            and tile_bytes(rows, cols, radius, depth) <= SMEM_OPTIN_BYTES
+            and -(-H // rows) <= 65535)
+
+
+def block_defines(blocks) -> dict:
+    """The macros of the build with CTA tile ``blocks`` = [rows, cols]."""
+    rows, cols = (int(v) for v in blocks)
+    return {"K2_ROWS": rows, "K2_COLS": cols}
 
 
 def refusal(shape, rule: Rule, gens: int = 1,
@@ -87,15 +132,22 @@ def dense_step_plain(grid: torch.Tensor, rule: Rule = LIFE,
 
 def cuda_dense_step(grid: torch.Tensor, rule: Rule = LIFE,
                     boundary: str = "periodic", gens: int = 1,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    defines: Optional[dict] = None) -> torch.Tensor:
     """``gens`` generations of ``rule`` on the uint8 0/1 grid ``grid``,
     (H, W), or on each board of a (B, H, W) batch in one launch.
 
     ``out``, when given, receives the result (same shape, dtype and device,
     not overlapping ``grid``); otherwise it is allocated.  The launch goes
-    to the current stream and does not synchronise.
-    ``cuda_dense_step.launches`` counts kernel launches."""
+    to the current stream and does not synchronise.  ``defines``: the
+    macros of a build variant, a CTA tile from :func:`block_defines` (None:
+    the default build); the plain version on the CPU has no tile, so a
+    CPU tensor with ``defines`` raises.  ``cuda_dense_step.launches``
+    counts kernel launches."""
     _check(grid, rule, boundary, gens)
+    if defines and grid.device.type == "cpu":
+        raise ValueError(f"K2 build macros {defines} on a CPU tensor: the "
+                         f"plain version has no CTA tile")
     if out is not None:
         check_out(out, grid, "K2")
     with recording("K2", grid, rule=rule, boundary=boundary, gens=gens,
@@ -105,9 +157,10 @@ def cuda_dense_step(grid: torch.Tensor, rule: Rule = LIFE,
             out = res if out is None else out.copy_(res)
         else:
             check_cuda(grid, "K2")
-            from mpi_tpu_torch.ops._build import load_library
+            from mpi_tpu_torch.ops import _build
 
-            lib = load_library()
+            lib = (_build.load_variant_library(defines) if defines
+                   else _build.load_library())
             if out is None:
                 out = torch.empty_like(grid)
             B, H, W = boards(grid)

@@ -1,7 +1,7 @@
 """``mpi_tpu_torch.tune``: the cost-card-guided plan autotuner.
 
 The plan knobs (kernel pass depth ``comm_every``, sparse tile ``T``, the
-CTA tile of kernels K1 and K3, the serving batch ``B``) ship with
+CTA tile of kernels K1, K3 and K2, the serving batch ``B``) ship with
 hand-picked defaults; this package searches them with timed probes on the
 device, prunes by the kernels' own op counts, blesses winners against the
 parity oracle, and keeps them per (device, requested plan signature) in a

@@ -6,10 +6,11 @@ The search space is the knobs the port already has:
   temporal-blocking depth;
 * ``sparse_tile`` T: the activity-gated engine's tile side;
 * ``blocks``: the CTA tile of kernel K1 (``[rows, words a lane]``,
-  ``-DK1_ROWS``/``-DK1_WPL`` of ``csrc/bitlife.cu``) or K3 (``[rows]``,
-  ``-DK3_ROWS`` of ``csrc/bitltl.cu``), a build variant of the kernel,
-  proposed on the card only.  Kernel K2 lives in the common library, not
-  in a per-rule one, so it has no block axis yet (ROADMAP queue 2, K2);
+  ``-DK1_ROWS``/``-DK1_WPL`` of ``csrc/bitlife.cu``), K3 (``[rows]``,
+  ``-DK3_ROWS`` of ``csrc/bitltl.cu``) or K2 (``[rows, cols]``,
+  ``-DK2_ROWS``/``-DK2_COLS`` of ``csrc/stencil.cu``, the reference's
+  dense ``(BM, SR)`` block plane), a build variant of the kernel, proposed
+  on the card only;
 * ``batch`` B: a serving hint for the microbatcher, probed but never
   applied to the solo program.
 
@@ -70,22 +71,26 @@ def _feasible(config: GolConfig, mesh_shape: Tuple[int, int],
 def _block_candidates(config: GolConfig, mesh_shape: Tuple[int, int],
                       gens: Optional[int] = None,
                       device=None) -> Iterator[Candidate]:
-    """CTA-tile overrides, only where K1 or K3 serves the plan on the
-    card (``device`` None or CUDA): off the card the plain versions have
-    no tile, so nothing is proposed.
+    """CTA-tile overrides, only on the card (``device`` None or CUDA):
+    off the card the plain versions have no tile, so nothing is proposed.
 
     K1 (radius 1): ``[rows, wpl]`` over words a lane (4, 2, 1) and rows
     (32, 64, 128, 256, 512), smallest first, so that the cap keeps the
     tiles that add CTAs: on the grids the tuner runs at, the default tile
     leaves most of the card's SMs idle.  K3 (radius 2..7 on the
-    bit-sliced route): ``[rows]`` over (32, 64, 256).  Each is screened by
-    its kernel's own limit (``cuda_bitlife.blocks_ok``,
-    ``cuda_bitltl.blocks_ok``: the deepest pass's shared memory, which the
-    library claims for every pass), the default build's tile is excluded
-    (it IS the incumbent), and at most ``MAX_BLOCK_CANDIDATES`` are
-    proposed.  ``gens`` validates the candidates at another depth than the
-    config's (the paired (comm_every, blocks) plane of
-    :func:`candidates`).
+    bit-sliced route): ``[rows]`` over (32, 64, 256).  K2 (the dense
+    route: radius > 1 past K3's depth, or widths the packed engines
+    decline): ``[rows, cols]`` over rows (32..512) and columns (128, 256,
+    512), the smallest tile first (the most CTAs), and among equal ones
+    the one that loads the fewest halo cells per owned cell at the pass's
+    depth.  Each is screened by its kernel's own limit
+    (``cuda_bitlife.blocks_ok``, ``cuda_bitltl.blocks_ok``: the deepest
+    pass's shared memory, which the library claims for every pass;
+    ``cuda_stencil.blocks_ok`` at the candidate's own pass depth), the
+    default build's tile is excluded (it IS the incumbent), and at most
+    ``MAX_BLOCK_CANDIDATES`` are proposed.  ``gens`` validates the
+    candidates at another depth than the config's (the paired
+    (comm_every, blocks) plane of :func:`candidates`).
 
     Pruning soundness (``tuner.should_prune``): a tile changes no kernel
     count, so a blocks candidate's bound equals the incumbent's at its
@@ -96,8 +101,8 @@ def _block_candidates(config: GolConfig, mesh_shape: Tuple[int, int],
         return
     if torch.device("cuda" if device is None else device).type != "cuda":
         return
-    from mpi_tpu_torch.backends.cuda import plan_engine
-    from mpi_tpu_torch.ops import cuda_bitlife, cuda_bitltl
+    from mpi_tpu_torch.backends.cuda import deepest_pass, plan_engine
+    from mpi_tpu_torch.ops import cuda_bitlife, cuda_bitltl, cuda_stencil
 
     tag = "" if gens is None else f"comm_every={gens},"
     base = {} if gens is None else {"comm_every": gens}
@@ -109,6 +114,7 @@ def _block_candidates(config: GolConfig, mesh_shape: Tuple[int, int],
     except ConfigError:
         return
     kind = plan_engine(cfg)[0]
+    r = config.rule.radius
     if kind == "bit":
         auto = [cuda_bitlife.rows_for(gens), 4]
         tiles = [[rows, wpl] for wpl in cuda_bitlife.BLOCK_WPL
@@ -117,10 +123,17 @@ def _block_candidates(config: GolConfig, mesh_shape: Tuple[int, int],
     elif kind == "ltl":
         auto = [cuda_bitltl.DEFAULT_ROWS]
         tiles = [[rows] for rows in sorted(cuda_bitltl.BLOCK_ROWS)
-                 if cuda_bitltl.blocks_ok(rows, config.rule.radius,
-                                          config.rows)]
+                 if cuda_bitltl.blocks_ok(rows, r, config.rows)]
     else:
-        return
+        auto = cuda_stencil.DEFAULT_TILE
+        depth = deepest_pass(cfg, kind)
+        halo = min(depth, cuda_stencil.MAX_DEPTH // r) * r
+        tiles = sorted(
+            ([rows, cols] for rows in cuda_stencil.BLOCK_ROWS
+             for cols in cuda_stencil.BLOCK_COLS
+             if cuda_stencil.blocks_ok(rows, cols, r, depth, config.rows)),
+            key=lambda t: (t[0] * t[1],
+                           (t[0] + 2 * halo) * (t[1] + 32) / (t[0] * t[1])))
     count = 0
     for tile in tiles:
         if tile == auto:
@@ -158,7 +171,8 @@ def candidates(config: GolConfig, mesh_shape: Tuple[int, int],
     if deepest_k is not None:
         # the (k, blocks) plane: tiles re-screened at the deepest feasible
         # depth, where the kernel may differ (K3 gives way to K2 past
-        # ⌊8/r⌋) and the default tile does
+        # ⌊8/r⌋, whose tiles are screened at that pass depth) and the
+        # default tile does
         out.extend(
             c for c in _block_candidates(config, mesh_shape, gens=deepest_k,
                                          device=device)

@@ -36,7 +36,8 @@ picks its mesh; ``devices`` may name one card several times, for virtual
 shards of it.
 
 Kernel variants (CTA tiles) are built once, all together, before the
-sweep (``ops/_build.py:build_rules``, one nvcc process per variant).
+sweep (``ops/_build.py:build_rules`` for K1 and K3, ``build_variants``
+for K2; one nvcc process per variant).
 """
 
 from __future__ import annotations
@@ -265,7 +266,11 @@ def _prebuild(config: GolConfig, space: List[Candidate], device,
     for kind, defines in variants.items():
         t0 = time.perf_counter()
         try:
-            _build.build_rules(kind, [config.rule] * len(defines), defines)
+            if kind == "dense":  # K2 reads its rule at run time
+                _build.build_variants(defines)
+            else:
+                _build.build_rules(kind, [config.rule] * len(defines),
+                                   defines)
         except Exception as e:  # noqa: BLE001 — each probe fails alone
             log(f"building {kind} variants failed: {e}")
         log(f"built {len(defines)} {kind} variants in "

@@ -36,7 +36,7 @@ from mpi_tpu_torch.config import (
     apply_plan,
 )
 from mpi_tpu_torch.models.rules import rule_from_name
-from mpi_tpu_torch.ops import cuda_bitlife, cuda_bitltl
+from mpi_tpu_torch.ops import cuda_bitlife, cuda_bitltl, cuda_stencil
 from mpi_tpu_torch.serve.session import SessionManager
 from mpi_tpu_torch.tune import cache as port_cache
 from mpi_tpu_torch.tune import tuner as port_tuner
@@ -166,9 +166,9 @@ def test_candidate_labels_equal_the_references(rule, rows, cols, batch):
 
 
 def test_card_candidates_propose_screened_tiles():
-    """On the card the space adds K1's and K3's CTA tiles, each within
-    its kernel's screen, never the default build's, at most
-    MAX_BLOCK_CANDIDATES an axis, and none for a plan that lands on K2."""
+    """On the card the space adds K1's, K3's and K2's CTA tiles, each
+    within its kernel's screen, never the default build's, at most
+    MAX_BLOCK_CANDIDATES an axis."""
     life = GolConfig(rows=2048, cols=2048, steps=0)
     labels = [c.label for c in tune.candidates(life, (1, 1))]
     plain = [c for c in tune.candidates(life, (1, 1))
@@ -186,8 +186,15 @@ def test_card_candidates_propose_screened_tiles():
                       rule=rule_from_name("bosco"))
     tiles = [c.plan for c in tune.candidates(bosco, (1, 1))
              if "blocks" in c.plan]
-    # K3 at comm_every 1; past ⌊8/5⌋ Bosco runs on K2, which has no tile
-    assert tiles == [{"blocks": [32]}, {"blocks": [64]}, {"blocks": [256]}]
+    # K3 at comm_every 1; past ⌊8/5⌋ Bosco runs on K2 in passes of 3, whose
+    # [rows, cols] tiles pair with the deepest comm_every
+    assert tiles[:3] == [{"blocks": [32]}, {"blocks": [64]},
+                         {"blocks": [256]}]
+    k2 = tiles[3:]
+    assert 0 < len(k2) <= tune.space.MAX_BLOCK_CANDIDATES
+    for plan in k2:
+        assert plan["comm_every"] == 8 and plan["blocks"] != [128, 256]
+        assert cuda_stencil.blocks_ok(*plan["blocks"], 5, 3, 2048)
 
 
 # ------------------------------------------------------------ tile screens
@@ -223,7 +230,7 @@ def test_k3_screen_is_the_kernels_shared_memory(radius):
 
 
 @pytest.mark.parametrize("rule,kw,blocks,device", [
-    ("bosco", dict(comm_every=2), [32], "cuda"),   # K2: no tile
+    ("bosco", dict(comm_every=2), [32], "cuda"),   # K2 takes [rows, cols]
     ("R2,B10-13,S8-12", dict(comm_every=8), [32], "cuda"),  # K2 past ⌊8/2⌋
     ("life", {}, [32, 4], "cpu"),                  # the CPU: no tile
     ("bosco", {}, [32], "cpu"),
@@ -242,6 +249,20 @@ def test_blocks_off_their_route_raise(rule, kw, blocks, device):
     if device == "cpu":
         with pytest.raises(ConfigError, match="blocks"):
             build_engine(ours, device="cpu", blocks=blocks)
+
+
+@pytest.mark.parametrize("rule,kw,blocks", [
+    ("bosco", dict(comm_every=2), [32, 128]),      # K2 at its own tile
+    ("R2,B10-13,S8-12", dict(comm_every=8), [512, 128]),
+    ("life", {}, [32, 4]),                         # K1
+    ("bosco", {}, [32]),                           # K3
+])
+def test_blocks_on_their_route_pass(rule, kw, blocks):
+    ours, _ = _pair(rule, **kw)
+    from mpi_tpu_torch.backends.cuda import plan_engine
+    import torch
+
+    check_blocks(ours, plan_engine(ours)[0], torch.device("cuda"), blocks)
 
 
 @pytest.mark.parametrize("backend", ["serial", "cpp", "cpp-par"])

@@ -8,10 +8,11 @@ no import, pure ``ast`` — and cross-checks the other two in both
 directions:
 
 * every ``.span("name")`` / ``.event("name")`` literal emitted under
-  ``mpi_tpu_torch/`` must have a row in the README span table, and every
-  row must correspond to a real emission site (``phase:*`` names are built
-  dynamically by ``Obs.phase_sink``; the known expansions live in
-  ``KNOWN_DYNAMIC_SPANS``);
+  ``mpi_tpu_torch/`` must have a row in a README span table, and every
+  row must correspond to a real emission site.  The port reads two
+  tables: the one both packages share (first header cell ``span``) and
+  the port's own spans (first header cell ``port span``), which the
+  reference neither emits nor reads;
 * every backticked ``mpi_tpu_*`` token in the README (brace patterns
   like ``mpi_tpu_http_bytes_{in,out}_total`` and ``*`` wildcards
   expand) must resolve to registered families, and every registered
@@ -49,9 +50,9 @@ _REGISTER_KINDS = {
     "histogram": "histogram", "counter": "counter", "gauge": "gauge",
     "gauge_fn": "gauge", "counter_fn": "counter",
 }
-# span names assembled at runtime (Obs.phase_sink f-string) and the
-# PhaseTimer phases that feed it
-KNOWN_DYNAMIC_SPANS = {"phase:setup", "phase:steady"}
+# the first header cell of a README span table: the table both packages
+# share, and the one of the spans only the port emits
+SPAN_TABLE_HEADS = ("span", "port span")
 # trace-context keys every schema-v2 record may carry (obs/tracectx.py):
 # the README span table must document them as columns and obs_smoke's
 # TRACE_CTX_KEYS literal must match exactly — checked only when the
@@ -256,7 +257,7 @@ def _readme_span_header(lines: Sequence[str]) -> Optional[Tuple[int,
 
 def _readme_span_rows(lines: Sequence[str]) -> List[Tuple[int, List[str]]]:
     """(line_no, [span names]) per row of any table whose header's
-    first column is ``span``."""
+    first column is one of :data:`SPAN_TABLE_HEADS`."""
     rows: List[Tuple[int, List[str]]] = []
     in_table = False
     for i, line in enumerate(lines, start=1):
@@ -266,7 +267,7 @@ def _readme_span_rows(lines: Sequence[str]) -> List[Tuple[int, List[str]]]:
             continue
         cells = [c.strip() for c in stripped.strip("|").split("|")]
         if not in_table:
-            if cells and cells[0].strip("`* ").lower() == "span":
+            if cells and cells[0].strip("`* ").lower() in SPAN_TABLE_HEADS:
                 in_table = True
             continue
         if set(cells[0]) <= {"-", ":", " "}:
@@ -305,7 +306,7 @@ def check_tree(root: str, files: Sequence[SourceFile],
             for n in names:
                 table_spans.setdefault(n, line_no)
         for name, line_no in sorted(table_spans.items()):
-            if name not in spans and name not in KNOWN_DYNAMIC_SPANS:
+            if name not in spans:
                 findings.append(mk(
                     readme_rel, line_no,
                     f"README span table lists '{name}' but no call site "
@@ -389,8 +390,7 @@ def check_tree(root: str, files: Sequence[SourceFile],
                 for elt in ast.walk(node.value):
                     if isinstance(elt, ast.Constant) \
                             and isinstance(elt.value, str) \
-                            and elt.value not in spans \
-                            and elt.value not in KNOWN_DYNAMIC_SPANS:
+                            and elt.value not in spans:
                         findings.append(mk(
                             smoke_rel, elt.lineno,
                             f"obs_smoke requires span kind '{elt.value}' "

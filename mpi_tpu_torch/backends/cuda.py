@@ -529,11 +529,13 @@ class Engine(ServeSurface):
         self.seam = pad_bits > 0 and config.boundary == "periodic"
         if self.seam:
             self._evolve = seam.make_seam_stepper(
-                self._pass, config.rule, config.cols, config.comm_every)
+                self._pass, config.rule, config.cols, config.comm_every,
+                obs=self._obs)
         elif sparse_plan is not None:
             self._evolve = self._sparse_evolve(sparse_plan)
         else:
-            self._evolve = segmented_evolve(self._pass, self.depth)
+            self._evolve = segmented_evolve(self._pass, self.depth,
+                                            obs=self._obs)
         # the spare buffer of the ping-pong pair, one for a solo grid (rank 2)
         # and one for a batch (rank 3), replaced when the shape changes; beside
         # each, the stream that last launched on it (both under one lock)
@@ -545,6 +547,11 @@ class Engine(ServeSurface):
         # every step consumes its input (the spare of the ping-pong pair),
         # the reference's donated buffer; flight records report it
         self.donates_input = True
+
+    def _obs(self):
+        """The obs handle the steppers' spans read at each pass: the serve
+        layer sets ``obs`` after the engine is built."""
+        return self.obs
 
     def _pass(self, src, k, dst):
         if self.bitpacked:

@@ -173,13 +173,6 @@ class Obs:
     def event(self, name: str, dur_s: float = 0.0, t0=None, **fields):
         self.tracer.event(name, dur_s, t0, **fields)
 
-    def phase_sink(self):
-        """A ``PhaseTimer.span_sink`` callable: each finished phase
-        becomes a trace event (name, start perf_counter, duration)."""
-        def sink(phase: str, t0: float, dur_s: float) -> None:
-            self.tracer.event(f"phase:{phase}", dur_s, t0)
-        return sink
-
     # -- telemetry history + SLO engine ------------------------------------
 
     def arm_telemetry(self, interval_s: float = 5.0, manager=None,

@@ -16,6 +16,15 @@ durations are exact; a single (mono, unix) anchor pair captured at
 tracer creation converts them to wall-clock at *export* time, keeping
 ``time.time()`` out of the hot path.
 
+A ``torch.profiler`` trace runs on a clock of its own (epoch
+nanoseconds), so a span also opens ``torch.profiler.record_function``
+of its name while the profiler records on the span's thread: the span
+then lies in the device trace, around the ATen ops and runtime calls
+(kernel launches) it makes, on the trace's clock.  The check is the
+profiler's own per-thread flag, one C call; outside a profile a span
+calls nothing more.  Events (pre-measured intervals) stay in the ring
+only.
+
 Request-id propagation uses a ``ContextVar`` so the id set by the HTTP
 handler flows into every span recorded downstream on the same logical
 request — including watchdog worker threads (via ``copy_context``) and
@@ -44,9 +53,14 @@ import time
 from contextvars import ContextVar
 from typing import Any, Dict, List, Optional
 
+import torch
+
 from mpi_tpu_torch.obs.tracectx import (
     TRACE_CONTEXT, TraceContext, reset_trace_context, set_trace_context,
 )
+
+# whether torch.profiler records on this thread (its per-thread flag)
+_profiling = torch._C._autograd._profiler_enabled
 
 # Ring/record layout and JSONL schema version: v1 records were
 # (seq, name, t0, dur_s, rid, thread, fields); v2 appends the trace
@@ -76,9 +90,11 @@ def reset_request_id(token) -> None:
 class Span:
     """Context-manager span.  ``with tracer.span("x", sid=s) as sp:``
     records name/duration/tags on exit; an exception inside the block is
-    recorded as an ``error`` field and re-raised."""
+    recorded as an ``error`` field and re-raised.  Under ``torch.profiler``
+    the block is also a ``record_function`` of the span's name."""
 
-    __slots__ = ("_tracer", "name", "fields", "t0", "_ctx", "_ctx_token")
+    __slots__ = ("_tracer", "name", "fields", "t0", "_ctx", "_ctx_token",
+                 "_prof")
 
     def __init__(self, tracer: "Tracer", name: str, fields: Dict[str, Any]):
         self._tracer = tracer
@@ -87,6 +103,7 @@ class Span:
         self.t0 = 0.0
         self._ctx: Optional[TraceContext] = None
         self._ctx_token = None
+        self._prof = None
 
     def tag(self, **kv) -> "Span":
         self.fields.update(kv)
@@ -103,11 +120,17 @@ class Span:
             # this span becomes the parent of everything in the block
             self._ctx = ctx.child()
             self._ctx_token = set_trace_context(self._ctx)
+        if _profiling():
+            self._prof = torch.profiler.record_function(self.name)
+            self._prof.__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         dur = time.perf_counter() - self.t0
+        if self._prof is not None:
+            self._prof.__exit__(exc_type, exc, tb)
+            self._prof = None
         if self._ctx_token is not None:
             reset_trace_context(self._ctx_token)
             self._ctx_token = None

@@ -48,6 +48,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Optional, Sequence, Union
@@ -111,6 +112,11 @@ class BuildError(RuntimeError):
 # nvcc processes started by this process (the traces check that none
 # starts while the engine steps)
 builds = 0
+# libraries loaded by this process (load_library, load_variant_library,
+# load_rule_library: each library once), and the host seconds those loads
+# took, their builds included (the benchmark's kernel_load_s reads these)
+loads = 0
+load_seconds = 0.0
 
 
 def sources() -> list:
@@ -332,12 +338,25 @@ def kernel_resources(library: Path) -> list:
     return out
 
 
+def _counted(load: Callable[[], ctypes.CDLL]) -> ctypes.CDLL:
+    """``load()``, its host seconds added to :data:`load_seconds` (a
+    failed load's too) and the library to :data:`loads`."""
+    global loads, load_seconds
+    t0 = time.perf_counter()
+    try:
+        lib = load()
+    finally:
+        load_seconds += time.perf_counter() - t0
+    loads += 1
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """The built common library with its C signatures declared (pointers
     and the stream as ``c_void_p``, so ctypes never truncates them to 32
     bits)."""
-    return _dense_signatures(ctypes.CDLL(str(build())))
+    return _counted(lambda: _dense_signatures(ctypes.CDLL(str(build()))))
 
 
 _VARIANT_LIBS: dict = {}  # macros -> variant of the common library
@@ -348,8 +367,8 @@ def load_variant_library(defines: dict) -> ctypes.CDLL:
     ``defines`` (K2's CTA tile), built at first use and loaded once."""
     key = tuple(sorted(defines.items()))
     if key not in _VARIANT_LIBS:
-        _VARIANT_LIBS[key] = _dense_signatures(
-            ctypes.CDLL(str(build_variants([defines])[0])))
+        _VARIANT_LIBS[key] = _counted(lambda: _dense_signatures(
+            ctypes.CDLL(str(build_variants([defines])[0]))))
     return _VARIANT_LIBS[key]
 
 
@@ -379,17 +398,22 @@ def load_rule_library(kind: str, rule,
 
     key = (kind, rule_key(rule), tuple(sorted((defines or {}).items())))
     if key not in _RULE_LIBS:
-        kernel = PER_RULE[kind]
-        lib = ctypes.CDLL(str(build_rules(kind, [rule], defines)[0]))
-        ptr = ctypes.c_void_p
-        entry = getattr(lib, kernel.entry)
-        entry.argtypes = [ptr, ptr] + [ctypes.c_int] * kernel.int_args + [ptr]
-        entry.restype = ctypes.c_int
-        for name, argtypes in kernel.helpers:
-            try:
-                helper = getattr(lib, name)
-            except AttributeError:  # this variant's library has none
-                continue
-            helper.argtypes, helper.restype = argtypes, ctypes.c_int
-        _RULE_LIBS[key] = _error_string(lib)
+        _RULE_LIBS[key] = _counted(
+            lambda: _rule_signatures(
+                PER_RULE[kind],
+                ctypes.CDLL(str(build_rules(kind, [rule], defines)[0]))))
     return _RULE_LIBS[key]
+
+
+def _rule_signatures(kernel: PerRule, lib: ctypes.CDLL) -> ctypes.CDLL:
+    ptr = ctypes.c_void_p
+    entry = getattr(lib, kernel.entry)
+    entry.argtypes = [ptr, ptr] + [ctypes.c_int] * kernel.int_args + [ptr]
+    entry.restype = ctypes.c_int
+    for name, argtypes in kernel.helpers:
+        try:
+            helper = getattr(lib, name)
+        except AttributeError:  # this variant's library has none
+            continue
+        helper.argtypes, helper.restype = argtypes, ctypes.c_int
+    return _error_string(lib)

@@ -35,6 +35,7 @@ to their owners (:func:`_gather_words_group`, :func:`_scatter_words_group`).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -163,7 +164,12 @@ def stitch_band(packed: torch.Tensor, band: torch.Tensor, C: int,
     return packed
 
 
-def make_seam_stepper(inner, rule: Rule, C: int, K: int, band=step_band):
+# the context a span site enters while obs is off
+_OFF = contextlib.nullcontext()
+
+
+def make_seam_stepper(inner, rule: Rule, C: int, K: int, band=step_band,
+                      obs=None):
     """evolve(grid, steps, spare) -> (grid, spare) around the padded
     periodic pass ``inner(src, k, dst)`` (a packed kernel with
     ``col_limit = C``), as ``utils/segmenting.py:segmented_evolve`` drives
@@ -173,17 +179,26 @@ def make_seam_stepper(inner, rule: Rule, C: int, K: int, band=step_band):
     launched: under the ping-pong the next pass overwrites this pass's
     input.  ``C`` is the real width, ``K`` the generations per pass;
     ``band(strip, rule, k)`` steps the strip (:func:`evolve_band` for the
-    plain version of the whole pass)."""
+    plain version of the whole pass).  ``obs``: the getter of an engine's
+    obs handle (``segmented_evolve``'s); while it gives one, the
+    extraction, the band's step and the stitch run in the spans
+    ``seam.extract``, ``seam.band`` and ``seam.stitch`` of the pass's
+    ``engine.pass``."""
     r = rule.radius
     band_cols(C, K * r)  # validate up front at the deepest pass
 
     def local(src, k, dst):
         d = k * r
-        strip = extract_band(src, C, d)
+        handle = None if obs is None else obs()
+        with _OFF if handle is None else handle.span("seam.extract"):
+            strip = extract_band(src, C, d)
         out = inner(src, k, dst)
-        return stitch_band(out, band(strip, rule, k), C, d)
+        with _OFF if handle is None else handle.span("seam.band"):
+            strip = band(strip, rule, k)
+        with _OFF if handle is None else handle.span("seam.stitch"):
+            return stitch_band(out, strip, C, d)
 
-    return segmented_evolve(local, K)
+    return segmented_evolve(local, K, obs)
 
 
 def strip_words(C: int, d: int) -> tuple:

@@ -5,7 +5,7 @@ them, run as a Python loop over kernel launches."""
 from __future__ import annotations
 
 
-def segmented_evolve(local, K: int):
+def segmented_evolve(local, K: int, obs=None):
     """evolve(grid, steps, spare) -> (grid, spare).
 
     ``local(src, k, dst)`` advances ``src`` by ``k`` generations into
@@ -14,7 +14,15 @@ def segmented_evolve(local, K: int):
     comes back as the new spare.  The caller must not read a buffer it has
     handed over: the next pass overwrites it.  Launches queue on one stream
     in order, so a pass never overwrites a buffer an earlier pass still
-    reads."""
+    reads.
+
+    ``obs``: the zero-argument getter of an ``mpi_tpu_torch.obs.Obs``
+    handle (an engine's, set after the stepper is built); while it gives
+    one, each pass runs inside an ``engine.pass`` span (fields ``depth``,
+    and ``boards`` for a stacked batch) around everything the pass
+    launches."""
+    if obs is not None:
+        local = _traced(local, obs)
 
     def evolve(grid, steps: int, spare):
         k = max(1, min(K, steps))
@@ -26,6 +34,25 @@ def segmented_evolve(local, K: int):
         return grid, spare
 
     return evolve
+
+
+def _traced(local, obs):
+    """``local`` inside an ``engine.pass`` span while ``obs()`` gives a
+    handle, and ``local`` itself (one ``is None`` test) while it gives
+    None."""
+
+    def run(src, k, dst):
+        handle = obs()
+        if handle is None:
+            return local(src, k, dst)
+        if src.dim() == 3:
+            span = handle.span("engine.pass", depth=k, boards=src.shape[0])
+        else:
+            span = handle.span("engine.pass", depth=k)
+        with span:
+            return local(src, k, dst)
+
+    return run
 
 
 def segment_depths(segments, K: int):

@@ -27,16 +27,11 @@ CSV_HEADER = (
 
 @dataclass
 class PhaseTimer:
-    """start() → [setup work] → setup_done() → [steady work] → finish().
-
-    ``span_sink``: optional ``callable(phase, t_start, dur_s)`` invoked at
-    ``finish()`` with the two phases ("setup", "steady") —
-    ``mpi_tpu_torch.obs.Obs.phase_sink`` turns them into trace events."""
+    """start() → [setup work] → setup_done() → [steady work] → finish()."""
 
     t_begin: float = field(default_factory=time.perf_counter)
     t_setup_done: float = 0.0
     t_end: float = 0.0
-    span_sink: object = None
 
     def setup_done(self) -> None:
         self.t_setup_done = time.perf_counter()
@@ -45,11 +40,6 @@ class PhaseTimer:
         self.t_end = time.perf_counter()
         if self.t_setup_done == 0.0:
             self.t_setup_done = self.t_begin
-        if self.span_sink is not None:
-            self.span_sink("setup", self.t_begin,
-                           self.t_setup_done - self.t_begin)
-            self.span_sink("steady", self.t_setup_done,
-                           self.t_end - self.t_setup_done)
 
     @property
     def full_us(self) -> int:

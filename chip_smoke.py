@@ -67,8 +67,8 @@ Phases; any failure exits non-zero before the result line:
    before the rule was compiled in; words per lane; ghost words; rows per
    CTA; the tile load; the kernel without the padded-grid code) at gens 8,
    4, 2 and 1, in turns, each variant's output equal to the kept one's;
-   K3's two horizontal sums (carry-save adders, doubling) at every radius,
-   in turns; the padded paths' passes (K1 or K3 with ``col_limit``, the
+   K3's run lengths (rows a warp steps) at every radius's gens 1 and
+   deepest pass, in turns; the padded paths' passes (K1 or K3 with ``col_limit``, the
    whole seam pass with the band on K2 and on ``evolve_band``, the band
    alone, and the same grids forced onto K2), in turns; and a pass over a
    batch in one launch against its boards in one launch each (K1, K3,
@@ -375,6 +375,9 @@ from mpi_tpu_torch.ops.cuda_bitlife import launch as bit_launch  # noqa: E402
 from mpi_tpu_torch.ops.cuda_bitltl import (  # noqa: E402
     cuda_ltl_step, ltl_step_plain, max_gens,
 )
+from mpi_tpu_torch.ops.cuda_bitltl import (  # noqa: E402
+    BLOCK_ROWS as BLOCK_ROWS_K3, DEFAULT_ROWS as K3_DEFAULT_ROWS,
+)
 from mpi_tpu_torch.ops.cuda_bitltl import launch as ltl_launch  # noqa: E402
 from mpi_tpu_torch.ops.ltl_codegen import (  # noqa: E402
     lop3_count, rule_key, rule_program,
@@ -528,16 +531,18 @@ def phase1_build() -> None:
           "k1_ptxas_life": k1_resources[rule_key(LIFE)],
           "k3_rules": {r: rule_key(rule) for r, rule in LTL_RULES.items()},
           "k3_parallel_build_seconds": ltl_seconds,
-          "k3_hsum": _build.LTL_HSUM,
           "k3_ptxas": ltl_resources})
     # K2 at r 1..7 in the common library (for full grids and for grids
     # narrower than a tile), one kernel in each library of K1 (one per rule)
     # and of K3 (r 2..7)
+    # (K3 has one instance a depth, ltl_step_kernel<gens>)
     per_rule = list(k1_resources.values()) + list(ltl_resources.values())
-    if len(resources) != 14 or any(len(v) != 1 for v in per_rule):
-        fail(f"expected 14 kernels in the common library and one in each "
-             f"per-rule library, got {resources}, {k1_resources} and "
-             f"{ltl_resources}")
+    k3_kernels = {r: max_gens(r) for r in ltl_resources}
+    if (len(resources) != 14 or any(len(v) != 1 for v in k1_resources.values())
+            or any(len(v) != k3_kernels[r] for r, v in ltl_resources.items())):
+        fail(f"expected 14 kernels in the common library, one in each K1 "
+             f"library and {k3_kernels} in the K3 ones, got {resources}, "
+             f"{k1_resources} and {ltl_resources}")
     spilled = _spills(resources + sum(per_rule, []))
     if spilled:
         fail(f"kernels spill: {spilled}")
@@ -618,7 +623,8 @@ def _row_loop(code, mark: str, marker: str) -> dict:
         fail(f"no row loop with {mark} and {marker} found in the SASS; "
              f"innermost loops: {[Counter(b).most_common(6) for b in _inner_loops(code)]}")
     return {"instructions": len(body), "rows_per_iteration": rows,
-            "by_opcode": dict(Counter(body).most_common(10))}
+            "by_opcode": dict(Counter(body).most_common(10)),
+            "opcodes": dict(Counter(body))}
 
 
 def _sass_loops(library: str, k1_library: str, k1_words_per_lane: int,
@@ -666,19 +672,34 @@ def _sass_loops(library: str, k1_library: str, k1_words_per_lane: int,
     if "dense_step_kernel<5>" not in funcs:
         fail("dense_step_kernel<5> not found in the SASS")
     k2 = _row_loop(funcs["dense_step_kernel<5>"], "PRMT", "STS")
+    k2.pop("opcodes")
     emit({"phase": "sass", "kernel": "K2", "function": "dense_step_kernel<5>",
           "row_loop": k2, "instructions_per_cell_generation":
               k2["instructions"] / (16 * k2["rows_per_iteration"])})
     k3_funcs = _sass_functions(ltl_library)
-    if "ltl_step_kernel" not in k3_funcs:
-        fail(f"ltl_step_kernel not found in {ltl_library}")
-    k3 = _row_loop(k3_funcs["ltl_step_kernel"], "SHFL", "STG")
+    # the row-first form's instance at gens 1, Bosco's only depth
+    name = "ltl_step_kernel<1>"
+    if name not in k3_funcs:
+        fail(f"{name} not found in {ltl_library}: {list(k3_funcs)}")
+    k3 = _row_loop(k3_funcs[name], "SHFL", "STG")
+    rows = k3["rows_per_iteration"]
+    per_row = {op: n / rows for op, n in k3.pop("opcodes").items()}
     prog = rule_program(BOSCO)
-    emit({"phase": "sass", "kernel": "K3", "function": "ltl_step_kernel",
-          "rule": rule_key(BOSCO), "hsum": _build.LTL_HSUM[5],
-          "row_loop": k3, "instructions_per_word_generation":
-              k3["instructions"] / k3["rows_per_iteration"],
+    out = {"instructions_per_word_generation": k3["instructions"] / rows,
+           "lop3_shf_per_word_generation":
+               per_row.get("LOP3", 0) + per_row.get("SHF", 0),
+           "shfl_per_word_generation": per_row.get("SHFL", 0)}
+    emit({"phase": "sass", "kernel": "K3", "function": name,
+          "rule": rule_key(BOSCO), "row_loop": k3, **out,
+          "by_opcode_per_word_generation": per_row,
+          "compiled_form_word_ops": ltl_word_ops(BOSCO, "row_first"),
           "rule_gates": len(prog.ops), "rule_lop3": lop3_count(prog)})
+    # the row loop's budget: at most 110 instructions and 2 shuffles a
+    # word-generation (it shuffles only the row words)
+    if (out["instructions_per_word_generation"] > 110
+            or out["shfl_per_word_generation"] > 2):
+        fail(f"K3's row loop for Bosco is over its budget of 110 "
+             f"instructions and 2 SHFL a word-generation: {out}")
 
 
 # -- phase 2: each kernel against its plain version -------------------------
@@ -1782,37 +1803,35 @@ def _k1_turns(card: str, x: torch.Tensor) -> None:
               "fastest": min(names, key=lambda n: sum(ms[n]))})
 
 
-def _hsum_turns(card: str, x: torch.Tensor) -> None:
-    """K3's two horizontal sums (0: carry-save adders over the 2r+1
-    shifted copies; 1: doubling window sums) at every radius's deepest
-    pass and at the main paths' depths, in turns (0, 1, 1, 0), ms per
-    pass on the 65536² grid."""
-    configs = [(rule, max_gens(r)) for r, rule in LTL_RULES.items()]
+def _k3_run_turns(card: str, x: torch.Tensor) -> None:
+    """K3's run lengths (``-DK3_ROWS``, the rows a warp steps at most:
+    ``cuda_bitltl.BLOCK_ROWS`` from 64) at every radius's gens 1 and
+    deepest pass and at the main paths' depths, in turns (each in order,
+    then in reverse), ms per pass on the 65536² grid, beside the default
+    (``cuda_bitltl.DEFAULT_ROWS``)."""
+    rows = [r for r in sorted(BLOCK_ROWS_K3) if r >= 64]
+    configs = [(rule, g) for r, rule in LTL_RULES.items()
+               for g in sorted({1, max_gens(r)})]
     configs += [(rule, g) for _, rule, k, n in LTL_PATHS
                 for g in sorted({k, n % k} - {0})
                 if (rule, g) not in configs]
     t0 = time.perf_counter()
-    for form in (0, 1):
+    for n in rows:
         _build.build_rules("ltl", [rule for rule, _ in configs],
-                           {"LTL_HSUM": form})
+                           {"K3_ROWS": n})
     build_s = time.perf_counter() - t0
     out = torch.empty_like(x)
     for rule, gens in configs:
-        libs = [_build.load_rule_library("ltl", rule, {"LTL_HSUM": form})
-                for form in (0, 1)]
-        ms = {0: [], 1: []}
-        for form in (0, 1, 1, 0):
-            def one_pass(lib=libs[form]):
-                ltl_launch(lib, x, out, rule, "periodic", gens)
-            for _ in range(3):
-                one_pass()
-            ms[form].append(_events_ms(one_pass, 10))
-        best = min((0, 1), key=lambda f: sum(ms[f]))
-        emit({"phase": "k3_hsum", "card": card, "rule": rule_key(rule),
-              "gens": gens, "grid": [FLAGSHIP, FLAGSHIP],
-              "ms_carry_save": ms[0], "ms_doubling": ms[1],
-              "faster": best, "kept": _build.LTL_HSUM[rule.radius],
-              "build_seconds_both_forms_all_rules": build_s})
+        fns = {n: (lambda lib=_build.load_rule_library(
+                   "ltl", rule, {"K3_ROWS": n}): ltl_launch(
+                   lib, x, out, rule, "periodic", gens))
+               for n in rows}
+        ms = _turns(fns)
+        emit({"phase": "k3_runs", "card": card, "rule": rule_key(rule),
+              "gens": gens, "grid": [FLAGSHIP, FLAGSHIP], "ms": ms,
+              "fastest": min(rows, key=lambda n: sum(ms[n])),
+              "default": K3_DEFAULT_ROWS,
+              "build_seconds_all_runs_all_rules": build_s})
 
 
 def _turns(fns: dict, reps: int = 10) -> dict:
@@ -2050,7 +2069,8 @@ def phase4_times(card: str) -> dict:
             word_ops=word_ops(LIFE), library_ms=None,
             library_note="no single PyTorch call computes a Life generation")
     for label, rule, k, n in LTL_PATHS:  # K3: as K1, from below and above
-        lower, upper = ltl_word_ops_lower(rule), ltl_word_ops(rule)
+        lower = ltl_word_ops_lower(rule)
+        upper = ltl_word_ops(rule, "row_first")
         for gens in sorted({k, n % k} - {0}):
             t_bytes = 8 * words / HBM_BYTES_PER_S * 1e3
             rows["K3", label, gens] = _row(
@@ -2065,7 +2085,7 @@ def phase4_times(card: str) -> dict:
                 library_note="no single PyTorch call computes a "
                              "Larger-than-Life generation")
     _k1_turns(card, x)
-    _hsum_turns(card, x)
+    _k3_run_turns(card, x)
     del x
     torch.cuda.empty_cache()
 
@@ -2963,7 +2983,8 @@ def _check_cards(engines: dict) -> dict:
     batched = max(c.batch for c in engines["K1"].cost_cards())
     want = {"K1": [((k, 0), word_ops(LIFE) * words * k),
                    ((k, batched), word_ops(LIFE) * words * k * batched)],
-            "K3": [((1, 0), ltl_word_ops(BOSCO) * OBS_LTL_SIZE ** 2 // WORD)],
+            "K3": [((1, 0), ltl_word_ops(BOSCO, "row_first")
+                    * OBS_LTL_SIZE ** 2 // WORD)],
             "K2": [((3, 0), dense_cell_ops(5) * OBS_LTL_SIZE ** 2 * 3)]}
     for kid, keys in want.items():
         for key, ops in keys:

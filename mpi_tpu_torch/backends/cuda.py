@@ -122,8 +122,8 @@ def check_blocks(config: GolConfig, kind: str, device: torch.device,
     elif kind == "ltl":
         ok = len(vals) == 1 and cuda_bitltl.blocks_ok(
             vals[0], config.rule.radius, config.rows)
-        want = (f"[rows], rows in {cuda_bitltl.BLOCK_ROWS}, within the "
-                f"kernel's shared memory")
+        want = (f"[rows], rows a warp steps, in "
+                f"{cuda_bitltl.BLOCK_ROWS}")
     else:
         depth = deepest_pass(config, kind)
         ok = len(vals) == 2 and cuda_stencil.blocks_ok(

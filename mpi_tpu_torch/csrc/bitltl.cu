@@ -9,19 +9,25 @@
 // which streams whole-row slabs through VMEM with DMA halos and rolls lanes
 // for the cross-word bits.  The arithmetic per word is that of
 // ops/bitltl.py: every per-cell integer is a set of 32-bit bit planes (plane
-// k holds bit k of 32 cells);
-//   1. the vertical sum of the 2r+1 row words of a column (at most 4
-//      planes) slides down the rows: the entering row's word is added and the
-//      leaving row's subtracted, bit-sliced;
-//   2. the horizontal sum over 2r+1 columns (the neighbourhood total, centre
-//      included, at most 8 planes), either by carry-save adders over the
-//      2r+1 funnel-shifted copies of the vertical sum (LTL_HSUM 0), or by
-//      doubling window sums S2 = v + (v >> 1), S4 = S2 + (S2 >> 2), ...
-//      (LTL_HSUM 1); ops/_build.py picks the faster by radius, from
-//      chip_smoke.py phase 4, which times both in turns;
+// k holds bit k of 32 cells), and the total is summed rows first
+// (ops/bitltl.py: row_count, slide_total):
+//   1. the count of each row word's live cells over the 2r+1 columns
+//      j-r..j+r, for each bit j: the word and its 2r funnel-shifted copies
+//      (the bits beyond it from the neighbouring words, by shuffle) through
+//      a carry-save adder tree, bit_width(2r+1) planes; once a row;
+//   2. the neighbourhood total, centre included, slides down the rows: the
+//      count of the row entering the 2r+1-row window is added and that of
+//      the row leaving it subtracted (their difference, sign extended),
+//      bit_width((2r+1)^2) planes, whatever the radius;
 //   3. the rule: ltl_rule(total, centre), straight-line gates that split
 //      the rule's birth and survive tables on the total's planes (a
 //      multiplexer each, constant and equal halves folded).
+// A sliding window cannot run along the bits of a word, where all 32
+// columns are computed at once, but it can down the rows; summing the
+// columns first (vertical sums slid down, then a horizontal sum of those
+// 4-plane numbers) pays every shift, shuffle and adder of the horizontal
+// sum once a plane, and took 171 LOP3 and SHF a word-generation for Bosco
+// where this order takes 58 (ops/bitltl.py: ltl_word_ops).
 //
 // Layout: `in` and `out` are (H, NW) 32-bit words, row-major; bit j of word
 // w is the cell at column 32w + j.  The host holds them as int32 tensors;
@@ -29,58 +35,74 @@
 //
 // What bounds it on an H100.  One pass moves 8 bytes per word: at 3.35 TB/s
 // a 65536^2 grid (2^27 words) costs 0.32 ms of traffic.  A generation of
-// Bosco (r = 5) costs at least 7 and, in the carry-save form, 171 LOP3 and
-// SHF per word (ops/bitltl.py: ltl_word_ops_lower, ltl_word_ops); the
-// kernel issues about 180 instructions per word-generation, so its time is
-// integer instructions at every depth, not bytes.  So the kernel
+// Bosco (r = 5) issues 79 instructions a word-generation in its row loop
+// (chip_smoke.py, phase "sass"): 63 LOP3 and SHF, 2 SHFL, a load, a
+// store, and ~12 for addresses, edges and the loop.  At two integer
+// warp-instructions a clock an SM, that and the halo put a 65536^2 pass
+// near 0.6 ms, which the 0.70 ms it takes is close to: its time is integer
+// instructions, not bytes.  So the kernel
 //   * is built per rule, so the plane arrays, the adder trees and the rule
 //     are fixed at compile time and live in registers, and the rule costs a
-//     few LOP3 (9 for Bosco) instead of comparators over run-time
-//     thresholds (about 194 instructions per word-generation for Bosco);
-//   * maps one warp lane to one word column of a 32-word tile row (30 owned
-//     words plus one ghost word per side, as kernel K1 does): the
-//     neighbouring words' planes arrive by register shuffle;
-//   * gives each warp a run of rows, summing the first row's 2r+1 words in
-//     full and sliding the sum down the rest: three shared loads per
-//     word-generation;
-//   * steps the tile `gens` times in shared memory (temporal blocking), each
-//     generation shrinking the valid rows by r per side, and re-zeroes,
-//     after every in-tile generation, the cells outside a dead-boundary grid.
+//     few LOP3 (9 for Bosco);
+//   * maps one warp lane to one word column of a 32-word column tile (30
+//     owned words plus one ghost word per side, as kernel K1 does): the
+//     neighbouring words arrive by register shuffle, two a row;
+//   * gives each warp its own run of rows and its own state: the counts of
+//     the last 2r+1 rows in a ring, the total, and the row words (the
+//     centres, and the loads in flight, issued 2(2r+1) - r rows ahead), in
+//     registers; no barrier.  The warps of a CTA lie side by side along
+//     the rows, so the warps in flight read neighbouring stretches of the
+//     same rows;
+//   * steps `gens` generations in a wavefront down the run (temporal
+//     blocking without a tile): generation g + 1 takes the rows generation
+//     g emits, r rows behind it, so a pass still reads and writes device
+//     memory once.  One instance of the kernel a depth, so that each takes
+//     only the registers its depth needs; deeper than one generation the
+//     rings of counts live in the warp's shared memory, since G rings in
+//     registers left too few warps an SM (r = 4 at gens 2 took 184
+//     registers and ran 14% slower than summing columns first; with its
+//     rings in shared memory it runs 34% faster);
+//   * makes runs long: a run of L rows computes L + 2 gens r rows at each
+//     level (the halo, and the ring filling from zero), 2 r per run at the
+//     least, so the host takes K3_ROWS (256) rows a warp, rounded up to
+//     whole iterations of the 2(2r+1)-step unrolled loop, and shortens it
+//     only for a grid with too few runs to fill the card; runs of 64 rows cost Bosco 13% more than runs of 256,
+//     and runs of 512 gain at most 1-2% over 256 at any radius (at gens 1
+//     and r <= 3 the host takes 64: see gol_ltl_step).
 //
 // Why one ghost word per side is enough: a ghost word has no neighbour
 // beyond it, so its outer bits go stale by r bits per generation; after
 // gens - 1 <= 8/r - 1 generations at most 8 - r of them are stale, and the r
 // inner bits that the owned words read are exact.
 //
-// Periodic rows and words wrap modulo H and NW (any H >= 1, NW >= 1: the tile
-// is a window of the unrolled torus).  Dead rows and words outside the grid
-// load as zero and are re-zeroed each generation.  Ragged last tiles are
-// masked on the store.
+// Periodic rows and words wrap modulo H and NW (any H >= 1, NW >= 1: the
+// column tile is a window of the unrolled torus).  Dead rows and words
+// outside the grid load as zero and are re-zeroed each generation.  A run
+// stores only its own rows.
 //
 // A padded grid (col_limit > 0: the real width ends inside word NW - 1) has
 // the pad bits of word NW - 1 zeroed after every generation in every lane
 // that holds a copy of that word, ghost lanes included (on a periodic grid
 // the left ghost of word 0 is one): a per-lane mask from the word's index
-// modulo NW.  Only CTAs of a dead grid and CTAs whose tile holds such a copy
-// apply masks; the others store what the rule gives.
+// modulo NW.  Only warps of a dead grid and warps whose tile holds such a
+// copy apply masks; the others store what the rule gives.
 //
 // Boards: `in` and `out` hold B grids of (H, NW) words one after another;
 // blockIdx.z picks the board, so B boards take one launch.
 
+#include <cstddef>
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 #if !defined(LTL_RADIUS) || !defined(LTL_RULE_HEADER)
 #error "bitltl.cu is built per rule: -DLTL_RADIUS=r -DLTL_RULE_HEADER=name"
 #endif
-#ifndef LTL_HSUM
-#define LTL_HSUM 1
-#endif
-// rows a CTA writes: the CTA tile, a build variant the plan tuner searches
-// (mpi_tpu_torch/tune/space.py); a tile of more than 128 rows opts in to
-// more than the 48 KB of shared memory a kernel gets unasked
+// rows a warp steps (rounded up to whole iterations of its row loop): a
+// build variant the plan tuner searches (mpi_tpu_torch/tune/space.py)
 #ifndef K3_ROWS
-#define K3_ROWS 128
+#define K3_ROWS 256
 #endif
 #define LTL_STR2(x) #x
 #define LTL_STR(x) LTL_STR2(x)
@@ -91,9 +113,8 @@ namespace {
 constexpr int R = LTL_RADIUS;
 constexpr int N = 2 * R + 1;           // rows and columns of a neighbourhood
 constexpr int kLanes = 32;             // words per tile row, ghosts included
-constexpr int kOwned = kLanes - 2;     // words a CTA writes per row
-constexpr int kRows = K3_ROWS;         // rows a CTA writes
-constexpr int kWarps = 8;
+constexpr int kOwned = kLanes - 2;     // words a warp writes per row
+constexpr int kWarps = 4;              // warps a CTA, each on its own run
 constexpr unsigned kAll = 0xFFFFFFFFu;
 static_assert(R >= 2 && R <= 7, "K3 serves radius 2..7");
 
@@ -153,7 +174,6 @@ __device__ __forceinline__ void csa_sum(const Get& get,
   Column<M, P, 0, out_planes(M, P)>::run(get, nullptr, out);
 }
 
-constexpr int NV = out_planes(N, 1);   // planes of a vertical sum
 constexpr int NT = bit_width(N * N);   // planes of the total
 static_assert(NT == LTL_RULE_PLANES, "the rule header is for another radius");
 
@@ -163,151 +183,206 @@ struct Num {
   uint32_t p[P];
 };
 
-// v - leave + enter, where leave is a row already in v: the decrement comes
-// first, so no plane overflows.
-__device__ __forceinline__ void slide(Num<NV>& v, uint32_t enter,
-                                      uint32_t leave) {
-  uint32_t b = leave, c = enter;
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    const uint32_t t = ~v.p[k] & b;
-    v.p[k] ^= b;
-    b = t;
-  }
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    const uint32_t t = v.p[k] & c;
-    v.p[k] ^= c;
-    c = t;
-  }
-}
-
-// The planes of the next lane's (ahead) or previous lane's number.  The
-// ghost lanes at either end get their own planes back: the bits those
-// feed are a ghost word's outer bits, stale in any case, and no lane
-// reads them (see "one ghost word per side" above).
-template <int P>
-__device__ __forceinline__ Num<P> next_lane(const Num<P>& x) {
-  Num<P> o;
-#pragma unroll
-  for (int k = 0; k < P; ++k) o.p[k] = __shfl_down_sync(kAll, x.p[k], 1);
-  return o;
-}
-
-template <int P>
-__device__ __forceinline__ Num<P> prev_lane(const Num<P>& x) {
-  Num<P> o;
-#pragma unroll
-  for (int k = 0; k < P; ++k) o.p[k] = __shfl_up_sync(kAll, x.p[k], 1);
-  return o;
-}
-
-// x seen from s columns to the right (bit j is column j + s), the bits
-// beyond the word from the next word `nx`
-template <int S, int P>
-__device__ __forceinline__ Num<P> ahead(const Num<P>& x, const Num<P>& nx) {
-  if constexpr (S == 0) return x;
-  Num<P> o;
-#pragma unroll
-  for (int k = 0; k < P; ++k) o.p[k] = __funnelshift_r(x.p[k], nx.p[k], S);
-  return o;
-}
-
-// a + b in PO planes (the sum fits them)
-template <int PO, int PA, int PB>
-__device__ __forceinline__ Num<PO> add(const Num<PA>& a, const Num<PB>& b) {
-  Num<PO> o;
-  uint32_t c = 0u;
-#pragma unroll
-  for (int k = 0; k < PO; ++k) {
-    const uint32_t x = k < PA ? a.p[k] : 0u, y = k < PB ? b.p[k] : 0u;
-    const uint32_t t = x ^ y;
-    o.p[k] = t ^ c;
-    c = (x & y) | (c & t);
-  }
-  return o;
-}
-
-// The neighbourhood total of each cell of this lane's word, from the
-// column's vertical sum v; every lane of the warp calls it together.
-__device__ __forceinline__ Num<NT> horizontal_sum(const Num<NV>& v) {
-  Num<NT> total;
-  const Num<NV> nv = next_lane(v);
-#if LTL_HSUM == 0
-  const Num<NV> pv = prev_lane(v);
-  // number 0 is v itself, 1..R are v seen from columns j+1..j+R, R+1..2R
-  // from columns j-1..j-R
-  constexpr int NC = out_planes(N, NV);
-  static_assert(NC >= NT, "the adder tree keeps every plane of the total");
-  uint32_t sum[NC];
-  csa_sum<N, NV>(
-      [&](int n, int p) {
-        if (n == 0) return v.p[p];
-        if (n <= R) return __funnelshift_r(v.p[p], nv.p[p], n);
-        return __funnelshift_l(pv.p[p], v.p[p], n - R);
-      },
-      sum);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) total.p[k] = sum[k];  // the rest are zero
-#else
-  // one-sided window sums W(j) = v(j) + ... + v(j + 2R) by doubling: S_m is
-  // the sum over m columns, S_2m = S_m + S_m seen m columns ahead; W adds
-  // the S_m of N's set bits at growing offsets; the total is W seen R
-  // columns back
-  constexpr int P2 = bit_width(2 * N), P4 = bit_width(4 * N);
-  constexpr int P8 = bit_width(8 * N);
-  constexpr bool b8 = N & 8, b4 = N & 4, b2 = N & 2;
-  constexpr int o4 = b8 ? 8 : 0, o2 = o4 + (b4 ? 4 : 0);
-  constexpr int o1 = o2 + (b2 ? 2 : 0);
-  const Num<P2> s2 = add<P2>(v, ahead<1>(v, nv));
-  const Num<P2> n2 = next_lane(s2);
-  const Num<P4> s4 = add<P4>(s2, ahead<2>(s2, n2));
-  Num<P4> n4 = {};
-  if constexpr (b8 || (b4 && o4 > 0)) n4 = next_lane(s4);
-  Num<NT> w = {};
-  if constexpr (b8) w = add<NT>(w, add<P8>(s4, ahead<4>(s4, n4)));
-  if constexpr (b4) w = add<NT>(w, ahead<o4>(s4, n4));
-  if constexpr (b2) w = add<NT>(w, ahead<o2>(s2, n2));
-  w = add<NT>(w, ahead<o1>(v, nv));  // N is odd
-  const Num<NT> pw = prev_lane(w);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) total.p[k] = __funnelshift_l(pw.p[k], w.p[k], R);
-#endif
-  return total;
-}
-
-// The vertical sum of the 2r+1 rows centred on tile row i, in full.
-__device__ __forceinline__ Num<NV> vertical_sum(const uint32_t* src, int i,
-                                                int lane) {
-  Num<NV> v;
-  csa_sum<N, 1>([&](int n, int) { return src[(i - R + n) * kLanes + lane]; },
-                v.p);
-  return v;
-}
-
 __device__ __forceinline__ int wrap(int i, int n) {
   if (i >= 0 && i < n) return i;
   i %= n;
   return i < 0 ? i + n : i;
 }
 
-__global__ void __launch_bounds__(kLanes * kWarps)
-ltl_step_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                int H, int NW, int gens, int periodic, int col_limit) {
+constexpr int NH = out_planes(N, 1);   // planes of a row's count, bit_width(N)
+static_assert(NH == bit_width(N), "a row's count keeps every plane");
+constexpr int kMaxGens = 8 / R > 1 ? 8 / R : 1;
+
+// The live cells among columns j - R .. j + R of row word x, for each bit
+// j: the 2R + 1 funnel-shifted copies of x (the bits beyond the word from
+// the neighbouring words px and nx) through a carry-save adder tree.
+__device__ __forceinline__ Num<NH> row_count(uint32_t x, uint32_t px,
+                                             uint32_t nx) {
+  Num<NH> h;
+  csa_sum<N, 1>(
+      [&](int n, int) {
+        if (n == 0) return x;
+        if (n <= R) return __funnelshift_r(x, nx, n);
+        return __funnelshift_l(px, x, n - R);
+      },
+      h.p);
+  return h;
+}
+
+// T + enter - leave, where leave is a count already in T: the difference
+// of the two counts (NH planes and its borrow, the sign) is added to T
+// with its sign extended.  Modulo 2^NT the sum is exact, and the result
+// (at most N^2) fits NT planes, so no plane overflows.
+__device__ __forceinline__ void slide(Num<NT>& T, const Num<NH>& enter,
+                                      const Num<NH>& leave) {
+  uint32_t d[NH], b = 0u;
+#pragma unroll
+  for (int k = 0; k < NH; ++k) {
+    const uint32_t e = enter.p[k], l = leave.p[k], t = e ^ l;
+    d[k] = t ^ b;
+    b = (~e & l) | (~t & b);
+  }
+  uint32_t c = 0u;
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
+    const uint32_t x = k < NH ? d[k] : b, t = T.p[k] ^ x;
+    const uint32_t carry = (T.p[k] & x) | (c & t);
+    T.p[k] = t ^ c;
+    c = carry;
+  }
+}
+
+// How a run treats the grid's edges: a torus whose every bit is a cell, a
+// torus with pad bits (col_limit), or dead edges (and perhaps pad bits).
+enum Edge { kTorus, kPaddedTorus, kDead };
+
+// Steps an iteration of the row loop: 2N, so that every slot of every
+// ring is fixed at compile time and stays in registers, and each is
+// rewritten twice an iteration, alternating between two sets of registers
+// (no moves); a row's load is issued M - R >= 8 steps before it enters.
+constexpr int M = 2 * N;
+
+// The word `i` rows of `nwb` bytes past `p`: one IMAD.WIDE.U32 (byte
+// arithmetic on the pointer, which keeps it a global one: LDG and STG)
+template <typename T>
+__device__ __forceinline__ T* row_at(T* p, unsigned i, unsigned nwb) {
+  using Byte = std::conditional_t<std::is_const_v<T>, const char, char>;
+  return reinterpret_cast<T*>(reinterpret_cast<Byte*>(p) + (size_t)i * nwb);
+}
+
+// One warp's run of rows [a, b): G generations in a wavefront down the
+// rows.  Level g (0-based) takes one row word a step from level g - 1
+// (level 0 from device memory) and emits the row R above the one that
+// entered, whose window that row completed: level g emits row
+// s + t - (g + 1) R at step t, and the last level rows a .. b - 1 at steps
+// 2 G R onwards.  Every state starts at zero and each total stays the sum
+// of the counts in its ring, so a level's first steps, before its window
+// holds real rows, emit rows outside the run's halo that nothing reads:
+// they cost time and never correctness.  So do the steps that round the
+// run up to whole iterations.  `src` is this lane's word column of row 0,
+// `out` its word of row a; at gens > 1 the rings of counts live in `cnt`,
+// this lane's column of the warp's shared memory, since G levels of them
+// in registers would leave too few warps an SM.
+template <int G, Edge E>
+__device__ __forceinline__ void run_rows(const uint32_t* __restrict__ src,
+                                         uint32_t* __restrict__ out,
+                                         uint32_t* cnt, int H, int NW, int a,
+                                         int b, bool col_in, bool col_out,
+                                         uint32_t cm) {
+  constexpr bool kShared = G > 1;
+  Num<NH> ring[G][N];   // the counts of the last N rows a level took
+  Num<NT> total[G];     // their sum: the neighbourhood totals of a row
+  uint32_t word[G][M];  // the row words a level took (the centres); level
+                        // 0's hold the loads in flight too
+  // plane k of the count in slot n of level g's ring, in shared memory
+  const auto count = [cnt](int g, int n, int k) -> uint32_t& {
+    return cnt[((g * N + n) * NH + k) * kLanes];
+  };
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int n = 0; n < M; ++n) word[g][n] = 0u;
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int k = 0; k < NH; ++k) {
+        if (kShared)
+          count(g, n, k) = 0u;
+        else
+          ring[g][n].p[k] = 0u;
+      }
+#pragma unroll
+    for (int k = 0; k < NT; ++k) total[g].p[k] = 0u;
+  }
+  const int s = a - G * R;  // the first row level 0 takes
+  const int steps = b - a + 2 * G * R;
+  const unsigned nwb = 4u * NW;  // bytes a row
+  // level 0's next row, wrapped on a torus; a row is loaded M - R steps
+  // before it enters, into the slot whose row has just served as a centre
+  int q = E == kDead ? s : wrap(s, H);
+  const auto load = [&]() -> uint32_t {
+    uint32_t w = 0u;
+    if (E != kDead || (col_in && (unsigned)q < (unsigned)H))
+      w = *row_at(src, q, nwb);
+    ++q;
+    if (E != kDead && q == H) q = 0;
+    return w;
+  };
+#pragma unroll
+  for (int n = 0; n < M - R; ++n) word[0][n] = load();
+  // the last level's row at step t is a + t - 2 G R
+  const unsigned rows = col_out ? b - a : 0;
+  for (int t0 = 0; t0 < steps; t0 += M) {
+#pragma unroll
+    for (int u = 0; u < M; ++u) {
+      const int t = t0 + u;
+      uint32_t x = word[0][u];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g > 0) word[g][u % N] = x;
+        const uint32_t px = __shfl_up_sync(kAll, x, 1);
+        const uint32_t nx = __shfl_down_sync(kAll, x, 1);
+        Num<NH> leave;
+#pragma unroll
+        for (int k = 0; k < NH; ++k)
+          leave.p[k] = kShared ? count(g, u % N, k) : ring[g][u % N].p[k];
+        const Num<NH> h = row_count(x, px, nx);
+        slide(total[g], h, leave);
+#pragma unroll
+        for (int k = 0; k < NH; ++k) {
+          if (kShared)
+            count(g, u % N, k) = h.p[k];
+          else
+            ring[g][u % N].p[k] = h.p[k];
+        }
+        // the centre: the row that entered R steps ago
+        const int c = g == 0 ? (u + M - R) % M : (u + N - R) % N;
+        uint32_t nw = ltl_rule(total[g].p, word[g][c]);
+        if (g == 0) word[0][c] = load();
+        if (E == kPaddedTorus) nw &= cm;
+        if (E == kDead) {
+          const int gr = s + t - (g + 1) * R;  // the row it emits
+          nw &= (unsigned)gr < (unsigned)H ? cm : 0u;
+        }
+        if (g == G - 1) {
+          const unsigned i = t - 2 * G * R;
+          if (i < rows) *row_at(out, i, nwb) = nw;
+        }
+        x = nw;
+      }
+    }
+  }
+}
+
+// Shared memory of ltl_step_kernel<G>: the rings of counts of its warps
+// at gens > 1
+__host__ __device__ constexpr int shared_bytes(int G) {
+  return G > 1 ? kWarps * G * N * NH * kLanes * 4 : 0;
+}
+
+// K3 at `gens` = G: each warp steps a run of `run` rows of a column tile
+// 32 words wide (30 owned words and a ghost word a side).  The warps of a
+// CTA lie side by side along the rows (`across`), so that the warps in
+// flight read neighbouring stretches of the same rows, or, on a grid of
+// few tiles, one above the other.
+// (No __launch_bounds__: given the CTA's size, ptxas trades a few bytes
+// of spills for one more CTA an SM, and the kernel must not spill.)
+template <int G>
+__global__ void ltl_step_kernel(const uint32_t* __restrict__ in,
+                                uint32_t* __restrict__ out, int H, int NW,
+                                int periodic, int col_limit, int run,
+                                int across) {
   extern __shared__ uint32_t smem[];
   const size_t board = (size_t)blockIdx.z * H * NW;
   in += board;
   out += board;
-  const int halo = gens * R;
-  const int span = kRows + 2 * halo;          // tile rows, halos included
-  // words per ping-pong buffer: the tile rows and one spare row, which the
-  // slide past a generation's last row reads and discards
-  const int plane = (span + 1) * kLanes;
-
   const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int w0 = blockIdx.x * kOwned;         // first owned word
-  const int r0 = blockIdx.y * kRows;          // first owned row
+  const int tile = across ? blockIdx.x * kWarps + threadIdx.y : blockIdx.x;
+  const int w0 = tile * kOwned;        // first owned word
+  const int a = (across ? blockIdx.y : blockIdx.y * kWarps + threadIdx.y) *
+                run;                   // first row
+  if (w0 >= NW || a >= H) return;      // uniform across the warp
+  const int b = min(a + run, H);
 
   // this lane's word column: gw is the unrolled index, col its grid index
   const int gw = w0 - 1 + lane;
@@ -315,74 +390,42 @@ ltl_step_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
   const int col = col_in ? wrap(gw, NW) : 0;
   const bool col_out = lane >= 1 && lane <= kOwned && gw < NW;
   // the bits of this lane's word that a generation keeps: none outside a
-  // dead grid, the real ones of word NW - 1, else all; `masked` (uniform
-  // across the CTA) says whether any lane or row needs masking
+  // dead grid, the real ones of word NW - 1, else all; a padded torus
+  // masks only in CTAs whose tile holds a copy of word NW - 1
   uint32_t cm = col_in ? kAll : 0u;
-  bool masked = !periodic;
+  bool padded = false;
   if (col_limit > 0) {
     if (col_in && col == NW - 1) cm = (1u << (col_limit - 32 * (NW - 1))) - 1u;
     const int u0 = w0 - 1;
     const int first = periodic ? u0 + wrap(NW - 1 - u0, NW) : NW - 1;
-    masked = masked || (first >= u0 && first < u0 + kLanes);
+    padded = first >= u0 && first < u0 + kLanes;
   }
-
-  // generation 0: the tile plus `halo` rows above and below, in batches of
-  // loads in flight before their stores
-  constexpr int kBatch = 6;
-  for (int i0 = warp; i0 < span; i0 += kWarps * kBatch) {
-    uint32_t v[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = i0 + u * kWarps, gr = r0 - halo + i;
-      v[u] = 0u;
-      if (i < span) {
-        if (periodic) {
-          v[u] = in[(size_t)wrap(gr, H) * NW + col];
-        } else if (col_in && gr >= 0 && gr < H) {
-          v[u] = in[(size_t)gr * NW + col];
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = i0 + u * kWarps;
-      if (i < span) smem[i * kLanes + lane] = v[u];
-    }
-  }
-  __syncthreads();
-
-  // generation g computes rows [g R, span - g R), each warp a run of them;
-  // the last generation writes the owned rows
-  for (int g = 1; g <= gens; ++g) {
-    const uint32_t* src = smem + ((g - 1) & 1) * plane;
-    uint32_t* dst = smem + (g & 1) * plane;
-    const bool last = g == gens;
-    const int lo = g * R, hi = span - g * R;
-    const int chunk = (hi - lo + kWarps - 1) / kWarps;
-    const int a = lo + warp * chunk;
-    const int b = min(a + chunk, hi);
-    // uniform across the warp: every lane joins the shuffles
-    if (a < b) {
-      Num<NV> v = vertical_sum(src, a, lane);
-      for (int i = a; i < b; ++i) {
-        const Num<NT> total = horizontal_sum(v);
-        uint32_t nw = ltl_rule(total.p, src[i * kLanes + lane]);
-        const int gr = r0 - halo + i;
-        if (masked) nw &= periodic || (gr >= 0 && gr < H) ? cm : 0u;
-        if (last) {
-          if (col_out && gr < H) out[(size_t)gr * NW + gw] = nw;
-        } else {
-          dst[i * kLanes + lane] = nw;
-        }
-        // on to row i + 1, after the last row too (a branch would cost more
-        // than the slide; its entering row is at most the spare row)
-        slide(v, src[(i + 1 + R) * kLanes + lane], src[(i - R) * kLanes + lane]);
-      }
-    }
-    if (!last) __syncthreads();
-  }
+  const uint32_t* src = in + col;
+  uint32_t* dst = out + (size_t)a * NW + gw;
+  uint32_t* cnt = smem + threadIdx.y * (shared_bytes(G) / 4 / kWarps) + lane;
+  if (!periodic)
+    run_rows<G, kDead>(src, dst, cnt, H, NW, a, b, col_in, col_out, cm);
+  else if (padded)
+    run_rows<G, kPaddedTorus>(src, dst, cnt, H, NW, a, b, col_in, col_out,
+                              cm);
+  else
+    run_rows<G, kTorus>(src, dst, cnt, H, NW, a, b, col_in, col_out, cm);
 }
 
+// launches ltl_step_kernel<gens>, for gens in G..kMaxGens
+template <int G>
+void launch_gens(int gens, dim3 grid, dim3 block, cudaStream_t stream,
+                 const uint32_t* in, uint32_t* out, int H, int NW,
+                 int periodic, int col_limit, int run, int across) {
+  if constexpr (G <= kMaxGens) {
+    if (gens == G)
+      ltl_step_kernel<G><<<grid, block, shared_bytes(G), stream>>>(
+          in, out, H, NW, periodic, col_limit, run, across);
+    else
+      launch_gens<G + 1>(gens, grid, block, stream, in, out, H, NW, periodic,
+                         col_limit, run, across);
+  }
+}
 }  // namespace
 
 extern "C" {
@@ -393,30 +436,52 @@ extern "C" {
 // (32 (NW - 1), 32 NW].  `in` and `out` must not overlap.
 int gol_ltl_step(const void* in, void* out, int B, int H, int NW, int radius,
                  int gens, int periodic, int col_limit, void* stream) {
-  if (B < 1 || H < 1 || NW < 1 || radius != R || gens < 1 ||
-      gens > (8 / R > 1 ? 8 / R : 1))
+  if (B < 1 || H < 1 || NW < 1 || radius != R || gens < 1 || gens > kMaxGens)
     return (int)cudaErrorInvalidValue;
   if (col_limit == 32LL * NW) col_limit = 0;  // no pad
   if (col_limit != 0 &&
       (col_limit <= 32LL * (NW - 1) || col_limit > 32LL * NW))
     return (int)cudaErrorInvalidValue;
   const dim3 block(kLanes, kWarps);
-  const dim3 grid((NW + kOwned - 1) / kOwned, (H + kRows - 1) / kRows, B);
+  // K3_ROWS rows a warp, and kShortRun at gens 1 and r <= 3,
+  // where a row is little work next to its bytes and short runs move them
+  // faster (65536^2 in ms a pass, runs of 64 against 256: r = 2 0.49 and
+  // 0.78, r = 3 0.52 and 0.62; r = 4 0.70 and 0.65).  Halved (down to
+  // kMinRun) while the grid's runs would not fill the card kFill warps an
+  // SM: a small board gets shorter runs, whose halo costs more, rather
+  // than idle SMs
+  constexpr int kShortRun = 64, kMinRun = 32, kFill = 16;
+  const int halo = 2 * gens * R;
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  const long long strips = (NW + kOwned - 1) / kOwned;
+  int most = gens == 1 && R <= 3 && K3_ROWS > kShortRun ? kShortRun : K3_ROWS;
+  while (most > kMinRun &&
+         strips * B * ((H + most - 1) / most) < (long long)kFill * sms)
+    most /= 2;
+  // the shortest run of at least `most` rows whose steps, its rows and
+  // the halo of 2 gens R, are whole iterations (rounding down would leave
+  // a cap of 32 rows at r = 5 runs of 12); on a grid of more than 65535
+  // such runs, the shortest that leaves at most 65535
+  const auto whole = [halo](int rows) {
+    return (rows + halo + M - 1) / M * M - halo;
+  };
+  int run = whole(most);
+  if ((H + run - 1) / run > 65535) run = whole((H + 65534) / 65535);
+  // a CTA's warps side by side on a grid of enough tiles, else stacked
+  const int across = strips >= 2 * kWarps;
+  const int runs = (H + run - 1) / run;
+  const dim3 grid(across ? (strips + kWarps - 1) / kWarps : strips,
+                  across ? runs : (runs + kWarps - 1) / kWarps, B);
   if (grid.y > 65535u || grid.z > 65535u)
     return (int)cudaErrorInvalidConfiguration;
-  const size_t smem =
-      2u * (kRows + 2 * gens * R + 1) * kLanes * sizeof(uint32_t);
-#if K3_ROWS > 128
-  // the deepest pass's share, once per library
-  static const cudaError_t allowed = cudaFuncSetAttribute(
-      ltl_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(2u * (kRows + 2 * (8 / R > 1 ? 8 / R : 1) * R + 1) * kLanes *
-            sizeof(uint32_t)));
-  if (allowed != cudaSuccess) return (int)allowed;
-#endif
-  ltl_step_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), H, NW,
-      gens, periodic, col_limit);
+  launch_gens<1>(gens, grid, block, static_cast<cudaStream_t>(stream),
+                 static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
+                 H, NW, periodic, col_limit, run, across);
   return (int)cudaGetLastError();
 }
 

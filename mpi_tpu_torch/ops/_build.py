@@ -61,12 +61,6 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# K3's horizontal sum by radius: 0 carry-save adders over the 2r+1 shifted
-# copies, 1 doubling window sums; each the faster of the two on the H100
-# (chip_smoke.py phase 4 builds both and times them in turns)
-LTL_HSUM = {2: 0, 3: 1, 4: 1, 5: 1, 6: 1, 7: 1}
-
-
 @dataclass(frozen=True)
 class PerRule:
     """A kernel that is built once per rule: its source, the macro that
@@ -99,8 +93,7 @@ PER_RULE = {
     #              stream)
     "ltl": PerRule(CSRC_DIR / "bitltl.cu", "LTL_RULE_HEADER",
                    "mpi_tpu_torch.ops.ltl_codegen",
-                   lambda rule: {"LTL_RADIUS": rule.radius,
-                                 "LTL_HSUM": LTL_HSUM[rule.radius]},
+                   lambda rule: {"LTL_RADIUS": rule.radius},
                    "gol_ltl_step", 7),
 }
 
@@ -247,7 +240,7 @@ def build_rules(kind: str, rules, defines: Defines = None,
     ``rules`` that is not built yet, ``jobs`` nvcc processes at a time
     (default: one per CPU), and return their paths in order.  ``defines``
     adds ``-D`` macros that pick a variant of the kernel (e.g.
-    ``{"LTL_HSUM": 0}``): one dict for every rule, or a list with one
+    ``{"K3_ROWS": 64}``): one dict for every rule, or a list with one
     entry per rule, so that several variants of one rule build together."""
     kernel = PER_RULE[kind]
     parts = [_rule_parts(kind, rule, d)

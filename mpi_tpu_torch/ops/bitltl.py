@@ -249,19 +249,97 @@ def make_ltl_stepper(rule: Rule, boundary: str = "periodic"):
     return evolve
 
 
-def ltl_word_ops(rule: Rule) -> int:
+def row_count(x, prev, nxt, radius: int, funnel=_funnel) -> List[Plane]:
+    """The live cells among columns j - r .. j + r of the row word ``x``,
+    for each bit j, as bit planes: ``x`` and its 2r funnel-shifted copies
+    (the bits beyond the word from the neighbouring words ``prev`` and
+    ``nxt``) compressed by ``bs_sum`` into bit_length(2r+1) planes."""
+    return bs_sum([[x]]
+                  + [[funnel(x, nxt, d)] for d in range(1, radius + 1)]
+                  + [[funnel(x, prev, -d)] for d in range(1, radius + 1)])
+
+
+def slide_total(total: List[Plane], enter: List[Plane],
+                leave: List[Plane]) -> List[Plane]:
+    """``total + enter - leave`` on ``len(total)`` planes, as kernel K3's
+    row-first form slides its window of row counts: the difference of the
+    two counts (their planes and the borrow out, its sign) is added to
+    ``total`` with the sign extended, modulo 2^len(total).  Exact whenever
+    the true result fits the planes, as a window sum does once ``leave``
+    is a count already in ``total``."""
+    diff: List[Plane] = []
+    borrow: Plane = None
+    for e, l in zip(enter, leave):
+        t = _xor(e, l)
+        diff.append(_xor(t, borrow))
+        # borrow out of e - l - borrow: (~e & l) | (~(e ^ l) & borrow)
+        lo = None if l is None else (l if e is None else ~e & l)
+        carry = None if borrow is None else (
+            borrow if t is None else ~t & borrow)
+        borrow = _or(lo, carry)
+    diff += [borrow] * (len(total) - len(diff))
+    out: List[Plane] = []
+    carry = None
+    for p, d in zip(total, diff):
+        s, carry = _full_add(p, d, carry)
+        out.append(s)
+    return out
+
+
+def ltl_next_row_first(rows: List, word_roll, rule: Rule, zero,
+                       funnel=_funnel):
+    """:func:`ltl_next` by rows first, as kernel K3's row-first form sums:
+    each of the 2r+1 row words' horizontal counts (:func:`row_count`),
+    then the column of counts into the neighbourhood total; the same rows
+    (offsets 0, +1..+r, -1..-r) and the same next state."""
+    r = rule.radius
+    total = bs_sum([row_count(x, word_roll(x, 1), word_roll(x, -1), r, funnel)
+                    for x in rows])
+    born = _in_intervals(total, rule.birth_intervals, 0, zero)
+    stay = _in_intervals(total, rule.survive_intervals, 1, zero)
+    mid = rows[0]
+    return (~mid & born) | (mid & stay)
+
+
+# orders of the neighbourhood sum: each column's vertical sum first, then
+# a horizontal sum of those (ltl_next, and kernel K3 until it summed rows
+# first); or each row's horizontal count first, then a window of counts
+# slid down the rows (kernel K3)
+FORMS = ("vertical_first", "row_first")
+
+
+def ltl_word_ops(rule: Rule, form: str = "vertical_first") -> int:
     """Hopper integer instructions (LOP3 and SHF) per word per generation
-    in the compiled form of ``rule``: ``ltl_next``'s word graph, traced with
-    the neighbouring words' planes as inputs (they arrive by shuffle) and
-    each cross-word shift as one funnel shift, covered by ``_map_cover``
-    (the graph is too large for the exact ``_cover``).  A valid cover, so
-    an upper bound on the form's least count; :func:`ltl_word_ops_lower`
-    bounds it from below."""
+    in the compiled form of ``rule``, covered by ``_map_cover`` (the graph
+    is too large for the exact ``_cover``): a valid cover, so an upper
+    bound on the form's least count.
+
+    ``vertical_first``: ``ltl_next``'s word graph, traced with the
+    neighbouring words' planes as inputs (they arrive by shuffle) and each
+    cross-word shift as one funnel shift; :func:`ltl_word_ops_lower`
+    bounds it from below.  ``row_first``: one step of K3's row-first row
+    loop, whose inputs are the entering row's word and its two neighbours
+    (by shuffle), the total and the leaving row's count (registers) and
+    the centre: the entering row's :func:`row_count`, :func:`slide_total`
+    and the rule as ``ops/ltl_codegen.py`` compiles it."""
     graph: list = []
-    rows = [_Node(graph) for _ in range(2 * rule.radius + 1)]
-    return _map_cover(ltl_next(
-        rows, lambda p, d: _Node(graph), rule, 0,
-        funnel=lambda p, nb, k: _Node(graph, (p, nb), shift=True)))
+    shift = lambda p, nb, k: _Node(graph, (p, nb), shift=True)  # noqa: E731
+    if form == "vertical_first":
+        rows = [_Node(graph) for _ in range(2 * rule.radius + 1)]
+        return _map_cover(ltl_next(rows, lambda p, d: _Node(graph), rule, 0,
+                                   funnel=shift))
+    if form != "row_first":
+        raise ValueError(f"unknown form {form!r}, expected one of {FORMS}")
+    from mpi_tpu_torch.ops import gates, ltl_codegen
+
+    n = 2 * rule.radius + 1
+    x, prev, nxt = (_Node(graph) for _ in range(3))
+    enter = row_count(x, prev, nxt, rule.radius, shift)
+    total = [_Node(graph) for _ in range(ltl_codegen.planes(rule.radius))]
+    leave = [_Node(graph) for _ in range(n.bit_length())]
+    total = slide_total(total, enter, leave)
+    return _map_cover(gates.replay(ltl_codegen.rule_program(rule), {
+        "mid": _Node(graph), **{f"T{k}": p for k, p in enumerate(total)}}))
 
 
 def _bit_planes(rng, n: int, density: np.ndarray) -> List[np.ndarray]:
@@ -274,9 +352,10 @@ def _bit_planes(rng, n: int, density: np.ndarray) -> List[np.ndarray]:
 
 def ltl_word_ops_lower(rule: Rule, words: int = 128, seed: int = 0) -> int:
     """A lower bound on the LOP3 and SHF instructions per word per
-    generation of any program that, like kernel K3, sums each column's
-    2r+1 cells into bit planes (per row, or slid from the row before) and
-    takes the neighbouring words' planes by shuffle.
+    generation of any program that sums each column's 2r+1 cells into bit
+    planes first (per row, or slid from the row before) and takes the
+    neighbouring words' planes by shuffle, as kernel K3 did before it
+    summed rows first (``ltl_word_ops(rule, "row_first")``).
 
     An instruction reads at most three operands, so the instructions that
     join ``n`` values into one word number at least ceil((n - 1) / 2).
@@ -284,7 +363,7 @@ def ltl_word_ops_lower(rule: Rule, words: int = 128, seed: int = 0) -> int:
     vertical sum replaces them by the previous row's planes, the entering
     and leaving rows and the centre, and the smaller count of the two is
     taken) and the planes of the two neighbouring words' vertical sums,
-    each counted once however it is shifted: K3's doubling horizontal sum
+    each counted once however it is shifted: a doubling horizontal sum
     shifts sums of planes, not every plane at every distance, so a count
     of one SHF per plane and distance would not bound it.  A value counts
     only where the random words of ``ltl_next`` (cells of every density,

@@ -31,13 +31,14 @@ from mpi_tpu_torch.ops.bitlife import WORD, mask_pad
 from mpi_tpu_torch.ops.bitltl import ltl_step
 
 HALO = 8  # rows of halo per side: gens · radius may not exceed it
-# rows a CTA writes, from -DK3_ROWS (csrc/bitltl.cu; 128 by default)
-BLOCK_ROWS = (256, 128, 64, 32)
-DEFAULT_ROWS = 128
-# a kernel's dynamic shared memory without opting in, and with (H100);
-# a build of more than DEFAULT_ROWS rows opts in
-SMEM_DEFAULT_BYTES = 48 * 1024
-SMEM_OPTIN_BYTES = 227 * 1024
+# rows a warp steps, from -DK3_ROWS (csrc/bitltl.cu; 256 by default): the
+# run of rows each warp slides its window down, which the kernel rounds up
+# to whole iterations of its row loop, and shortens at gens 1 for r <= 3
+# and on a grid too small to fill the card
+BLOCK_ROWS = (512, 256, 128, 64, 32)
+DEFAULT_ROWS = 256
+# the order in which the kernel sums a neighbourhood (ops/bitltl.py:FORMS)
+FORM = "row_first"
 
 
 def max_gens(radius: int) -> int:
@@ -45,24 +46,13 @@ def max_gens(radius: int) -> int:
     return max(1, HALO // radius)
 
 
-def max_tile_bytes(rows: int, radius: int) -> int:
-    """Shared memory of the deepest pass of a build whose CTA writes
-    ``rows`` rows, for a radius-``radius`` rule (``csrc/bitltl.cu``): two
-    ping-pong buffers of ``rows + 2 gens r + 1`` rows of 32 words, the
-    most over gens <= ⌊8/r⌋."""
-    return max(2 * (rows + 2 * g * radius + 1) * 32 * 4
-               for g in range(1, max_gens(radius) + 1))
-
-
 def blocks_ok(rows: int, radius: int, H: int = 1) -> bool:
-    """Whether a build with a CTA of ``rows`` rows can run a radius-r rule
-    on an H grid: a tile the kernel compiles, within the shared memory it
-    may take (builds above 128 rows opt in to the card's 227 KB), and at
-    most 65535 row tiles."""
-    limit = SMEM_OPTIN_BYTES if rows > DEFAULT_ROWS else SMEM_DEFAULT_BYTES
-    return (rows in BLOCK_ROWS and 2 <= radius <= 7
-            and max_tile_bytes(rows, radius) <= limit
-            and -(-H // rows) <= 65535)
+    """Whether a build whose warps step runs of ``rows`` rows can run a
+    radius-r rule on an H grid: a run length the kernel is built with, and
+    a radius it serves.  The kernel takes no shared memory at gens 1 and
+    at most 36 KB deeper, whatever the run, and lengthens the runs of a
+    grid taller than 65535 of them, so neither the run nor H limits it."""
+    return rows in BLOCK_ROWS and 2 <= radius <= 7
 
 
 def block_defines(blocks) -> dict:
@@ -141,7 +131,8 @@ def cuda_ltl_step(packed: torch.Tensor, rule: Rule,
     synchronise.  ``defines``: the macros of a build variant, e.g. a CTA
     tile from :func:`block_defines` (None: the default build; the plain
     version on the CPU has no tile).  ``cuda_ltl_step.launches`` counts
-    kernel launches."""
+    kernel launches, and ``cuda_ltl_step.launches_by_form`` the same
+    launches by the order the kernel sums in (:data:`FORM`)."""
     _check(packed, rule, boundary, gens, col_limit)
     if out is not None:
         check_out(out, packed, "K3")
@@ -159,6 +150,8 @@ def cuda_ltl_step(packed: torch.Tensor, rule: Rule,
             launch(load_rule_library("ltl", rule, defines), packed, out,
                    rule, boundary, gens, col_limit)
             cuda_ltl_step.launches += 1
+            by_form = cuda_ltl_step.launches_by_form
+            by_form[FORM] = by_form.get(FORM, 0) + 1
         rec.done(out)
     return out
 
@@ -178,3 +171,4 @@ def launch(lib, packed: torch.Tensor, out: torch.Tensor, rule: Rule,
 
 
 cuda_ltl_step.launches = 0
+cuda_ltl_step.launches_by_form = {}

@@ -78,7 +78,8 @@ def _block_candidates(config: GolConfig, mesh_shape: Tuple[int, int],
     (32, 64, 128, 256, 512), smallest first, so that the cap keeps the
     tiles that add CTAs: on the grids the tuner runs at, the default tile
     leaves most of the card's SMs idle.  K3 (radius 2..7 on the
-    bit-sliced route): ``[rows]`` over (32, 64, 256).  K2 (the dense
+    bit-sliced route): ``[rows]``, the rows a warp steps, over
+    (32, 64, 128, 512) beside the default 256.  K2 (the dense
     route: radius > 1 past K3's depth, or widths the packed engines
     decline): ``[rows, cols]`` over rows (32..512) and columns (128, 256,
     512), the smallest tile first (the most CTAs), and among equal ones

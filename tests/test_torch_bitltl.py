@@ -22,7 +22,7 @@ from mpi_tpu_torch.models.rules import Rule, rule_from_name
 from mpi_tpu_torch.ops import bitlife as tbit
 from mpi_tpu_torch.ops import bitltl as tltl
 from mpi_tpu_torch.ops.cuda_bitltl import (
-    cuda_ltl_step, ltl_step_plain, max_gens, refusal, supports,
+    FORM, cuda_ltl_step, ltl_step_plain, max_gens, refusal, supports,
 )
 from mpi_tpu_torch.ops.ltl_codegen import evaluate, rule_program
 
@@ -129,6 +129,14 @@ def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
         assert cuda_ltl_step(w, r2, "dead", gens, out=out) is out
         assert torch.equal(out, want)
     assert cuda_ltl_step.launches == 0
+    assert cuda_ltl_step.launches_by_form == {}
+
+
+def test_kernel_counts_its_launches_by_the_order_it_sums_in():
+    # the card's launches are counted by form beside .launches (the CPU's
+    # plain version launches nothing); the kernel sums rows first
+    assert FORM == "row_first" and FORM in tltl.FORMS
+    assert isinstance(cuda_ltl_step.launches_by_form, dict)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -191,6 +199,83 @@ def test_ltl_word_ops_counts_the_compiled_form():
     assert tltl.ltl_word_ops(rule_from_name(R2)) == 61
     assert tltl.ltl_word_ops(rule_from_name(R7)) > \
         tltl.ltl_word_ops(rule_from_name("bosco"))
+
+
+def _seeded_rule(radius, seed):
+    rng = np.random.default_rng(seed)
+    n = (2 * radius + 1) ** 2
+    return Rule(f"random-{seed}", np.flatnonzero(rng.random(n) < 0.3),
+                np.flatnonzero(rng.random(n) < 0.4), radius)
+
+
+def _row_words(rng, rows, words):
+    """``rows`` row words of ``words`` words, each word at its own density
+    (0 to 1), as uint32 arrays."""
+    return tltl._bit_planes(rng, rows, rng.random((words, 1)) * np.ones(32))
+
+
+def _plane_value(planes):
+    bits = np.arange(32, dtype=np.uint32)
+    return sum(((p[:, None] >> bits) & 1).astype(np.int64) << k
+               for k, p in enumerate(planes) if p is not None)
+
+
+@pytest.mark.parametrize("rule", [
+    *(rule_from_name(n) for n in ("bosco", R2, R3, R4, R6, R7)),
+    *(_seeded_rule(r, 100 + r) for r in range(2, 8))], ids=str)
+def test_row_first_total_and_next_state_equal_ltl_next(rule):
+    # K3's row-first form: each row's 2r+1-cell count, then the column of
+    # counts; the same total and the same next state as vertical first
+    radius = rule.radius
+    rng = np.random.default_rng(radius)
+    rows = _row_words(rng, 2 * radius + 1, 256)
+    roll = lambda p, d: np.roll(p, d)  # noqa: E731
+    zero = np.zeros(256, dtype=np.uint32)
+    v = tltl.bs_sum([[x] for x in rows])
+    hshift = tltl.make_hshift(v, roll)
+    want = tltl.bs_sum([list(v)]
+                       + [hshift(d) for d in range(1, radius + 1)]
+                       + [hshift(-d) for d in range(1, radius + 1)])
+    got = tltl.bs_sum([tltl.row_count(x, roll(x, 1), roll(x, -1), radius)
+                       for x in rows])
+    np.testing.assert_array_equal(_plane_value(got), _plane_value(want))
+    np.testing.assert_array_equal(
+        tltl.ltl_next_row_first(rows, roll, rule, zero),
+        tltl.ltl_next(rows, roll, rule, zero))
+
+
+@pytest.mark.parametrize("radius", range(2, 8))
+def test_slide_total_equals_the_window_sum(radius):
+    # the window of the last 2r+1 row counts slid down a long column, from
+    # zero as K3 starts it: enter the new row's count, leave the count that
+    # entered 2r+1 rows before, on the total's planes
+    n = 2 * radius + 1
+    rng = np.random.default_rng(radius)
+    counts = [tltl.row_count(x, np.roll(x, 1), np.roll(x, -1), radius)
+              for x in _row_words(rng, 300, 64)]
+    planes = (n * n).bit_length()
+    zero = [np.zeros(64, dtype=np.uint32)] * n.bit_length()
+    total = [np.zeros(64, dtype=np.uint32)] * planes
+    for i, h in enumerate(counts):
+        total = tltl.slide_total(total, h, counts[i - n] if i >= n else zero)
+        assert len(total) == planes
+        np.testing.assert_array_equal(
+            _plane_value(total),
+            sum(_plane_value(c) for c in counts[max(0, i + 1 - n):i + 1]))
+
+
+def test_row_first_word_ops_counts_the_kernels_row_loop():
+    # one row-first step: the entering row's count, the slide, the compiled
+    # rule; a third of the vertical-first count for Bosco, half for R2
+    bosco, r2 = rule_from_name("bosco"), rule_from_name(R2)
+    assert tltl.ltl_word_ops(bosco, "row_first") == 58
+    assert tltl.ltl_word_ops(r2, "row_first") == 29
+    assert tltl.ltl_word_ops(bosco, "row_first") < tltl.ltl_word_ops(bosco)
+    assert tltl.ltl_word_ops(r2, "row_first") < tltl.ltl_word_ops(r2)
+    assert tltl.ltl_word_ops(bosco) == \
+        tltl.ltl_word_ops(bosco, "vertical_first")
+    with pytest.raises(ValueError, match="unknown form"):
+        tltl.ltl_word_ops(bosco, "diagonal")
 
 
 @pytest.mark.parametrize("rule,lower", [(R2, 5), ("bosco", 7)])

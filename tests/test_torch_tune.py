@@ -188,9 +188,9 @@ def test_card_candidates_propose_screened_tiles():
              if "blocks" in c.plan]
     # K3 at comm_every 1; past ⌊8/5⌋ Bosco runs on K2 in passes of 3, whose
     # [rows, cols] tiles pair with the deepest comm_every
-    assert tiles[:3] == [{"blocks": [32]}, {"blocks": [64]},
-                         {"blocks": [256]}]
-    k2 = tiles[3:]
+    assert tiles[:4] == [{"blocks": [32]}, {"blocks": [64]},
+                         {"blocks": [128]}, {"blocks": [512]}]
+    k2 = tiles[4:]
     assert 0 < len(k2) <= tune.space.MAX_BLOCK_CANDIDATES
     for plan in k2:
         assert plan["comm_every"] == 8 and plan["blocks"] != [128, 256]
@@ -217,15 +217,17 @@ def test_k1_screen_is_the_kernels_shared_memory(rows, wpl):
 
 
 @pytest.mark.parametrize("radius", range(2, 8))
-def test_k3_screen_is_the_kernels_shared_memory(radius):
+def test_k3_screen_takes_every_run_length(radius):
+    """K3's tile is the run of rows a warp steps: its warps hold their
+    state in registers (and, deeper than one generation, their rings of
+    counts in at most 36 KB of shared memory whatever the run), so every
+    run length it is built with serves every grid of a radius it takes."""
     for rows in cuda_bitltl.BLOCK_ROWS:
-        most = max(2 * (rows + 2 * g * radius + 1) * 32 * 4
-                   for g in range(1, cuda_bitltl.max_gens(radius) + 1))
-        assert cuda_bitltl.max_tile_bytes(rows, radius) == most
-        limit = 227 * 1024 if rows > 128 else 48 * 1024
-        assert cuda_bitltl.blocks_ok(rows, radius) == (most <= limit)
-    # the default build's tile fits the 48 KB a kernel gets unasked
-    assert cuda_bitltl.blocks_ok(128, radius)
+        assert cuda_bitltl.blocks_ok(rows, radius)
+        assert cuda_bitltl.blocks_ok(rows, radius, H=2**31 - 1)
+        assert not cuda_bitltl.blocks_ok(rows, 1)
+    assert cuda_bitltl.DEFAULT_ROWS in cuda_bitltl.BLOCK_ROWS
+    assert not cuda_bitltl.blocks_ok(48, radius)
     assert cuda_bitltl.block_defines([64]) == {"K3_ROWS": 64}
 
 

@@ -129,7 +129,7 @@ def test_cards_count_the_kernels_instructions(rows, cols, rule, boundary, k,
         units, per, unit_bytes = rows * cols, dense_cell_ops(r.radius), 1
     else:
         units = rows * eng.cols_eff // WORD
-        per = word_ops(r) if kid == "K1" else ltl_word_ops(r)
+        per = word_ops(r) if kid == "K1" else ltl_word_ops(r, "row_first")
         unit_bytes = 4
     ops = per * units * depth
     moved = 2 * unit_bytes * units * passes

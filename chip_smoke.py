@@ -363,7 +363,8 @@ from mpi_tpu_torch.obs.metrics import FAMILIES  # noqa: E402
 from mpi_tpu_torch.obs.profile import capturing, run_profile  # noqa: E402
 from mpi_tpu_torch.ops import _build, _launch, activity  # noqa: E402
 from mpi_tpu_torch.ops.bitlife import (  # noqa: E402
-    bit_step, init_packed, pack, pad_mask, population, unpack, word_ops,
+    bit_step, init_packed, mask_pad, pack, pad_mask, population, unpack,
+    word_ops,
 )
 from mpi_tpu_torch.ops.bitltl import (  # noqa: E402
     ltl_step, ltl_word_ops, ltl_word_ops_lower,
@@ -383,7 +384,7 @@ from mpi_tpu_torch.ops.ltl_codegen import (  # noqa: E402
     lop3_count, rule_key, rule_program,
 )
 from mpi_tpu_torch.ops.cuda_stencil import (  # noqa: E402
-    cuda_dense_step, dense_step_plain,
+    cuda_dense_step, dense_step_plain, rule_table,
 )
 from mpi_tpu_torch.ops.stencil import (  # noqa: E402
     counts_from_padded, dense_cell_ops, pad_grid,
@@ -533,14 +534,14 @@ def phase1_build() -> None:
           "k3_parallel_build_seconds": ltl_seconds,
           "k3_ptxas": ltl_resources})
     # K2 at r 1..7 in the common library (for full grids and for grids
-    # narrower than a tile), one kernel in each library of K1 (one per rule)
-    # and of K3 (r 2..7)
+    # narrower than a tile) and the seam band's kernel at r 1..7, one kernel
+    # in each library of K1 (one per rule) and of K3 (r 2..7)
     # (K3 has one instance a depth, ltl_step_kernel<gens>)
     per_rule = list(k1_resources.values()) + list(ltl_resources.values())
     k3_kernels = {r: max_gens(r) for r in ltl_resources}
-    if (len(resources) != 14 or any(len(v) != 1 for v in k1_resources.values())
+    if (len(resources) != 21 or any(len(v) != 1 for v in k1_resources.values())
             or any(len(v) != k3_kernels[r] for r, v in ltl_resources.items())):
-        fail(f"expected 14 kernels in the common library, one in each K1 "
+        fail(f"expected 21 kernels in the common library, one in each K1 "
              f"library and {k3_kernels} in the K3 ones, got {resources}, "
              f"{k1_resources} and {ltl_resources}")
     spilled = _spills(resources + sum(per_rule, []))
@@ -972,6 +973,67 @@ def _band_exact(rng) -> dict:
     return {"cases": len(cases), "max_abs_err": err}
 
 
+def _fused_exact(rng) -> dict:
+    """The seam band's one launch (``seam.fused_band``) against its plain
+    version, the three pieces (``stitch_band`` of ``evolve_band`` of
+    ``extract_band``), every word of the output, over random words: every
+    radius at every depth d = k r <= 31, widths 4d, one word past it and
+    65000, 130 rows, one board and three, and a random rule a radius.
+    Then whole passes, the one launch against the three pieces with K2's
+    band (the engine's route before it), bit for bit: padded Life 65000²
+    at gens 8 (K1), padded periodic Bosco 65000² at gens 1 (K3), and a
+    batch of 4 padded 4096 x 4090 Life boards."""
+    cases = []
+    for r, rule in [(1, LIFE), *LTL_RULES.items()]:
+        for k in range(1, 31 // r + 1):
+            d = k * r
+            for C in (4 * d, 4 * d + 33, PADDED):
+                cases += [(rule, k, C, (130, -(-C // WORD))),
+                          (rule, k, C, (3, 130, -(-C // WORD)))]
+        k = max(1, 8 // r)
+        C = 4 * k * r + 7
+        cases.append((_random_rule(rng, r), k, C, (70, -(-C // WORD))))
+    err = 0
+    for rule, k, C, shape in cases:
+        d = k * rule.radius
+        x, out = (mask_pad(_words(rng, shape), C) for _ in range(2))
+        want = seam.stitch_band(out.clone(), seam.evolve_band(
+            seam.extract_band(x, C, d), rule, k), C, d)
+        got = seam.fused_band(x, out, rule, C, k)
+        if not torch.equal(got, want):
+            err = 1
+            print(f"chip_smoke: fused band != its plain version: {shape} "
+                  f"C={C} {rule.name} k={k}", file=sys.stderr, flush=True)
+    out = {"cases": {"cases": len(cases), "max_abs_err": err}}
+    rows, cols = MESH_PADDED_SHAPE
+    for label, rule, k, shape, C, kernel in (
+            ("padded_life", LIFE, 8, (PADDED, PADDED_WORDS), PADDED,
+             cuda_bit_step),
+            ("padded_bosco", BOSCO, 1, (PADDED, PADDED_WORDS), PADDED,
+             cuda_ltl_step),
+            ("padded_life_4_boards", LIFE, 8, (4, rows, -(-cols // WORD)),
+             cols, cuda_bit_step)):
+        x = mask_pad(_words(rng, shape), C)
+        before = (seam.fused_band.launches, cuda_dense_step.launches)
+        got = _seam_pass(rule, C, k, seam.step_band, kernel)(
+            x, torch.empty_like(x))[0]
+        launched = (seam.fused_band.launches - before[0],
+                    cuda_dense_step.launches - before[1])
+        want = _seam_pass(rule, C, k, _k2_band, kernel)(
+            x, torch.empty_like(x))[0]
+        bad = int((got != want).sum().item())
+        if bad or launched != (1, 0):
+            print(f"chip_smoke: the fused {label} pass differs from the "
+                  f"three pieces in {bad} words (launches {launched})",
+                  file=sys.stderr, flush=True)
+        out[label] = {"shape": list(shape), "col_limit": C, "gens": k,
+                      "fused_launches": launched[0],
+                      "max_abs_err": int(bool(bad) or launched != (1, 0))}
+        del x, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 LTL_RULES = {2: R2, 3: DENSE_RULES[3], 4: rule_from_name("R4,B30-40,S25-50"),
              5: BOSCO, 6: rule_from_name("R6,B50-70,S40-90"),
              7: DENSE_RULES[7]}
@@ -1193,6 +1255,13 @@ def phase2_exact() -> dict:
                         + [v["max_abs_err"] for v in extra.values()
                            if isinstance(v, dict)])
     t0 = time.perf_counter()
+    fused = _fused_exact(rng)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_vs_plain", "kernel": "seam",
+          "seconds": time.perf_counter() - t0, **fused})
+    errs["seam"] = max(v["max_abs_err"] for v in fused.values())
+    t0 = time.perf_counter()
     windows = _mesh_window_exact(rng)
     emit({"phase": "mesh_windows_vs_plain", "boundary": "dead",
           "seconds": time.perf_counter() - t0, **windows})
@@ -1379,7 +1448,7 @@ def _drive(label, kid, kind, shape, rule, comm_every, steps,
 
 def _drive_strip() -> None:
     """``run_cuda`` on ``SEAM_STRIP``: the padded periodic Life path's
-    route (K1 with ``col_limit``, the seam band on K2) at its full width
+    route (K1 with ``col_limit``, the seam band's one launch) at its full width
     and fewer rows, against ``dense_step_plain`` generation by generation
     on the real width, a plain version that uses none of the pad or seam
     code that ``_plain_final`` shares with the engine."""
@@ -1390,13 +1459,14 @@ def _drive_strip() -> None:
     plan = backend.plan_engine(cfg)
     if plan[0] != kind or not plan[2]:
         fail(f"the {label} strip routes to {plan}, not padded {kind}")
-    for w in KERNELS.values():
+    for w in [*KERNELS.values(), seam.fused_band]:
         w.launches = 0
     final = backend.run_cuda(cfg)
     launches = {kid: w.launches for kid, w in KERNELS.items()}
-    if not (launches["K1"] and launches["K2"]):
-        fail(f"the {label} strip launched {launches}: K1 and the band's K2 "
-             f"expected")
+    launches["seam"] = seam.fused_band.launches
+    if not (launches["K1"] and launches["seam"]) or launches["K2"]:
+        fail(f"the {label} strip launched {launches}: K1 and the seam "
+             f"band's kernel expected, no K2")
     g = init_dense(rows, PADDED, SEED, device="cuda")
     for _ in range(steps):
         g = dense_step_plain(g, rule, boundary)
@@ -1845,23 +1915,31 @@ def _turns(fns: dict, reps: int = 10) -> dict:
     return ms
 
 
-def _seam_pass(rule, C, k, band):
+def _seam_pass(rule, C, k, band, kernel=cuda_bit_step):
     """A callable (src, dst) running one pass of the padded periodic engine
-    (K1 with ``col_limit``, the band stepped by ``band`` and stitched)."""
+    (``kernel``, K1 or K3, with ``col_limit``, and the seam band): with
+    ``band`` the device default (``seam.step_band``) the band's one launch,
+    with any other band the three pieces, the band stepped by ``band``."""
     evolve = seam.make_seam_stepper(
-        lambda src, g, dst: cuda_bit_step(src, rule, "periodic", g, out=dst,
-                                          col_limit=C),
+        lambda src, g, dst: kernel(src, rule, "periodic", g, out=dst,
+                                   col_limit=C),
         rule, C, k, band=band)
     return lambda src, dst: evolve(src, k, dst)
 
 
+def _k2_band(strip, rule, k):
+    """K2's band (``seam.step_band``) as a band of its own: a seam stepper
+    built with it keeps the three pieces, extract, K2 and stitch."""
+    return seam.step_band(strip, rule, k)
+
+
 def _padded_times(card: str, rows: dict) -> None:
     """The padded paths at PADDED², in turns: Life's gens-8 pass as K1 with
-    ``col_limit`` alone, as the engine runs it (with the seam band on K2),
-    with the band on ``evolve_band`` instead, and forced onto K2 (the route
-    before this PR, uint8 cells, periodic); the band alone on K2 and on
-    ``evolve_band``; the dead Bosco pass on K3 with ``col_limit`` against
-    K2."""
+    ``col_limit`` alone, as the engine runs it (with the seam band's one
+    launch), with the band in three pieces on K2 and on ``evolve_band``,
+    and forced onto K2 (uint8 cells, periodic); the band alone in one
+    launch, on K2 and on ``evolve_band``; the dead Bosco pass on K3 with
+    ``col_limit`` against K2."""
     C, k = PADDED, PADDED_PATHS[0][4]
     x = init_packed(PADDED, PADDED_WORDS * WORD, SEED, col_limit=C,
                     device="cuda")
@@ -1869,14 +1947,23 @@ def _padded_times(card: str, rows: dict) -> None:
     dense = init_dense(PADDED, PADDED, SEED, device="cuda")
     d = k * LIFE.radius
     band = _cells(np.random.default_rng(SEED), (PADDED, 4 * d))
+    stitched = cuda_bit_step(x, LIFE, "periodic", k, col_limit=C)
+    lib, table = _build.load_library(), rule_table(LIFE)
+    stream = torch.cuda.current_stream().cuda_stream
     life = _turns({
         "k1_col_limit": _ping_pong(
             lambda a, b: cuda_bit_step(a, LIFE, "periodic", k, out=b,
                                        col_limit=C), x),
-        "engine_pass_k2_band": _ping_pong(
+        "engine_pass_fused": _ping_pong(
             _seam_pass(LIFE, C, k, seam.step_band), x),
+        "engine_pass_k2_band": _ping_pong(
+            _seam_pass(LIFE, C, k, _k2_band), x),
         "engine_pass_evolve_band": _ping_pong(
             _seam_pass(LIFE, C, k, seam.evolve_band), x),
+        # the kernel alone, its library called as the wrapper calls it
+        "band_fused": lambda: lib.gol_seam_band(
+            x.data_ptr(), stitched.data_ptr(), 1, PADDED, PADDED_WORDS, C,
+            LIFE.radius, k, table, stream),
         "band_k2": lambda: seam.step_band(band, LIFE, k),
         "band_evolve_band": lambda: seam.evolve_band(band, LIFE, k),
         "k2_forced": _ping_pong(
@@ -1888,11 +1975,16 @@ def _padded_times(card: str, rows: dict) -> None:
           "grid": [PADDED, PADDED], "cols_eff": PADDED_WORDS * WORD,
           "gens": k, "ms": life,
           "seam_share_of_engine_pass":
+              1 - mean["k1_col_limit"] / mean["engine_pass_fused"],
+          "seam_share_of_engine_pass_k2_band":
               1 - mean["k1_col_limit"] / mean["engine_pass_k2_band"],
           "band_kept": "k2" if mean["band_k2"] <= mean["band_evolve_band"]
           else "evolve_band",
           "k2_forced_over_engine_pass":
-              mean["k2_forced"] / mean["engine_pass_k2_band"]})
+              mean["k2_forced"] / mean["engine_pass_fused"]})
+    if mean["engine_pass_fused"] > mean["engine_pass_k2_band"]:
+        fail("the seam band's one launch makes the padded pass slower than "
+             "its three pieces on K2")
     if mean["band_k2"] > mean["band_evolve_band"]:
         fail("K2 steps the seam band slower than evolve_band: keep the "
              "faster (parallel/seam.py:step_band)")
@@ -1907,6 +1999,17 @@ def _padded_times(card: str, rows: dict) -> None:
     rows["K2", "band"] = _row(
         card, "K2", list(band.shape), LIFE, k, mean["band_k2"],
         mean["band_evolve_band"], 2 * cells / HBM_BYTES_PER_S * 1e3,
+        k * cells * K2_CELL_OPS / INT32_OPS_PER_S * 1e3, mode="seam_band",
+        ops_per_cell=K2_CELL_OPS, library_ms=None,
+        plain_note="evolve_band, timed in the turns above")
+    # the band in one launch: the strip's words read, the seam's words read
+    # and written, K2's operations on the strip's cells
+    seam_words = len(seam.strip_words(C, d)) + 2 * len(
+        {c // WORD for c in [*range(C - d, C), *range(d)]})
+    rows["seam", "fused"] = _row(
+        card, "seam", list(band.shape), LIFE, k, mean["band_fused"],
+        mean["band_evolve_band"],
+        4 * PADDED * seam_words / HBM_BYTES_PER_S * 1e3,
         k * cells * K2_CELL_OPS / INT32_OPS_PER_S * 1e3, mode="seam_band",
         ops_per_cell=K2_CELL_OPS, library_ms=None,
         plain_note="evolve_band, timed in the turns above")
@@ -1929,7 +2032,7 @@ def _padded_times(card: str, rows: dict) -> None:
         8 * words / HBM_BYTES_PER_S * 1e3,
         words * ltl_word_ops_lower(BOSCO) / INT32_OPS_PER_S * 1e3,
         mode="col_limit", col_limit=C, boundary="dead", library_ms=None)
-    del x, dense, band
+    del x, dense, band, stitched
     torch.cuda.empty_cache()
 
 
@@ -2131,7 +2234,8 @@ def phase4_times(card: str) -> dict:
 # the CUDA kernels of each wrapper, as their names appear in a trace
 KERNEL_NAMES = {"K1": ("bit_step_kernel",),
                 "K2": ("dense_step_kernel", "dense_narrow_kernel"),
-                "K3": ("ltl_step_kernel",)}
+                "K3": ("ltl_step_kernel",),
+                "seam": ("seam_band_kernel",)}
 
 
 def _trace_holds_launches(label: str, attempt):
@@ -2185,13 +2289,15 @@ def _trace(card, label, size, rule, comm_every, steps,
                 else engine.init_grid())
     engine.warm_up(boards=boards)
     engine.sync()
-    # one launch a pass of the path's kernel, and of K2 for the seam band;
-    # the sparse path's launches follow its phases: its kernel's alone
+    # one launch a pass of the path's kernel, and of the seam band's kernel
+    # on a padded torus; the sparse path's launches follow its phases: its
+    # kernel's alone
     passes = -(-steps // engine.depth)
-    expected = {kid: 0 for kid in KERNELS}
+    counters = dict(KERNELS, seam=seam.fused_band)
+    expected = {kid: 0 for kid in counters}
     expected[engine.kernel_id] = passes
     if engine.seam:
-        expected["K2"] = passes
+        expected["seam"] = passes
     reads = engine._evolve.reads if board is not None else 0
     unprofiled_ms = None
     if board is not None:
@@ -2209,7 +2315,7 @@ def _trace(card, label, size, rule, comm_every, steps,
             # the profiler's first kernel
             torch.ones(1, device="cuda").add_(1)
             torch.cuda.synchronize()
-            before = {kid: w.launches for kid, w in KERNELS.items()}
+            before = {kid: w.launches for kid, w in counters.items()}
             builds = _build.builds
             with record_function("steady"):
                 if boards:
@@ -2218,7 +2324,7 @@ def _trace(card, label, size, rule, comm_every, steps,
                     grid = engine.step(grid, steps)
                 engine.sync()
         counted = {kid: w.launches - before[kid]
-                   for kid, w in KERNELS.items()}
+                   for kid, w in counters.items()}
         if board is not None:
             expected[engine.kernel_id] = max(1, counted[engine.kernel_id])
         if counted != expected:
@@ -2275,8 +2381,8 @@ def _trace(card, label, size, rule, comm_every, steps,
           "kernel": engine.kernel_id, "grid": [size, size], "boards": boards,
           "boundary": boundary, "pad_bits": engine.pad_bits,
           "seam": engine.seam,
-          # device time of every other kernel (the seam band's on K2 and
-          # its extract and stitch), by the same union
+          # device time of every other kernel (the seam band's), by the
+          # same union
           "other_kernels_ms": sum(us for n, (_, us) in by_name.items()
                                   if own not in n) / 1e3,
           "steps": steps, "comm_every": comm_every,
@@ -4443,8 +4549,8 @@ def _dense_variant_exact(rng, rule, tile) -> tuple:
 def _k2_variant_registers(lib) -> list:
     """The registers of a K2 variant's kernels, which may not spill."""
     resources = _build.kernel_resources(lib)
-    if len(resources) != 14 or _spills(resources):
-        fail(f"K2 variant {lib.name}: expected 14 kernels without spills, "
+    if len(resources) != 21 or _spills(resources):
+        fail(f"K2 variant {lib.name}: expected 21 kernels without spills, "
              f"got {resources}")
     return sorted({r.get("registers") for r in resources})
 

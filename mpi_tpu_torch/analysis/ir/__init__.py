@@ -13,8 +13,10 @@ between them.  The records are held to five contracts (:mod:`.checks`):
 * ``ir-donation``   — both directions of the consume-the-input contract:
   each step runs on the ping-pong pair of its entry grid and the spare
   the engine kept, hands back its last pass's output and reuses the
-  spare; and no op reads a launch's input after the launch took it (the
-  seam band is extracted before the kernel is launched); a mesh engine,
+  spare; and no op reads a launch's input after the launch took it (a
+  split seam band is extracted before the kernel is launched; the
+  one-launch band is itself a launch on it, right after the pass's); a
+  mesh engine,
   which writes new shards every pass, never writes its entry grid.
 * ``ir-purity``     — no host reads inside a step without sparse
   stepping; a sparse step makes exactly the reads its phase loop counts.
@@ -109,7 +111,7 @@ class IRReport:
         out = {"K1": 0, "K2": 0, "K3": 0}
         for rc in self.recorded:
             for kid, n in rc.launches_by_kernel.items():
-                out[kid] += n
+                out[kid] = out.get(kid, 0) + n
         return out
 
     def to_json(self) -> dict:

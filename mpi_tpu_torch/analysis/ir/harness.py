@@ -8,15 +8,17 @@ the window, and runs two steps of ``depth`` generations (one grid, or a
 stacked batch of B boards) with two recorders armed:
 
 * the **launch recorder** (``ops/_launch.py:arm``): every call of the
-  kernel wrappers ``cuda_bit_step`` (K1), ``cuda_ltl_step`` (K3) and
-  ``cuda_dense_step`` (K2, the seam band's included) logs the kernel, the
-  rule's canonical text, boundary, gens, shape, dtype and ``col_limit``,
-  and the storage of its input and of its ``out``.  On the CPU a wrapper
-  runs the kernel's plain version and copies into ``out`` as the kernel
-  writes it (or returns a fresh tensor where the kernel allocates one), so
-  the record is the same on both devices: a record blessed on the CPU is
-  the card's record too.  Only these records enter the fingerprint
-  (:mod:`.canon`);
+  kernel wrappers ``cuda_bit_step`` (K1), ``cuda_ltl_step`` (K3),
+  ``cuda_dense_step`` (K2, a mesh's seam band included) and
+  ``parallel/seam.py:fused_band`` (``seam``: one device's seam band, its
+  input the pass's input and its ``out`` the pass's output) logs the
+  kernel, the rule's canonical text, boundary, gens, shape, dtype and
+  ``col_limit``, and the storage of its input and of its ``out``.  On the
+  CPU a wrapper runs the kernel's plain version and copies into ``out`` as
+  the kernel writes it (or returns a fresh tensor where the kernel
+  allocates one), so the record is the same on both devices: a record
+  blessed on the CPU is the card's record too.  Only these records enter
+  the fingerprint (:mod:`.canon`);
 * the **exchange record** (``ops/_launch.py:record_exchange``): on a
   mesh, every ppermute of the halo exchange (``parallel/halo.py``) logs
   its mesh axis, (src, dst) pairs and slab shape, which ``ir-collective``

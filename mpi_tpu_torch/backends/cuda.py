@@ -642,13 +642,12 @@ class Engine(ServeSurface):
     def warm_up(self, boards: int = 0) -> None:
         """Build and load the kernel and launch it once at each pass depth
         of the run on a one-cell or one-word grid (and for a seam engine
-        run the band's extraction and stitch on a one-row grid and its K2
-        step at its height; for a sparse engine run every phase on a zero
-        grid of 3 x 3 tiles, so that PyTorch's kernels for them are
-        loaded), and allocate the spare buffer of the ping-pong pair (and
-        of a batch of ``boards``), so the first timed pass pays no build,
-        module load, first-launch setup, host-to-device copy or
-        ``cudaMalloc``."""
+        launch the seam band on a one-row grid; for a sparse engine run
+        every phase on a zero grid of 3 x 3 tiles, so that PyTorch's
+        kernels for them are loaded), and allocate the spare buffer of the
+        ping-pong pair (and of a batch of ``boards``), so the first timed
+        pass pays no build, module load, first-launch setup, host-to-device
+        copy or ``cudaMalloc``."""
         self._warm(self.depths, boards)
 
     def _warm(self, depths, boards: int) -> None:
@@ -661,13 +660,11 @@ class Engine(ServeSurface):
                 tiny = torch.zeros((1, 1), dtype=dtype, device=self.device)
                 self._kernel(tiny, rule, self.config.boundary, gens=k)
             if self.seam:
-                C, d = self.config.cols, k * rule.radius
                 rows = [(1, shape[1])] + ([(1, 1, shape[1])] if boards else [])
                 for row in rows:
                     tiny = torch.zeros(row, dtype=dtype, device=self.device)
-                    seam.stitch_band(tiny, seam.extract_band(tiny, C, d), C, d)
-                seam.step_band(torch.zeros((shape[0], 4 * d), dtype=torch.uint8,
-                                           device=self.device), rule, k)
+                    seam.fused_band(tiny, torch.zeros_like(tiny), rule,
+                                    self.config.cols, k)
         if self.sparse_plan is not None:
             self._warm_sparse(dtype)
             boards = 0  # a sparse batch steps board by board

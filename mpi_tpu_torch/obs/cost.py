@@ -20,7 +20,8 @@ The counts are the kernels', ``source = "kernel_count"``:
 * K2 (``csrc/stencil.cu``): ``ops/stencil.py:dense_cell_ops(r)``
   instructions per cell per generation, counted from the kernel's row
   loop, times cells, generations and boards; a padded periodic engine adds
-  its seam band's K2 work.
+  its seam band's work, which its one launch (``seam_band_kernel``) does
+  with K2's row loop.
 
 A sparse engine's card counts the dense work of the same depth: the work
 it skips depends on the board, so the card is its upper bound.  Bytes are
@@ -167,7 +168,8 @@ def capture_card(engine, *, depth: int, batch: int) -> CostCard:
     ops = float(per_unit) * units * depth
     moved = 2.0 * board_bytes * len(passes)
     if engine.seam:
-        # the seam band: 4 k r columns of every row, one K2 pass per pass
+        # the seam band: 4 k r columns of every row, stepped k generations
+        # with K2's row loop once a pass
         for kp in passes:
             band = rows * 4 * kp * rule.radius
             ops += float(dense_cell_ops(rule.radius)) * band * kp

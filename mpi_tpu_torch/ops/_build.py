@@ -370,6 +370,9 @@ def _dense_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gol_dense_step.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32,
                                    ctypes.POINTER(ctypes.c_uint), ptr]
     lib.gol_dense_step.restype = ctypes.c_int
+    lib.gol_seam_band.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, i32,
+                                  ctypes.POINTER(ctypes.c_uint), ptr]
+    lib.gol_seam_band.restype = ctypes.c_int
     return _error_string(lib)
 
 

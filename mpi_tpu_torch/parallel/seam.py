@@ -13,13 +13,21 @@ with the true periodic row wrap, whose middle 2d columns are then exact
 (``evolve_band``, the trapezoid argument), and written over the kernel's
 output by word masking (``stitch_band``).
 
-On the device the band is stepped by kernel K2, one launch for each
-chunk of at most ⌊16/r⌋ generations (:func:`step_band`): the (H, 4d)
-strip with a periodic boundary, whose middle 2d columns after k
-generations depend only on the strip's own columns, so the column wrap
-never reaches them and they equal ``evolve_band``'s.  Every piece takes a
-leading board axis, so a batch of padded boards stitches in the same few
-launches as one board.
+On one device the whole band is one launch of ``seam_band_kernel``
+(``csrc/stencil.cu``, :func:`fused_band`), made after the pass's kernel
+on the same stream: it reads the strip from the pass's packed input,
+which the pass does not write, steps it on chip (as bits at radius 1, as
+K2's byte cells beyond) with the zero column fill of ``evolve_band``, and
+writes the exact columns into the pass's output by word masking.  A stepper built with any other
+``band`` (``evolve_band``, the plain version) keeps the three pieces.
+
+The pieces, which a mesh runs: the band is stepped by kernel K2, one
+launch for each chunk of at most ⌊16/r⌋ generations (:func:`step_band`):
+the (H, 4d) strip with a periodic boundary, whose middle 2d columns after
+k generations depend only on the strip's own columns, so the column wrap
+never reaches them and they equal ``evolve_band``'s.  Every piece, and
+the one launch, takes a leading board axis, so a batch of padded boards
+stitches in the same launches as one board.
 
 On a mesh (:func:`make_mesh_seam_stepper`) the strip's words lie in the
 shards that hold them, the last and the first shard column when the tiles
@@ -42,7 +50,12 @@ import torch
 
 from mpi_tpu_torch.config import WORD
 from mpi_tpu_torch.models.rules import Rule
-from mpi_tpu_torch.ops.cuda_stencil import MAX_DEPTH, cuda_dense_step
+from mpi_tpu_torch.ops._launch import (
+    boards, check_cuda, check_out, raise_on_error, recording,
+)
+from mpi_tpu_torch.ops.cuda_stencil import (
+    MAX_DEPTH, cuda_dense_step, rule_table,
+)
 from mpi_tpu_torch.ops.stencil import apply_rule, counts_from_padded
 from mpi_tpu_torch.utils.hashinit import i32_bits
 from mpi_tpu_torch.utils.segmenting import segmented_evolve
@@ -102,16 +115,18 @@ def extract_band(packed: torch.Tensor, C: int, d: int) -> torch.Tensor:
 
 def evolve_band(band: torch.Tensor, rule: Rule, k: int) -> torch.Tensor:
     """k generations of the dense strip (..., H, 4d): the exact periodic row
-    wrap each generation and zero column fill, so the corruption from the
-    column edges creeps r cells a generation inward and the middle 2d
-    columns are exact after k generations.  The plain version of
-    :func:`step_band`."""
+    wrap each generation (any H >= 1: rows wrap modulo H) and zero column
+    fill, so the corruption from the column edges creeps r cells a
+    generation inward and the middle 2d columns are exact after k
+    generations.  The plain version of :func:`step_band` and of
+    :func:`fused_band`'s strip."""
     if band.dim() == 3:
         return torch.stack([evolve_band(b, rule, k) for b in band])
     r = rule.radius
+    H = band.shape[0]
+    wrapped = torch.arange(-r, H + r, device=band.device) % H
     for _ in range(k):
-        x = torch.cat([band[-r:], band, band[:r]], dim=0)
-        x = torch.nn.functional.pad(x, (r, r))
+        x = torch.nn.functional.pad(band.index_select(0, wrapped), (r, r))
         counts = counts_from_padded(x, r)
         band = apply_rule(x[r:-r, r:-r], counts, rule)
     return band
@@ -168,26 +183,98 @@ def stitch_band(packed: torch.Tensor, band: torch.Tensor, C: int,
 _OFF = contextlib.nullcontext()
 
 
+def fused_band(src: torch.Tensor, out: torch.Tensor, rule: Rule, C: int,
+               k: int, span=None) -> torch.Tensor:
+    """The seam band of a pass of ``k`` generations in one launch of
+    ``seam_band_kernel``: ``src`` is the pass's packed input (H, NW), or a
+    (B, H, NW) batch, with real width ``C``; ``out`` its output, which the
+    pass has written.  Real columns [C-d, C) and [0, d), d = k·r, of
+    ``out`` are rewritten, in place, with the strip of ``src`` stepped k
+    generations; no other bit of ``out`` changes.  Returns ``out``.
+
+    On a CUDA tensor it launches the kernel on the current stream after
+    the pass (``src`` must not be written in between); on the CPU it runs
+    the plain version, :func:`stitch_band` of :func:`evolve_band` of
+    :func:`extract_band`, its extraction and its stitch in the spans
+    ``span("seam.extract")`` and ``span("seam.stitch")`` when ``span``
+    (an obs handle's) is given.  ``fused_band.launches`` counts kernel
+    launches."""
+    d = k * rule.radius
+    band_cols(C, d)
+    if src.dtype != torch.int32:
+        raise TypeError(f"packed grid must be int32 words, got {src.dtype}")
+    B, H, NW = boards(src)
+    if C > NW * WORD:
+        raise ValueError(f"real width {C} exceeds the {NW * WORD} cells of "
+                         f"{NW} words")
+    check_out(out, src, "the seam band")
+    with recording("seam", src, rule=rule, boundary="periodic", gens=k,
+                   col_limit=C) as rec:
+        if src.device.type == "cpu":
+            piece = span or (lambda name: _OFF)
+            with piece("seam.extract"):
+                strip = extract_band(src, C, d)
+            strip = evolve_band(strip, rule, k)
+            with piece("seam.stitch"):
+                stitch_band(out, strip, C, d)
+        else:
+            check_cuda(src, "the seam band")
+            from mpi_tpu_torch.ops import _build
+
+            lib = _build.load_library()
+            with torch.cuda.device(src.device):
+                stream = torch.cuda.current_stream(src.device).cuda_stream
+                err = lib.gol_seam_band(src.data_ptr(), out.data_ptr(), B, H,
+                                        NW, C, rule.radius, k,
+                                        rule_table(rule), stream)
+            raise_on_error(lib, err, "the seam band")
+            fused_band.launches += 1
+        rec.done(out)
+    return out
+
+
+fused_band.launches = 0
+
+# the passes the seam steppers ran, by the path each took: ``fused`` (one
+# launch, :func:`fused_band`) or ``split`` (extract, band, stitch)
+launches_by_form = {"fused": 0, "split": 0}
+
+
 def make_seam_stepper(inner, rule: Rule, C: int, K: int, band=step_band,
                       obs=None):
     """evolve(grid, steps, spare) -> (grid, spare) around the padded
     periodic pass ``inner(src, k, dst)`` (a packed kernel with
     ``col_limit = C``), as ``utils/segmenting.py:segmented_evolve`` drives
-    it: each pass extracts the band from its input, launches the kernel
-    into the spare buffer, steps the band and stitches its exact columns
-    over the kernel's output.  The band is read before the kernel is
-    launched: under the ping-pong the next pass overwrites this pass's
-    input.  ``C`` is the real width, ``K`` the generations per pass;
-    ``band(strip, rule, k)`` steps the strip (:func:`evolve_band` for the
-    plain version of the whole pass).  ``obs``: the getter of an engine's
-    obs handle (``segmented_evolve``'s); while it gives one, the
-    extraction, the band's step and the stitch run in the spans
-    ``seam.extract``, ``seam.band`` and ``seam.stitch`` of the pass's
-    ``engine.pass``."""
+    it.  ``C`` is the real width, ``K`` the generations per pass.
+
+    With ``band`` the device default (:func:`step_band`) each pass
+    launches the kernel into the spare buffer and then :func:`fused_band`,
+    which reads the strip from the pass's input and stitches its exact
+    columns into the kernel's output in one launch.  With any other
+    ``band(strip, rule, k)`` (:func:`evolve_band` for the plain version of
+    the whole pass) each pass extracts the band from its input before the
+    kernel is launched (under the ping-pong the next pass overwrites this
+    pass's input), steps it by ``band`` and stitches it over the kernel's
+    output.  :data:`launches_by_form` counts the passes of each path.
+
+    ``obs``: the getter of an engine's obs handle (``segmented_evolve``'s);
+    while it gives one, the one launch runs in the span ``seam.band`` of
+    the pass's ``engine.pass`` (on the CPU its plain version's extraction
+    and stitch in ``seam.extract`` and ``seam.stitch`` inside it), and the
+    three pieces in ``seam.extract``, ``seam.band`` and ``seam.stitch``."""
     r = rule.radius
     band_cols(C, K * r)  # validate up front at the deepest pass
 
-    def local(src, k, dst):
+    def fused(src, k, dst):
+        handle = None if obs is None else obs()
+        out = inner(src, k, dst)
+        with _OFF if handle is None else handle.span("seam.band"):
+            fused_band(src, out, rule, C, k,
+                       None if handle is None else handle.span)
+        launches_by_form["fused"] += 1
+        return out
+
+    def split(src, k, dst):
         d = k * r
         handle = None if obs is None else obs()
         with _OFF if handle is None else handle.span("seam.extract"):
@@ -196,9 +283,11 @@ def make_seam_stepper(inner, rule: Rule, C: int, K: int, band=step_band,
         with _OFF if handle is None else handle.span("seam.band"):
             strip = band(strip, rule, k)
         with _OFF if handle is None else handle.span("seam.stitch"):
-            return stitch_band(out, strip, C, d)
+            stitch_band(out, strip, C, d)
+        launches_by_form["split"] += 1
+        return out
 
-    return segmented_evolve(local, K, obs)
+    return segmented_evolve(fused if band is step_band else split, K, obs)
 
 
 def strip_words(C: int, d: int) -> tuple:

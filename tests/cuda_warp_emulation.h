@@ -1,12 +1,18 @@
 // Host C++ stand-ins for the CUDA constructs that kernel K3's source
-// (mpi_tpu_torch/csrc/bitltl.cu) uses, so that the host compiler builds it
-// and it runs on the CPU: a thread a lane, the warps of a CTA one after
-// another, a shuffle through a barrier of the warp's 32 threads, and one
-// buffer for the dynamic shared memory.  tests/test_torch_k3_emulated.py
-// includes it in place of <cuda_runtime.h>.
+// (mpi_tpu_torch/csrc/bitltl.cu) and the seam band's kernel
+// (mpi_tpu_torch/csrc/stencil.cu) use, so that the host compiler builds them
+// and they run on the CPU: a thread a lane, the warps of a CTA one after
+// another, a shuffle and __syncwarp through a barrier of the warp's 32
+// threads, and one buffer for the dynamic shared memory.  K2's body in the
+// same source needs a barrier across a CTA's warps, which this emulation
+// does not have: it builds, and its __syncthreads aborts.
+// tests/test_torch_k3_emulated.py and tests/test_torch_seam_fused.py include
+// it in place of <cuda_runtime.h>.
 #pragma once
 #include <barrier>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <thread>
 #include <vector>
 
@@ -15,6 +21,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
+#define __shared__ static
 
 struct dim3 {
   unsigned x, y, z;
@@ -28,8 +35,11 @@ enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
   cudaErrorInvalidConfiguration = 9,
-  cudaDevAttrMultiProcessorCount = 16
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8
 };
+template <typename Kernel>
+cudaError_t cudaFuncSetAttribute(Kernel, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "error"; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
@@ -39,6 +49,31 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
   return cudaSuccess;
 }
 inline int min(int a, int b) { return a < b ? a : b; }
+// the kernels here give each word one writing thread
+inline uint32_t atomicAnd(uint32_t* p, uint32_t v) {
+  const uint32_t old = *p;
+  *p = old & v;
+  return old;
+}
+inline uint32_t atomicOr(uint32_t* p, uint32_t v) {
+  const uint32_t old = *p;
+  *p = old | v;
+  return old;
+}
+
+struct uint2 { uint32_t x, y; };
+struct alignas(16) uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
+  return uint4{x, y, z, w};
+}
+// byte i of the result is byte (s >> 4i) & 7 of y:x
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= (uint32_t)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  return r;
+}
 
 inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned s) {
   return (uint32_t)((((uint64_t)hi << 32) | lo) >> (s & 31));
@@ -68,7 +103,13 @@ inline uint32_t __shfl_down_sync(unsigned, uint32_t v, int d) {
   return shuffle_from(v, (int)threadIdx.x + d);
 }
 
-inline uint32_t emulated_shared_memory[1 << 16];
+inline void __syncwarp() { this_warp->all.arrive_and_wait(); }
+inline void __syncthreads() {
+  std::fprintf(stderr, "__syncthreads: no barrier across warps here\n");
+  std::abort();
+}
+
+alignas(16) inline uint32_t emulated_shared_memory[1 << 16];
 
 // kernel<<<grid, block, shared, stream>>>(args...)
 template <typename Kernel, typename... Args>
@@ -76,7 +117,9 @@ void emulated_launch(Kernel kernel, dim3 grid, dim3 block, size_t,
                      cudaStream_t, Args... args) {
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        // a CTA's shared memory starts as whatever was there: poison it
+        for (uint32_t& word : emulated_shared_memory) word = 0xA5A5A5A5u;
         for (unsigned warp = 0; warp < block.y; ++warp) {
           EmulatedWarp w;
           std::vector<std::thread> lanes;
@@ -89,4 +132,5 @@ void emulated_launch(Kernel kernel, dim3 grid, dim3 block, size_t,
             });
           for (auto& t : lanes) t.join();
         }
+      }
 }

@@ -312,8 +312,10 @@ def test_mesh_engine_carries_the_tile_on_every_window(monkeypatch):
 
 def test_seam_band_keeps_the_default_build(monkeypatch, capsys):
     """A padded periodic grid's engine is K1 or K3; its tile is theirs, and
-    the seam band's K2 launches the default build."""
-    k1_calls, band_calls = [], []
+    the seam band launches from the default build of the common library:
+    its one launch (``seam.fused_band``) takes no build macros, and K2
+    runs nothing."""
+    k1_calls, band_calls, k2_calls = [], [], []
 
     def k1(x, rule, boundary="periodic", gens=1, out=None, defines=None,
            **kw):
@@ -322,15 +324,20 @@ def test_seam_band_keeps_the_default_build(monkeypatch, capsys):
                                                   **kw)
         return res if out is None else out.copy_(res)
 
-    real_band = seam.cuda_dense_step
+    real_band, real_k2 = seam.fused_band, seam.cuda_dense_step
 
     def band(*args, **kw):
-        band_calls.append(kw.get("defines"))
+        band_calls.append(kw)
         return real_band(*args, **kw)
+
+    def k2(*args, **kw):
+        k2_calls.append(kw.get("defines"))
+        return real_k2(*args, **kw)
 
     monkeypatch.setitem(backend.KERNELS, "bit",
                         ("K1", k1, backend.cuda_bitlife.refusal))
-    monkeypatch.setattr(seam, "cuda_dense_step", band)
+    monkeypatch.setattr(seam, "fused_band", band)
+    monkeypatch.setattr(seam, "cuda_dense_step", k2)
     monkeypatch.setattr(backend, "check_blocks", lambda *a: None)
     config = GolConfig(rows=64, cols=90, steps=0, comm_every=2)
     eng = backend.build_engine(config, device="cpu", blocks=[32, 4])
@@ -339,7 +346,8 @@ def test_seam_band_keeps_the_default_build(monkeypatch, capsys):
     eng.step(eng.init_grid(), 4)
     assert k1_calls and all(d == {"K1_ROWS": 32, "K1_WPL": 4}
                             for d in k1_calls)
-    assert band_calls and all(d is None for d in band_calls)
+    assert band_calls and all(kw == {} for kw in band_calls)
+    assert k2_calls == []
 
 
 # ------------------------------------------------------------ the tuner

@@ -106,17 +106,21 @@ def test_host_reads_are_the_sparse_phase_loops(full_report):
 
 
 def test_seam_band_extracted_before_each_launch(full_report):
-    """Regression pin: in each pass of a seam cell the band's reads of the
-    pass's input come before the kernel's launch."""
+    """Regression pin: in each pass of a seam cell the band reads the
+    pass's input before the next pass writes into it.  The one-device
+    band is one launch (``seam``) right after each K1 launch, on that
+    launch's input and output, with no launch and no op between them."""
     for cid in ("seam_1x1", "batched_seam_1x1"):
         rc = _by_id(full_report)[cid]
         for step in rc.steps:
-            for k, ev in enumerate(step.events):
-                if getattr(ev, "kernel", None) == "K1":
-                    before = step.events[:k]
-                    assert any(getattr(e, "name", "") == "aten::index_select"
-                               and ev.src.storage in e.reads
-                               for e in before), cid
+            launches = [k for k, ev in enumerate(step.events)
+                        if getattr(ev, "kernel", None) in ("K1", "seam")]
+            kinds = [step.events[k].kernel for k in launches]
+            assert kinds and kinds == ["K1", "seam"] * (len(kinds) // 2), cid
+            for k1, band in zip(launches[::2], launches[1::2]):
+                ev, sb = step.events[k1], step.events[band]
+                assert band == k1 + 1, cid
+                assert (sb.src, sb.out) == (ev.src, ev.out), cid
 
 
 def test_sparse_gathers_hold_the_contracts():

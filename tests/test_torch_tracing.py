@@ -3,8 +3,9 @@ load counters, on the CPU: an ``obs`` span is a ``record_function`` range
 while ``torch.profiler`` records on its thread and calls nothing more
 outside a profile; an engine carrying an ``Obs`` handle records
 ``engine.pass`` around each pass and, on a periodic padded grid,
-``seam.extract``, ``seam.band`` and ``seam.stitch`` inside it, around the
-ATen ops each makes; with ``obs=None`` an engine makes no
+``seam.band`` inside it around the band's one launch (a split band:
+``seam.extract``, ``seam.band`` and ``seam.stitch``, around the ATen ops
+each makes); with ``obs=None`` an engine makes no
 ``record_function`` call, records nothing and launches and steps exactly
 as an armed one; ``ops/_build.py`` counts the libraries it loads and the
 seconds their builds and loads take, nvcc stubbed."""
@@ -23,8 +24,12 @@ from mpi_tpu_torch.config import GolConfig
 from mpi_tpu_torch.models.rules import BOSCO, LIFE
 from mpi_tpu_torch.obs import Obs
 from mpi_tpu_torch.ops import _build, _launch
+from mpi_tpu_torch.parallel import seam
 
 SEAM = ("seam.extract", "seam.band", "seam.stitch")
+# the one-launch band in its span; on the CPU its plain version's
+# extraction and stitch inside it
+FUSED = ["seam.band", "seam.extract", "seam.stitch"]
 
 
 @pytest.fixture()
@@ -134,7 +139,7 @@ def test_armed_padded_engine_nests_the_seam_in_each_pass(cols, K, steps,
     passes = _passes(obs.tracer.snapshot())
     assert [p["depth"] for p, _ in passes] == depths
     assert all("boards" not in p for p, _ in passes)
-    assert [inner for _, inner in passes] == [list(SEAM)] * len(depths)
+    assert [inner for _, inner in passes] == [FUSED] * len(depths)
 
 
 def test_batched_pass_carries_its_board_count():
@@ -144,7 +149,21 @@ def test_batched_pass_carries_its_board_count():
     grids = eng.stack_grids([eng.init_grid(seed=s) for s in (1, 2, 3)])
     eng.step_batched(grids, 4)
     (p, inner), = _passes(obs.tracer.snapshot())
-    assert (p["depth"], p["boards"], inner) == (4, 3, list(SEAM))
+    assert (p["depth"], p["boards"], inner) == (4, 3, FUSED)
+
+
+def test_split_seam_nests_its_three_spans_in_each_pass():
+    """A stepper built with the plain band keeps extract, band and stitch,
+    each in its span inside the pass's."""
+    eng = _engine(60, 4)
+    obs = Obs()
+    eng.obs = obs
+    eng._evolve = seam.make_seam_stepper(eng._pass, LIFE, 60, 4,
+                                         band=seam.evolve_band, obs=eng._obs)
+    eng.step(eng.init_grid(seed=5), 10)
+    passes = _passes(obs.tracer.snapshot())
+    assert [p["depth"] for p, _ in passes] == [4, 4, 2]
+    assert [inner for _, inner in passes] == [list(SEAM)] * 3
 
 
 @pytest.mark.parametrize("cols,rule,boundary,K", [
@@ -164,8 +183,12 @@ def test_armed_engine_without_a_seam_records_one_span_a_pass(cols, rule,
 
 
 def test_seam_spans_enclose_their_aten_ops_under_the_profiler():
+    # the three pieces of a split band (a stepper built with the plain
+    # band); the one-launch band: the test below
     eng = _engine(60, 4)
     eng.obs = Obs()
+    eng._evolve = seam.make_seam_stepper(eng._pass, LIFE, 60, 4,
+                                         band=seam.evolve_band, obs=eng._obs)
     grid = eng.init_grid(seed=9)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         eng.step(grid, 4)
@@ -185,6 +208,27 @@ def test_seam_spans_enclose_their_aten_ops_under_the_profiler():
     # in order: the extraction, then the band's step, then the stitch
     assert spans["seam.extract"][2] <= spans["seam.band"][1] \
         <= spans["seam.band"][2] <= spans["seam.stitch"][1]
+
+
+def test_fused_seam_nests_its_plain_pieces_in_the_band_span():
+    """The one-launch band in ``seam.band``; on the CPU its plain version's
+    extraction and stitch in their spans inside it, after the pass's
+    kernel."""
+    eng = _engine(60, 4)
+    eng.obs = Obs()
+    grid = eng.init_grid(seed=9)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.step(grid, 4)
+    events = _events(prof)
+    spans = {e[0]: e for e in events if e[3]}
+    assert set(spans) == {"engine.pass", *SEAM}
+    assert _inside(spans["engine.pass"], spans["seam.band"])
+    for name in ("seam.extract", "seam.stitch"):
+        assert _inside(spans["seam.band"], spans[name])
+    ops = [e for e in events if not e[3]]
+    assert "aten::index_select" in {
+        e[0] for e in ops if _inside(spans["seam.extract"], e)}
+    assert spans["seam.extract"][2] <= spans["seam.stitch"][1]
 
 
 # ------------------------------------------------------------ obs is off

@@ -32,8 +32,9 @@ Phases; any failure exits non-zero before the result line:
    pad, every depth, both boundaries, and 65000² at the padded paths'
    depths), K1-K3 on a board axis (1, 2, 7 and 32 boards, ragged rows and
    words, rows that do and do not move in 16-byte pieces, padded boards;
-   each batch one launch), and K2 stepping the seam band, whose middle
-   columns must equal ``evolve_band``'s; and K1, K3 and K2 at a dead
+   each batch one launch), and the seam band's one launch
+   (``seam.fused_band``) against its three plain pieces, alone and in
+   whole padded passes; and K1, K3 and K2 at a dead
    boundary and gens 1 on the stripes of sparse stepping (the tiles of a
    rung side by side with their halos: the plans of the sparse paths and
    CLI cases below, and narrow ones);
@@ -68,9 +69,10 @@ Phases; any failure exits non-zero before the result line:
    CTA; the tile load; the kernel without the padded-grid code) at gens 8,
    4, 2 and 1, in turns, each variant's output equal to the kept one's;
    K3's run lengths (rows a warp steps) at every radius's gens 1 and
-   deepest pass, in turns; the padded paths' passes (K1 or K3 with ``col_limit``, the
-   whole seam pass with the band on K2 and on ``evolve_band``, the band
-   alone, and the same grids forced onto K2), in turns; and a pass over a
+   deepest pass, in turns; the padded paths' passes (K1 or K3 with
+   ``col_limit``, the whole seam pass with the band's one launch, the
+   band alone in one launch and on ``evolve_band``, and the same grids
+   forced onto K2), in turns; and a pass over a
    batch in one launch against its boards in one launch each (K1, K3,
    K2), in turns, in ms per board-generation; the sparse engine against
    the dense K1 engine at comm_every 1 and 8 on the sparse paths' boards,
@@ -230,10 +232,11 @@ Phases; any failure exits non-zero before the result line:
    of 3; at comm_every 3 a mesh takes K3, as the reference's does) and
    padded periodic Life (65000², 1x2,
    comm_every 8, 1500; K1 with a local ``col_limit`` and the seam band
-   across the shard columns on K2).  Each path's launch counts, read just
-   after its steps with the counters reset just before its build, must
-   equal shards x passes x windows (five with the overlap body) in the
-   kernel's chunks plus its warm-ups; its whole final grid, gathered on
+   across the shard columns in one launch a pass).  Each path's launch
+   counts, read just after its steps with the counters reset just before
+   its build, must equal shards x passes x windows (five with the overlap
+   body) in the kernel's chunks plus its warm-ups, and one seam launch a
+   pass and a warm-up a pass depth, no K2; its whole final grid, gathered on
    the card, must equal phase 3's single-device final of the same config
    (SHA-256 of the grid's bytes, and the population); its steady seconds
    and cell-updates/s print beside the 1x1 path's, and one
@@ -257,7 +260,7 @@ Phases; any failure exits non-zero before the result line:
    2x2 (4 ranks, comm_every 7, 1201; K2 in chunks of 3, 3, 1) and padded
    periodic Life 65000² on 1x2 (2 ranks; K1 with a local ``col_limit``,
    the seam band gathered across the ranks onto the owner of shard (0,
-   1) and stepped there on K2), each with ``--save``: every rank's
+   1) and stepped there in one launch), each with ``--save``: every rank's
    transport line must say ``gloo-host-staged``, its launch counts
    (printed by each rank as it exits) must equal ``_mesh_expected`` for
    its one shard, and its final ``.golp`` tiles, region by region, must
@@ -291,16 +294,16 @@ Phases; any failure exits non-zero before the result line:
    read and board equal to 1x1's; 4096² Bosco on 1x2 (K3) and dense
    Bosco on 2x2 at comm_every 7 (K2) through tickets of depths 1, 2, 5
    and 8, equal to 1x1's; padded periodic 4096 x 4090 sessions on 1x2,
-   Life at comm_every 8 and Bosco at 4 (20 cells of seam band, stepped on
-   K2 in chunks of 3 and 1), each step's launches the shards' windows and
-   the band's chunks, boards equal to 1x1's; the tuner at 4096² Life on
+   Life at comm_every 8 and Bosco at 4 (20 cells of seam band, past K2's
+   16), each step's launches the shards' windows and one seam launch a
+   pass, boards equal to 1x1's; the tuner at 4096² Life on
    2x2 over three candidates, every probe exact, the winner through the
    halo-slab bless, applied by a fresh manager's cache (a second session
    compiles nothing, the grid equal to the untuned one's); the devmem
    sampler's halo probe on the serving mesh; and each batched shard
    window these paths launch timed against its plain version and bound.
    Phase 2 holds K1-K3 at those batched windows to their plain versions,
-   and K2 at seam bands deeper than its 16 cells, in chunks.
+   and the seam band's one launch at every depth to 31.
 
 It prints JSON lines, the ``{"kernels": [...]}`` line second to last, and
 as its last line ``{"ok": true, "device": {...}}``.
@@ -461,6 +464,8 @@ GLIDER = ((0, 1, 0), (0, 0, 1), (1, 1, 1))  # moves down and right
 
 # each kernel's wrapper, whose ``launches`` the main paths read
 KERNELS = {kid: wrapper for kid, wrapper, _ in backend.KERNELS.values()}
+# and the seam band's one launch, which the padded paths count beside them
+COUNTERS = dict(KERNELS, seam=seam.fused_band)
 
 
 def fail(msg: str) -> None:
@@ -936,41 +941,7 @@ def _k2_exact(rng) -> tuple:
              for rule, gens in ((LIFE, 1), (LIFE, 8), (BOSCO, 1), (BOSCO, 3))]
     batched = _batched_exact(rng, "K2", cuda_dense_step, dense_step_plain,
                              batch)
-    return cases, err, {"batched": batched, "seam_band": _band_exact(rng)}
-
-
-def _band_exact(rng) -> dict:
-    """K2 stepping a seam band (periodic strip of 4d columns, d = k r)
-    against ``evolve_band``: their middle 2d columns, one board and three,
-    at every pass depth of K1 and K3 the seam serves, at the full height
-    of the padded Life path's passes (its depth and its last), and at the
-    mesh's depths past K2's 16 cells, stepped in chunks."""
-    rules = ([(LIFE, k) for k in range(1, 17)]
-             + [(rule, k) for r, rule in LTL_RULES.items()
-                for k in range(1, max_gens(r) + 1)])
-    cases = [(rule, k, (130, 4 * k * rule.radius)) for rule, k in rules]
-    cases += [(rule, k, (3, 130, 4 * k * rule.radius)) for rule, k in rules]
-    _, _, _, rule, k, steps, _ = PADDED_PATHS[0]
-    cases += [(rule, g, (PADDED, 4 * g * rule.radius))
-              for g in sorted({k, steps % k} - {0})]
-    # a mesh keeps the bit-sliced engine while k r <= 31: bands deeper than
-    # K2's 16 cells step in chunks of 16/r (every such depth, and phase
-    # 14's padded Bosco session's, 4 x 5, at its height)
-    deep = [(rule, k) for r, rule in LTL_RULES.items()
-            for k in range(1, 31 // r + 1) if k * r > 16]
-    cases += [(rule, k, (130, 4 * k * rule.radius)) for rule, k in deep]
-    cases += [(BOSCO, 4, (3, 130, 80)), (BOSCO, 4, (MESH_PADDED_SHAPE[0], 80))]
-    err = 0
-    for rule, k, shape in cases:
-        d = k * rule.radius
-        band = _cells(rng, shape)
-        got = seam.step_band(band, rule, k)[..., d:3 * d]
-        want = seam.evolve_band(band, rule, k)[..., d:3 * d]
-        if not torch.equal(got, want):
-            err = 1
-            print(f"chip_smoke: K2 band != evolve_band: {shape} "
-                  f"{rule.name} k={k}", file=sys.stderr, flush=True)
-    return {"cases": len(cases), "max_abs_err": err}
+    return cases, err, {"batched": batched}
 
 
 def _fused_exact(rng) -> dict:
@@ -978,11 +949,14 @@ def _fused_exact(rng) -> dict:
     version, the three pieces (``stitch_band`` of ``evolve_band`` of
     ``extract_band``), every word of the output, over random words: every
     radius at every depth d = k r <= 31, widths 4d, one word past it and
-    65000, 130 rows, one board and three, and a random rule a radius.
-    Then whole passes, the one launch against the three pieces with K2's
-    band (the engine's route before it), bit for bit: padded Life 65000²
-    at gens 8 (K1), padded periodic Bosco 65000² at gens 1 (K3), and a
-    batch of 4 padded 4096 x 4090 Life boards."""
+    65000, 130 rows, one board and three, and a random rule a radius; and
+    phase 14's padded Bosco mesh band (4096 x 4090 on 1x2 at gens 4, 20
+    cells deep) on its block of the strip's words at the block's width,
+    one board and three.  Then whole passes, the engine's pass (the kernel
+    and the one launch) against the kernel and the three pieces composed
+    here, bit for bit: padded Life 65000² at gens 8 (K1), padded periodic
+    Bosco 65000² at gens 1 (K3), and a batch of 4 padded 4096 x 4090 Life
+    boards."""
     cases = []
     for r, rule in [(1, LIFE), *LTL_RULES.items()]:
         for k in range(1, 31 // r + 1):
@@ -993,6 +967,10 @@ def _fused_exact(rng) -> dict:
         k = max(1, 8 // r)
         C = 4 * k * r + 7
         cases.append((_random_rule(rng, r), k, C, (70, -(-C // WORD))))
+    rows, cols = MESH_PADDED_SHAPE
+    words, width = seam.seam_block(cols, 4 * BOSCO.radius)
+    cases += [(BOSCO, 4, width, (rows, len(words))),
+              (BOSCO, 4, width, (3, rows, len(words)))]
     err = 0
     for rule, k, C, shape in cases:
         d = k * rule.radius
@@ -1005,7 +983,6 @@ def _fused_exact(rng) -> dict:
             print(f"chip_smoke: fused band != its plain version: {shape} "
                   f"C={C} {rule.name} k={k}", file=sys.stderr, flush=True)
     out = {"cases": {"cases": len(cases), "max_abs_err": err}}
-    rows, cols = MESH_PADDED_SHAPE
     for label, rule, k, shape, C, kernel in (
             ("padded_life", LIFE, 8, (PADDED, PADDED_WORDS), PADDED,
              cuda_bit_step),
@@ -1015,12 +992,13 @@ def _fused_exact(rng) -> dict:
              cols, cuda_bit_step)):
         x = mask_pad(_words(rng, shape), C)
         before = (seam.fused_band.launches, cuda_dense_step.launches)
-        got = _seam_pass(rule, C, k, seam.step_band, kernel)(
-            x, torch.empty_like(x))[0]
+        got = _seam_pass(rule, C, k, kernel)(x, torch.empty_like(x))[0]
         launched = (seam.fused_band.launches - before[0],
                     cuda_dense_step.launches - before[1])
-        want = _seam_pass(rule, C, k, _k2_band, kernel)(
-            x, torch.empty_like(x))[0]
+        d = k * rule.radius
+        want = seam.stitch_band(
+            kernel(x, rule, "periodic", k, col_limit=C),
+            seam.evolve_band(seam.extract_band(x, C, d), rule, k), C, d)
         bad = int((got != want).sum().item())
         if bad or launched != (1, 0):
             print(f"chip_smoke: the fused {label} pass differs from the "
@@ -1297,11 +1275,14 @@ def _plain_final(kind, rows, cols, rule, steps, boundary="periodic",
             src = plain(src, rule, boundary, 1, col_limit=col_limit)
         return src
 
-    if col_limit and boundary == "periodic":
-        evolve = seam.make_seam_stepper(one_pass, rule, cols, comm_every,
-                                        band=seam.evolve_band)
-    else:
-        evolve = segmented_evolve(one_pass, comm_every)
+    def seam_pass(src, k, dst):
+        d = k * rule.radius
+        band = seam.evolve_band(seam.extract_band(src, cols, d), rule, k)
+        return seam.stitch_band(one_pass(src, k, dst), band, cols, d)
+
+    evolve = segmented_evolve(
+        seam_pass if col_limit and boundary == "periodic" else one_pass,
+        comm_every)
     return evolve(g, steps, None)[0]
 
 
@@ -1915,30 +1896,22 @@ def _turns(fns: dict, reps: int = 10) -> dict:
     return ms
 
 
-def _seam_pass(rule, C, k, band, kernel=cuda_bit_step):
-    """A callable (src, dst) running one pass of the padded periodic engine
-    (``kernel``, K1 or K3, with ``col_limit``, and the seam band): with
-    ``band`` the device default (``seam.step_band``) the band's one launch,
-    with any other band the three pieces, the band stepped by ``band``."""
+def _seam_pass(rule, C, k, kernel=cuda_bit_step):
+    """A callable (src, dst) running one pass of the padded periodic engine:
+    ``kernel`` (K1 or K3) with ``col_limit``, then the seam band's one
+    launch."""
     evolve = seam.make_seam_stepper(
         lambda src, g, dst: kernel(src, rule, "periodic", g, out=dst,
                                    col_limit=C),
-        rule, C, k, band=band)
+        rule, C, k)
     return lambda src, dst: evolve(src, k, dst)
-
-
-def _k2_band(strip, rule, k):
-    """K2's band (``seam.step_band``) as a band of its own: a seam stepper
-    built with it keeps the three pieces, extract, K2 and stitch."""
-    return seam.step_band(strip, rule, k)
 
 
 def _padded_times(card: str, rows: dict) -> None:
     """The padded paths at PADDED², in turns: Life's gens-8 pass as K1 with
     ``col_limit`` alone, as the engine runs it (with the seam band's one
-    launch), with the band in three pieces on K2 and on ``evolve_band``,
-    and forced onto K2 (uint8 cells, periodic); the band alone in one
-    launch, on K2 and on ``evolve_band``; the dead Bosco pass on K3 with
+    launch), and forced onto K2 (uint8 cells, periodic); the band alone in
+    one launch and on ``evolve_band``; the dead Bosco pass on K3 with
     ``col_limit`` against K2."""
     C, k = PADDED, PADDED_PATHS[0][4]
     x = init_packed(PADDED, PADDED_WORDS * WORD, SEED, col_limit=C,
@@ -1954,17 +1927,11 @@ def _padded_times(card: str, rows: dict) -> None:
         "k1_col_limit": _ping_pong(
             lambda a, b: cuda_bit_step(a, LIFE, "periodic", k, out=b,
                                        col_limit=C), x),
-        "engine_pass_fused": _ping_pong(
-            _seam_pass(LIFE, C, k, seam.step_band), x),
-        "engine_pass_k2_band": _ping_pong(
-            _seam_pass(LIFE, C, k, _k2_band), x),
-        "engine_pass_evolve_band": _ping_pong(
-            _seam_pass(LIFE, C, k, seam.evolve_band), x),
+        "engine_pass_fused": _ping_pong(_seam_pass(LIFE, C, k), x),
         # the kernel alone, its library called as the wrapper calls it
         "band_fused": lambda: lib.gol_seam_band(
             x.data_ptr(), stitched.data_ptr(), 1, PADDED, PADDED_WORDS, C,
             LIFE.radius, k, table, stream),
-        "band_k2": lambda: seam.step_band(band, LIFE, k),
         "band_evolve_band": lambda: seam.evolve_band(band, LIFE, k),
         "k2_forced": _ping_pong(
             lambda a, b: cuda_dense_step(a, LIFE, "periodic", k, out=b),
@@ -1976,32 +1943,15 @@ def _padded_times(card: str, rows: dict) -> None:
           "gens": k, "ms": life,
           "seam_share_of_engine_pass":
               1 - mean["k1_col_limit"] / mean["engine_pass_fused"],
-          "seam_share_of_engine_pass_k2_band":
-              1 - mean["k1_col_limit"] / mean["engine_pass_k2_band"],
-          "band_kept": "k2" if mean["band_k2"] <= mean["band_evolve_band"]
-          else "evolve_band",
           "k2_forced_over_engine_pass":
               mean["k2_forced"] / mean["engine_pass_fused"]})
-    if mean["engine_pass_fused"] > mean["engine_pass_k2_band"]:
-        fail("the seam band's one launch makes the padded pass slower than "
-             "its three pieces on K2")
-    if mean["band_k2"] > mean["band_evolve_band"]:
-        fail("K2 steps the seam band slower than evolve_band: keep the "
-             "faster (parallel/seam.py:step_band)")
     rows["K1", "padded"] = _row(
         card, "K1", [PADDED, PADDED], LIFE, k, mean["k1_col_limit"],
         _plain_ms(bit_step_plain, x, LIFE, k, col_limit=C),
         8 * words / HBM_BYTES_PER_S * 1e3,
         k * words * word_ops(LIFE) / INT32_OPS_PER_S * 1e3,
         mode="col_limit", col_limit=C, library_ms=None)
-    # the band on K2: 2 B per cell of the strip per pass, K2's operations
     cells = band.numel()
-    rows["K2", "band"] = _row(
-        card, "K2", list(band.shape), LIFE, k, mean["band_k2"],
-        mean["band_evolve_band"], 2 * cells / HBM_BYTES_PER_S * 1e3,
-        k * cells * K2_CELL_OPS / INT32_OPS_PER_S * 1e3, mode="seam_band",
-        ops_per_cell=K2_CELL_OPS, library_ms=None,
-        plain_note="evolve_band, timed in the turns above")
     # the band in one launch: the strip's words read, the seam's words read
     # and written, K2's operations on the strip's cells
     seam_words = len(seam.strip_words(C, d)) + 2 * len(
@@ -2293,8 +2243,7 @@ def _trace(card, label, size, rule, comm_every, steps,
     # on a padded torus; the sparse path's launches follow its phases: its
     # kernel's alone
     passes = -(-steps // engine.depth)
-    counters = dict(KERNELS, seam=seam.fused_band)
-    expected = {kid: 0 for kid in counters}
+    expected = {kid: 0 for kid in COUNTERS}
     expected[engine.kernel_id] = passes
     if engine.seam:
         expected["seam"] = passes
@@ -2315,7 +2264,7 @@ def _trace(card, label, size, rule, comm_every, steps,
             # the profiler's first kernel
             torch.ones(1, device="cuda").add_(1)
             torch.cuda.synchronize()
-            before = {kid: w.launches for kid, w in counters.items()}
+            before = {kid: w.launches for kid, w in COUNTERS.items()}
             builds = _build.builds
             with record_function("steady"):
                 if boards:
@@ -2324,7 +2273,7 @@ def _trace(card, label, size, rule, comm_every, steps,
                     grid = engine.step(grid, steps)
                 engine.sync()
         counted = {kid: w.launches - before[kid]
-                   for kid, w in counters.items()}
+                   for kid, w in COUNTERS.items()}
         if board is not None:
             expected[engine.kernel_id] = max(1, counted[engine.kernel_id])
         if counted != expected:
@@ -2451,12 +2400,17 @@ SERVE_FAULT_SIZE = 256
 
 
 def _reset_launches() -> None:
-    for w in KERNELS.values():
+    for w in COUNTERS.values():
         w.launches = 0
 
 
 def _launches() -> dict:
     return {kid: w.launches for kid, w in KERNELS.items()}
+
+
+def _counted() -> dict:
+    """:func:`_launches` and the seam band's launches."""
+    return {kid: w.launches for kid, w in COUNTERS.items()}
 
 
 def _serve_rounds(mgr, sids, rounds: int, n: int) -> float:
@@ -3894,8 +3848,10 @@ CLUSTER_WAIT_S = 60.0   # the limit of every wait for the group
 CLUSTER_NODE_MAIN = (
     "import atexit, json, runpy, sys\n"
     "from mpi_tpu_torch.backends import cuda\n"
-    "atexit.register(lambda: print(json.dumps({'launches': {kid: w.launches"
-    " for kid, w, _ in cuda.KERNELS.values()}}), flush=True))\n"
+    "from mpi_tpu_torch.parallel import seam\n"
+    "atexit.register(lambda: print(json.dumps({'launches': {**{kid: "
+    "w.launches for kid, w, _ in cuda.KERNELS.values()}, 'seam': "
+    "seam.fused_band.launches}}), flush=True))\n"
     "sys.argv = ['mpi_tpu_torch.cli', *sys.argv[1:]]\n"
     "runpy.run_module('mpi_tpu_torch.cli', run_name='__main__',"
     " alter_sys=True)\n"
@@ -5048,10 +5004,10 @@ def _mesh_expected(engine, steps: int, shards=None, band=True) -> dict:
     """The launches of a mesh engine's warm-up and ``steps`` generations:
     every shard one window a pass (five with the overlap body), each window
     in the kernel's chunks (``chunk_gens``), plus one warm-up launch per
-    chunk depth; a seam grid adds K2's band, in chunks of 16/r, a pass and
-    a warm-up a pass depth.  ``shards``: the shards one rank of a process group holds
-    (default every shard, one process); ``band``: whether it steps the
-    seam band (the rank that owns shard (0, mj-1))."""
+    chunk depth; a seam grid adds the band's one launch (``seam``) a pass
+    and a warm-up a pass depth, and no K2.  ``shards``: the shards one rank
+    of a process group holds (default every shard, one process); ``band``:
+    whether it steps the seam band (the rank that owns shard (0, mj-1))."""
     K = min(engine.depth, steps)
     full, rem = divmod(steps, K)
     rule = engine.config.rule
@@ -5062,25 +5018,19 @@ def _mesh_expected(engine, steps: int, shards=None, band=True) -> dict:
 
     windows = ((engine.mi * engine.mj if shards is None else shards)
                * (5 if engine.overlap else 1))
-    out = {kid: 0 for kid in KERNELS}
+    out = {kid: 0 for kid in COUNTERS}
     out[engine.kernel_id] = (
         windows * (full * chunks(K) + (chunks(rem) if rem else 0))
         + len(chunk_gens(engine.kind, rule, engine.depths)))
     if engine.seam and band:
-        # the band steps in chunks of 16/r (seam.band_chunks)
-        def band_launches(k):
-            return len(seam.band_chunks(rule, k))
-
-        out["K2"] += (full * band_launches(K)
-                      + (band_launches(rem) if rem else 0)
-                      + sum(band_launches(k) for k in engine.depths))
+        out["seam"] = full + bool(rem) + len(engine.depths)
     return out
 
 
 def _mesh_window(engine, grid, k_passes: int):
     """One ``torch.profiler`` window of ``k_passes`` passes: the device
-    time of the path's kernel, of the other kernels of K1-K3 (the seam
-    band's K2), and of everything else (the exchange's and the crop's
+    time of the path's kernel, of the other kernels of K1-K3 and the seam
+    band's, and of everything else (the exchange's and the crop's
     copies, the overlap stitch, the seam's gather and stitch), and the
     device's idle share of the window, by the union of the kernels'
     intervals."""
@@ -5124,7 +5074,8 @@ def _mesh_window(engine, grid, k_passes: int):
         "device_busy_ms": busy / 1e3,
         "idle_share": 1 - busy / wall if spans else None,
         "kernel_ms": kernel_us / 1e3,
-        # K1-K3 launches other than the path's kernel: the seam band's K2
+        # launches of K1-K3 and the seam kernel other than the path's
+        # kernel: the seam band's one launch a pass
         "seam_band_ms": band_us / 1e3,
         # every other kernel: the halo exchange's copies, the tile crops,
         # the overlap stitch and the seam's gather and stitch
@@ -5198,7 +5149,7 @@ def _mesh_path(card: str, path) -> dict:
     grid = engine.step(grid, steps)
     engine.sync()
     steady_s = time.perf_counter() - t0
-    launches = _launches()
+    launches = _counted()
     expected = _mesh_expected(engine, steps)
     if launches != expected:
         fail(f"the {label} mesh path launched {launches}, expected "
@@ -5940,11 +5891,10 @@ def _mesh_tickets(card: str) -> list:
 
 def _mesh_padded(card: str) -> list:
     """Padded periodic sessions on 1x2 (a width of 2045 cells a shard): Life
-    at comm_every 8 (K1 with a local ``col_limit``, the seam band on K2)
-    and Bosco at comm_every 4 (K3; 20 cells of band, past K2's 16, so the
-    band steps in chunks of 3 and 1), each beside the same session on
-    1x1; a step's launches are the shards' windows and the band's
-    chunks."""
+    at comm_every 8 (K1 with a local ``col_limit``) and Bosco at
+    comm_every 4 (K3; 20 cells of band, past K2's 16), each beside the
+    same session on 1x1; a step's launches are the shards' windows and
+    the seam band's one launch a pass."""
     rows_, cols = MESH_PADDED_SHAPE
     rows = []
     mgr = SessionManager(EngineCache(), devices=_virtual((1, 2)))
@@ -5962,15 +5912,14 @@ def _mesh_padded(card: str) -> list:
             eng.ensure_compiled(mgr.get(sid).grid, steps)
             _reset_launches()
             mgr.step(sid, steps)
-            launches = _launches()
+            launches = _counted()
             # the warm-ups ran before the reset: the step's own launches
             passes = [k] * (steps // k) + [steps % k] * bool(steps % k)
             top = max(chunk_gens(eng.kind, rule, [k]))
-            step_only = {kid: 0 for kid in KERNELS}
+            step_only = {kid: 0 for kid in COUNTERS}
             step_only[eng.kernel_id] = eng.mi * eng.mj * sum(
                 -(-p // top) for p in passes)
-            step_only["K2"] += sum(len(seam.band_chunks(rule, p))
-                                   for p in passes)
+            step_only["seam"] = len(passes)
             if launches != step_only:
                 fail(f"the {label} step launched {launches}, expected "
                      f"{step_only}")
@@ -5984,7 +5933,6 @@ def _mesh_padded(card: str) -> list:
                    "grid": [rows_, cols], "comm_every": k,
                    "pad_bits": eng.pad_bits, "steps": steps,
                    "band_depth": k * rule.radius,
-                   "band_chunks": seam.band_chunks(rule, k),
                    "launches": launches, "equal_to_1x1": True}
             emit(row)
             rows.append(row)

@@ -13,11 +13,10 @@ between them.  The records are held to five contracts (:mod:`.checks`):
 * ``ir-donation``   — both directions of the consume-the-input contract:
   each step runs on the ping-pong pair of its entry grid and the spare
   the engine kept, hands back its last pass's output and reuses the
-  spare; and no op reads a launch's input after the launch took it (a
-  split seam band is extracted before the kernel is launched; the
-  one-launch band is itself a launch on it, right after the pass's); a
-  mesh engine,
-  which writes new shards every pass, never writes its entry grid.
+  spare; and no op reads a launch's input after the launch took it (the
+  seam band is itself a launch on it, right after the pass's); a mesh
+  engine, which writes new shards every pass, never writes its entry
+  grid.
 * ``ir-purity``     — no host reads inside a step without sparse
   stepping; a sparse step makes exactly the reads its phase loop counts.
 * ``ir-signature``  — ``plan_signature`` soundness both ways: equal

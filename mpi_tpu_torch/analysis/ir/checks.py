@@ -123,9 +123,10 @@ def _reads_after_launch(rc: RecordedCell) -> List[IRFinding]:
                         f"step {i}: {ev.name} reads the input of launch "
                         f"{k} ({ln.kernel}){entry} after the launch took "
                         f"it: a pass must read what it needs of its input "
-                        f"before its kernel is launched, as the seam band "
-                        f"is extracted (parallel/seam.py), because the "
-                        f"next pass writes into that buffer"))
+                        f"before its kernel is launched, or in a launch of "
+                        f"its own on the same stream, as the seam band "
+                        f"does (parallel/seam.py), because the next pass "
+                        f"writes into that buffer"))
             for s in ev.writes:
                 consumed.pop(s, None)
     return out
@@ -173,11 +174,11 @@ def check_donation(rc: RecordedCell) -> List[IRFinding]:
     into it), except an elementwise compare of the launch's output with
     that input (the sparse engine's change maps).  This is the seam race
     the reference's check pins (a seam program must not donate, because
-    its band reads the pre-step grid): ``parallel/seam.py`` extracts the
-    band before the kernel is launched.  It is read per launch, not as
-    "no op reads the step's entry storage once a launch wrote it": the
-    second pass of a seam step writes the entry storage, and its stitch
-    must then read that pass's output there.
+    its band reads the pre-step grid): ``parallel/seam.py`` reads the
+    band in a launch of its own right after the pass's.  It is read per
+    launch, not as "no op reads the step's entry storage once a launch
+    wrote it": the second pass of a seam step writes the entry storage,
+    and its stitch must then read that pass's output there.
 
     (iii) An engine that does not donate (``donates_input`` false: the
     mesh engine) never writes its entry grid; (ii) is then moot, since no

@@ -9,9 +9,9 @@ stacked batch of B boards) with two recorders armed:
 
 * the **launch recorder** (``ops/_launch.py:arm``): every call of the
   kernel wrappers ``cuda_bit_step`` (K1), ``cuda_ltl_step`` (K3),
-  ``cuda_dense_step`` (K2, a mesh's seam band included) and
-  ``parallel/seam.py:fused_band`` (``seam``: one device's seam band, its
-  input the pass's input and its ``out`` the pass's output) logs the
+  ``cuda_dense_step`` (K2) and ``parallel/seam.py:fused_band`` (``seam``:
+  the seam band, its input the pass's input and its ``out`` the pass's
+  output on one device, a mesh's gathered blocks of them) logs the
   kernel, the rule's canonical text, boundary, gens, shape, dtype and
   ``col_limit``, and the storage of its input and of its ``out``.  On the
   CPU a wrapper runs the kernel's plain version and copies into ``out`` as

@@ -93,7 +93,7 @@ CELLS: List[Cell] = [
     # ⌊16/r⌋ = 8, depth 17 = 8 + 8 + 1
     Cell("dense_r2_k16_1x1", 64, 160, rule=_R2, comm_every=16, depth=17,
          tier="fast"),
-    # 48 cells = 1.5 words: the padded K1 with the seam band on K2
+    # 48 cells = 1.5 words: the padded K1 with the seam band's one launch
     Cell("seam_1x1", 64, 48, depth=2, tier="fast"),
     Cell("dense_bosco_1x1", 64, 64, rule="bosco", depth=1, tier="fast"),
     Cell("sparse_1x1", 64, 64, sparse_tile=32, depth=2, tier="fast"),

@@ -22,9 +22,10 @@ engines at the padded width (``plan_pad_width``, the reference's
 pad-to-32 plan): the kernels zero the pad after every generation
 (``col_limit``), init writes only the real columns, and every fetch crops
 to them.  A periodic padded grid wraps through the pad, so the seam
-columns are recomputed on a thin dense band and stitched over each pass's
-output (``parallel/seam.py``); where the band cannot serve, the run stays
-on K2 with the reference's note.
+columns are recomputed from a thin strip of the pass's input and stitched
+over its output in one launch after each pass (``parallel/seam.py``);
+where the band cannot serve, the run stays on K2 with the reference's
+note.
 
 Batches: ``Engine.step_batched`` steps a stacked (B, ...) batch of boards
 of one configuration with one kernel launch per pass for the whole batch
@@ -142,7 +143,7 @@ def _tile_note(kernel_id: str, blocks, seam_band: bool) -> str:
     """The note ``build_engine`` prints for a CTA tile."""
     note = f"kernel {kernel_id} built with CTA tile {[int(v) for v in blocks]}"
     if seam_band:
-        note += (" (the seam band keeps K2's default build: the tile is "
+        note += (" (the seam band's one launch takes no tile: the tile is "
                  "the engine's kernel's)")
     return note
 
@@ -928,8 +929,8 @@ def build_engine(config: GolConfig, device=None, depths=None, tune=None,
     words a lane]), K3 ([rows]) or K2 ([rows, cols]), a build variant of
     the engine's kernel, which every launch of the engine takes (the
     tuner probes them; a cached winner's arrives through ``tune``); the
-    seam band of a padded periodic grid keeps K2's default build.  The
-    CPU and the host backends raise :class:`ConfigError`."""
+    seam band's one launch takes no tile.  The CPU and the host backends
+    raise :class:`ConfigError`."""
     if mesh is None and config.mesh_shape is not None \
             and tuple(config.mesh_shape) != (1, 1):
         from mpi_tpu_torch.parallel.mesh import make_mesh

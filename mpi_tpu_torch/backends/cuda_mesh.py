@@ -185,10 +185,11 @@ class MeshEngine(ServeSurface):
     def warm_up(self, boards: int = 0) -> None:
         """Build and load the kernel and launch it once at each gens its
         passes launch, on a one-word or one-cell grid (and for a seam grid
-        the band's K2 step at its height), so the first timed pass pays no
-        build or first-launch setup.  Under a process group each rank warms
-        its own cards, and the band only where it is stepped.  A batch of
-        ``boards`` launches the same kernels, so it warms nothing more."""
+        the band's one launch on a one-row block), so the first timed pass
+        pays no build or first-launch setup.  Under a process group each
+        rank warms its own cards, and the band only where it is stepped.  A
+        batch of ``boards`` launches the same kernels, so it warms nothing
+        more."""
         self._warm(self.depths)
 
     def _steps_band(self) -> bool:
@@ -209,12 +210,11 @@ class MeshEngine(ServeSurface):
             # on the first shard's device: in a group the root's one
             # device, which holds shard (0, mj-1)
             for k in depths:
-                # the seam's index tensors, made before the first pass
-                seam.seam_plan(self.config.cols, k * rule.radius,
-                                str(self.device))
-                seam.step_band(torch.zeros(
-                    (self.config.rows, 4 * k * rule.radius),
-                    dtype=torch.uint8, device=self.device), rule, k)
+                words, width = seam.seam_block(self.config.cols,
+                                               k * rule.radius)
+                tiny = torch.zeros((1, len(words)), dtype=torch.int32,
+                                   device=self.device)
+                seam.fused_band(tiny, torch.zeros_like(tiny), rule, width, k)
 
     def _warm_step(self, n: int, boards: int) -> None:
         # a batch launches the kernels a solo step does, on a board axis

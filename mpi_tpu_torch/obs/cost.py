@@ -14,9 +14,8 @@ The counts are the kernels', ``source = "kernel_count"``:
 * K1 (``csrc/bitlife.cu``): ``ops/bitlife.py:word_ops(rule)`` LOP3 and SHF
   instructions per word per generation (the rule's compiled form), times
   words, generations and boards;
-* K3 (``csrc/bitltl.cu``): ``ops/bitltl.py:ltl_word_ops(rule, form)`` in
-  the order the kernel sums (``ops/cuda_bitltl.py:FORM``, rows first),
-  the same way;
+* K3 (``csrc/bitltl.cu``): ``ops/bitltl.py:ltl_word_ops(rule,
+  "row_first")``, the order the kernel sums in, the same way;
 * K2 (``csrc/stencil.cu``): ``ops/stencil.py:dense_cell_ops(r)``
   instructions per cell per generation, counted from the kernel's row
   loop, times cells, generations and boards; a padded periodic engine adds
@@ -154,10 +153,9 @@ def capture_card(engine, *, depth: int, batch: int) -> CostCard:
         board_bytes = 4 * units
     elif engine.kind == "ltl":
         from mpi_tpu_torch.ops.bitltl import ltl_word_ops
-        from mpi_tpu_torch.ops.cuda_bitltl import FORM
 
         units = rows * engine.cols_eff // WORD
-        per_unit = ltl_word_ops(rule, FORM)
+        per_unit = ltl_word_ops(rule, "row_first")
         board_bytes = 4 * units
     else:
         units, per_unit = config.cells, dense_cell_ops(rule.radius)

@@ -37,8 +37,6 @@ HALO = 8  # rows of halo per side: gens · radius may not exceed it
 # and on a grid too small to fill the card
 BLOCK_ROWS = (512, 256, 128, 64, 32)
 DEFAULT_ROWS = 256
-# the order in which the kernel sums a neighbourhood (ops/bitltl.py:FORMS)
-FORM = "row_first"
 
 
 def max_gens(radius: int) -> int:
@@ -131,8 +129,7 @@ def cuda_ltl_step(packed: torch.Tensor, rule: Rule,
     synchronise.  ``defines``: the macros of a build variant, e.g. a CTA
     tile from :func:`block_defines` (None: the default build; the plain
     version on the CPU has no tile).  ``cuda_ltl_step.launches`` counts
-    kernel launches, and ``cuda_ltl_step.launches_by_form`` the same
-    launches by the order the kernel sums in (:data:`FORM`)."""
+    kernel launches."""
     _check(packed, rule, boundary, gens, col_limit)
     if out is not None:
         check_out(out, packed, "K3")
@@ -150,8 +147,6 @@ def cuda_ltl_step(packed: torch.Tensor, rule: Rule,
             launch(load_rule_library("ltl", rule, defines), packed, out,
                    rule, boundary, gens, col_limit)
             cuda_ltl_step.launches += 1
-            by_form = cuda_ltl_step.launches_by_form
-            by_form[FORM] = by_form.get(FORM, 0) + 1
         rec.done(out)
     return out
 
@@ -171,4 +166,3 @@ def launch(lib, packed: torch.Tensor, out: torch.Tensor, rule: Rule,
 
 
 cuda_ltl_step.launches = 0
-cuda_ltl_step.launches_by_form = {}

@@ -6,39 +6,34 @@ on the packed kernels at the padded width, its pad zeroed after every
 generation (``col_limit``).  The kernel's column wrap then reads the pad,
 which is zero, so only the cells whose dependence cone crosses the seam
 are wrong: the ``d = k·r`` real columns on either side of it after a pass
-of k generations.  Those are recomputed exactly on a thin dense band: the
+of k generations.  Those are recomputed exactly from a thin strip: the
 4d real columns centred on the seam (``extract_band``), taken from the
-pass's input before the kernel writes its output, stepped k generations
-with the true periodic row wrap, whose middle 2d columns are then exact
-(``evolve_band``, the trapezoid argument), and written over the kernel's
-output by word masking (``stitch_band``).
+pass's input, stepped k generations with the true periodic row wrap,
+whose middle 2d columns are then exact (``evolve_band``, the trapezoid
+argument), and written over the kernel's output by word masking
+(``stitch_band``).
 
-On one device the whole band is one launch of ``seam_band_kernel``
-(``csrc/stencil.cu``, :func:`fused_band`), made after the pass's kernel
-on the same stream: it reads the strip from the pass's packed input,
-which the pass does not write, steps it on chip (as bits at radius 1, as
-K2's byte cells beyond) with the zero column fill of ``evolve_band``, and
-writes the exact columns into the pass's output by word masking.  A stepper built with any other
-``band`` (``evolve_band``, the plain version) keeps the three pieces.
-
-The pieces, which a mesh runs: the band is stepped by kernel K2, one
-launch for each chunk of at most ⌊16/r⌋ generations (:func:`step_band`):
-the (H, 4d) strip with a periodic boundary, whose middle 2d columns after
-k generations depend only on the strip's own columns, so the column wrap
-never reaches them and they equal ``evolve_band``'s.  Every piece, and
-the one launch, takes a leading board axis, so a batch of padded boards
-stitches in the same launches as one board.
+Every padded periodic pass does this in one call of :func:`fused_band`
+after its kernel: on a CUDA tensor one launch of ``seam_band_kernel``
+(``csrc/stencil.cu``) on the same stream, which reads the strip from the
+pass's packed input (the pass does not write it), steps it on chip (as
+bits at radius 1, as K2's byte cells beyond) with the zero column fill of
+``evolve_band``, and writes the exact columns into the pass's output; on
+the CPU the three pieces above, its plain version.  A leading board axis
+rides along, so a batch of padded boards stitches in the same launch as
+one board.
 
 On a mesh (:func:`make_mesh_seam_stepper`) the strip's words lie in the
 shards that hold them, the last and the first shard column when the tiles
 are wider than the band: each pass gathers those word columns from every
 row of shards into one thin packed block on the first shard's device,
-extracts the strip from it, steps it by K2 and stitches the exact columns
-back into the same shards; shards that carry a board axis stitch every
-board in the same few launches.  Under a process group those shards may
-sit on several ranks: the strip's words travel to one rank, the owner of
-shard (0, mj-1), which steps the band and sends the stitched words back
-to their owners (:func:`_gather_words_group`, :func:`_scatter_words_group`).
+before the pass and again after it, calls :func:`fused_band` on the two
+blocks at the block's own real width (:func:`seam_block`), and scatters
+the stitched words back into the same shards.  Under a process group
+those shards may sit on several ranks: the strip's words travel to one
+rank, the owner of shard (0, mj-1), which runs the band and sends the
+stitched words back to their owners (:func:`_gather_words_group`,
+:func:`_scatter_words_group`).
 """
 
 from __future__ import annotations
@@ -53,9 +48,7 @@ from mpi_tpu_torch.models.rules import Rule
 from mpi_tpu_torch.ops._launch import (
     boards, check_cuda, check_out, raise_on_error, recording,
 )
-from mpi_tpu_torch.ops.cuda_stencil import (
-    MAX_DEPTH, cuda_dense_step, rule_table,
-)
+from mpi_tpu_torch.ops.cuda_stencil import rule_table
 from mpi_tpu_torch.ops.stencil import apply_rule, counts_from_padded
 from mpi_tpu_torch.utils.hashinit import i32_bits
 from mpi_tpu_torch.utils.segmenting import segmented_evolve
@@ -118,8 +111,7 @@ def evolve_band(band: torch.Tensor, rule: Rule, k: int) -> torch.Tensor:
     wrap each generation (any H >= 1: rows wrap modulo H) and zero column
     fill, so the corruption from the column edges creeps r cells a
     generation inward and the middle 2d columns are exact after k
-    generations.  The plain version of :func:`step_band` and of
-    :func:`fused_band`'s strip."""
+    generations.  The plain version of :func:`fused_band`'s strip."""
     if band.dim() == 3:
         return torch.stack([evolve_band(b, rule, k) for b in band])
     r = rule.radius
@@ -129,29 +121,6 @@ def evolve_band(band: torch.Tensor, rule: Rule, k: int) -> torch.Tensor:
         x = torch.nn.functional.pad(band.index_select(0, wrapped), (r, r))
         counts = counts_from_padded(x, r)
         band = apply_rule(x[r:-r, r:-r], counts, rule)
-    return band
-
-
-def band_chunks(rule: Rule, k: int) -> list:
-    """The gens of each K2 launch that steps the band k generations: chunks
-    of ⌊16/r⌋ (K2's deepest halo, ``cuda_stencil.MAX_DEPTH``) and the
-    rest."""
-    top = max(1, MAX_DEPTH // rule.radius)
-    full, rem = divmod(k, top)
-    return [top] * full + ([rem] if rem else [])
-
-
-def step_band(band: torch.Tensor, rule: Rule, k: int) -> torch.Tensor:
-    """k generations of the strip (..., H, 4d) by kernel K2 with a periodic
-    boundary, in chunks of at most ⌊16/r⌋ generations (:func:`band_chunks`),
-    each one launch for every board: the strip is stepped as a torus, so
-    the chunks compose to the k-generation torus step and its middle 2d
-    columns equal :func:`evolve_band`'s (the rest differ and are never
-    read).  A mesh keeps the bit-sliced engine while k·r <= 31, past K2's
-    16.  A strip narrower than K2's 256-column tile runs K2's narrow
-    instance, which loads and steps only the columns it needs."""
-    for g in band_chunks(rule, k):
-        band = cuda_dense_step(band, rule, "periodic", gens=g)
     return band
 
 
@@ -184,21 +153,22 @@ _OFF = contextlib.nullcontext()
 
 
 def fused_band(src: torch.Tensor, out: torch.Tensor, rule: Rule, C: int,
-               k: int, span=None) -> torch.Tensor:
+               k: int, handle=None) -> torch.Tensor:
     """The seam band of a pass of ``k`` generations in one launch of
     ``seam_band_kernel``: ``src`` is the pass's packed input (H, NW), or a
-    (B, H, NW) batch, with real width ``C``; ``out`` its output, which the
-    pass has written.  Real columns [C-d, C) and [0, d), d = k·r, of
-    ``out`` are rewritten, in place, with the strip of ``src`` stepped k
-    generations; no other bit of ``out`` changes.  Returns ``out``.
+    (B, H, NW) batch, with real width ``C`` (on a mesh the block of the
+    strip's words at its own width, :func:`seam_block`); ``out`` its
+    output, which the pass has written.  Real columns [C-d, C) and [0, d),
+    d = k·r, of ``out`` are rewritten, in place, with the strip of ``src``
+    stepped k generations; no other bit of ``out`` changes.  Returns
+    ``out``.
 
     On a CUDA tensor it launches the kernel on the current stream after
     the pass (``src`` must not be written in between); on the CPU it runs
     the plain version, :func:`stitch_band` of :func:`evolve_band` of
     :func:`extract_band`, its extraction and its stitch in the spans
-    ``span("seam.extract")`` and ``span("seam.stitch")`` when ``span``
-    (an obs handle's) is given.  ``fused_band.launches`` counts kernel
-    launches."""
+    ``seam.extract`` and ``seam.stitch`` of the obs ``handle`` when one is
+    given.  ``fused_band.launches`` counts kernel launches."""
     d = k * rule.radius
     band_cols(C, d)
     if src.dtype != torch.int32:
@@ -211,11 +181,10 @@ def fused_band(src: torch.Tensor, out: torch.Tensor, rule: Rule, C: int,
     with recording("seam", src, rule=rule, boundary="periodic", gens=k,
                    col_limit=C) as rec:
         if src.device.type == "cpu":
-            piece = span or (lambda name: _OFF)
-            with piece("seam.extract"):
+            with _OFF if handle is None else handle.span("seam.extract"):
                 strip = extract_band(src, C, d)
             strip = evolve_band(strip, rule, k)
-            with piece("seam.stitch"):
+            with _OFF if handle is None else handle.span("seam.stitch"):
                 stitch_band(out, strip, C, d)
         else:
             check_cuda(src, "the seam band")
@@ -235,59 +204,30 @@ def fused_band(src: torch.Tensor, out: torch.Tensor, rule: Rule, C: int,
 
 fused_band.launches = 0
 
-# the passes the seam steppers ran, by the path each took: ``fused`` (one
-# launch, :func:`fused_band`) or ``split`` (extract, band, stitch)
-launches_by_form = {"fused": 0, "split": 0}
 
-
-def make_seam_stepper(inner, rule: Rule, C: int, K: int, band=step_band,
-                      obs=None):
+def make_seam_stepper(inner, rule: Rule, C: int, K: int, obs=None):
     """evolve(grid, steps, spare) -> (grid, spare) around the padded
     periodic pass ``inner(src, k, dst)`` (a packed kernel with
     ``col_limit = C``), as ``utils/segmenting.py:segmented_evolve`` drives
-    it.  ``C`` is the real width, ``K`` the generations per pass.
-
-    With ``band`` the device default (:func:`step_band`) each pass
-    launches the kernel into the spare buffer and then :func:`fused_band`,
-    which reads the strip from the pass's input and stitches its exact
-    columns into the kernel's output in one launch.  With any other
-    ``band(strip, rule, k)`` (:func:`evolve_band` for the plain version of
-    the whole pass) each pass extracts the band from its input before the
-    kernel is launched (under the ping-pong the next pass overwrites this
-    pass's input), steps it by ``band`` and stitches it over the kernel's
-    output.  :data:`launches_by_form` counts the passes of each path.
+    it.  ``C`` is the real width, ``K`` the generations per pass.  Each
+    pass launches the kernel into the spare buffer and then
+    :func:`fused_band`, which reads the strip from the pass's input and
+    stitches its exact columns into the kernel's output.
 
     ``obs``: the getter of an engine's obs handle (``segmented_evolve``'s);
-    while it gives one, the one launch runs in the span ``seam.band`` of
-    the pass's ``engine.pass`` (on the CPU its plain version's extraction
-    and stitch in ``seam.extract`` and ``seam.stitch`` inside it), and the
-    three pieces in ``seam.extract``, ``seam.band`` and ``seam.stitch``."""
-    r = rule.radius
-    band_cols(C, K * r)  # validate up front at the deepest pass
+    while it gives one, the band runs in the span ``seam.band`` of the
+    pass's ``engine.pass``, and on the CPU its plain version's extraction
+    and stitch in ``seam.extract`` and ``seam.stitch`` inside it."""
+    band_cols(C, K * rule.radius)  # validate up front at the deepest pass
 
-    def fused(src, k, dst):
+    def local(src, k, dst):
         handle = None if obs is None else obs()
         out = inner(src, k, dst)
         with _OFF if handle is None else handle.span("seam.band"):
-            fused_band(src, out, rule, C, k,
-                       None if handle is None else handle.span)
-        launches_by_form["fused"] += 1
+            fused_band(src, out, rule, C, k, handle)
         return out
 
-    def split(src, k, dst):
-        d = k * r
-        handle = None if obs is None else obs()
-        with _OFF if handle is None else handle.span("seam.extract"):
-            strip = extract_band(src, C, d)
-        out = inner(src, k, dst)
-        with _OFF if handle is None else handle.span("seam.band"):
-            strip = band(strip, rule, k)
-        with _OFF if handle is None else handle.span("seam.stitch"):
-            stitch_band(out, strip, C, d)
-        launches_by_form["split"] += 1
-        return out
-
-    return segmented_evolve(fused if band is step_band else split, K, obs)
+    return segmented_evolve(local, K, obs)
 
 
 def strip_words(C: int, d: int) -> tuple:
@@ -296,21 +236,18 @@ def strip_words(C: int, d: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def seam_plan(C: int, d: int, device: str):
-    """The mesh seam's index plan for depth d: the global words the strip
-    reads and the pass writes, the (word, bit) index tensors of the strip's
-    columns in the block of those words, and the block columns the exact
-    middle is stitched into."""
+def seam_block(C: int, d: int) -> tuple:
+    """(words, width): the mesh seam's block for depth d, the packed block
+    of the global words :func:`strip_words` side by side, and the real
+    width at which :func:`fused_band` finds the strip in it.  The low run
+    of words, which holds real columns [0, 2d), keeps its columns; the
+    high run, which holds [C-2d, C) and ends at the last word, follows it,
+    every column moved down by 32 x (its word - its slot), the same for
+    the whole run: so the block is a grid of real width C less that shift,
+    with 4d <= width <= 32 x len(words).  Where the two runs touch or
+    overlap the block is the grid's first words and the width is C."""
     words = strip_words(C, d)
-    slot = {w: i for i, w in enumerate(words)}
-
-    def cols(cells):
-        return tuple(slot[c // WORD] * WORD + c % WORD for c in cells)
-
-    word, bit, *_ = _columns(cols(_strip(C, d)), device)
-    stitch = cols(tuple(range(C - d, C)) + tuple(range(d)))
-    _columns(stitch, device)  # _blend_cols' index tensors, made now
-    return words, word, bit, stitch
+    return words, C - WORD * (words[-1] - (len(words) - 1))
 
 
 def _gather_words(shards, words, tile_words: int) -> torch.Tensor:
@@ -434,66 +371,56 @@ def _scatter_words_group(shards, mesh, block, words, tile_words: int,
                       piece.to(x.device, non_blocking=True))
 
 
-def make_mesh_seam_stepper(inner, rule: Rule, C: int, K: int,
-                           band=step_band, mesh=None):
+def make_mesh_seam_stepper(inner, rule: Rule, C: int, K: int, mesh=None):
     """evolve(shards, steps) -> shards around the padded periodic mesh
     pass ``inner(shards, k)`` (``parallel/step.py``, built with
     ``seam_pad``): each pass gathers the strip's words from the shards
-    before the pass, steps the strip by ``band`` (K2) and stitches its
-    exact middle columns over the pass's output shards.  ``C`` is the real
-    width, ``K`` the generations per pass.  ``mesh``: a mesh on several
-    ranks (``Mesh.multiprocess``), whose strip the owner of shard (0,
-    mj-1) gathers, steps and sends back."""
+    before the pass and from its output shards after it, runs
+    :func:`fused_band` on the two blocks and scatters the stitched words
+    back into the output shards.  ``C`` is the real width, ``K`` the
+    generations per pass.  ``mesh``: a mesh on several ranks
+    (``Mesh.multiprocess``), whose strip the owner of shard (0, mj-1)
+    gathers, steps and sends back."""
     from mpi_tpu_torch.parallel.step import mesh_evolve
 
-    r = rule.radius
-    band_cols(C, K * r)  # validate up front at the deepest pass
+    band_cols(C, K * rule.radius)  # validate up front at the deepest pass
     if mesh is not None and mesh.multiprocess:
-        return mesh_evolve(_group_pass(inner, rule, C, band, mesh), K)
+        return mesh_evolve(_group_pass(inner, rule, C, mesh), K)
 
     def local(shards, k):
-        d = k * r
         tw = shards[0][0].shape[-1]
-        words, word, bit, stitch = seam_plan(C, d,
-                                              str(shards[0][0].device))
+        words, width = seam_block(C, k * rule.radius)
         src = _gather_words(shards, words, tw)
-        strip = ((src.index_select(-1, word) >> bit) & 1).to(torch.uint8)
         out = inner(shards, k)
         block = _gather_words(out, words, tw)
-        _blend_cols(block, band(strip, rule, k)[..., d:3 * d], stitch)
+        fused_band(src, block, rule, width, k)
         _scatter_words(out, block, words, tw)
         return out
 
     return mesh_evolve(local, K)
 
 
-def _group_pass(inner, rule: Rule, C: int, band, mesh):
+def _group_pass(inner, rule: Rule, C: int, mesh):
     """The seam pass of :func:`make_mesh_seam_stepper` on a mesh whose
     shards sit on several ranks: the strip's words before and after the
     pass are gathered onto the root, the owner of shard (0, mj-1), which
-    steps the band and stitches it; the stitched words go back to their
-    shards' owners."""
+    runs the band on them; the stitched words go back to their shards'
+    owners."""
     from mpi_tpu_torch.parallel.step import first_shard
 
-    r = rule.radius
     mi, mj = mesh.dims
     root = mesh.owner(0, mj - 1)
     n = mi * mj
 
     def local(shards, k):
-        d = k * r
         tw = first_shard(shards).shape[1]
-        words = strip_words(C, d)
+        words, width = seam_block(C, k * rule.radius)
         src = _gather_words_group(shards, mesh, words, tw, root, SEAM_TAG)
-        if src is not None:   # the root: the index plan on its device
-            _, word, bit, stitch = seam_plan(C, d, str(src.device))
-            strip = ((src.index_select(-1, word) >> bit) & 1).to(
-                torch.uint8)
         out = inner(shards, k)
         block = _gather_words_group(out, mesh, words, tw, root,
                                     SEAM_TAG + n)
-        if block is not None:
-            _blend_cols(block, band(strip, rule, k)[..., d:3 * d], stitch)
+        if block is not None:   # the root
+            fused_band(src, block, rule, width, k)
         _scatter_words_group(out, mesh, block, words, tw, root,
                              SEAM_TAG + 2 * n)
         return out

@@ -22,7 +22,7 @@ from mpi_tpu_torch.models.rules import Rule, rule_from_name
 from mpi_tpu_torch.ops import bitlife as tbit
 from mpi_tpu_torch.ops import bitltl as tltl
 from mpi_tpu_torch.ops.cuda_bitltl import (
-    FORM, cuda_ltl_step, ltl_step_plain, max_gens, refusal, supports,
+    cuda_ltl_step, ltl_step_plain, max_gens, refusal, supports,
 )
 from mpi_tpu_torch.ops.ltl_codegen import evaluate, rule_program
 
@@ -129,14 +129,6 @@ def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
         assert cuda_ltl_step(w, r2, "dead", gens, out=out) is out
         assert torch.equal(out, want)
     assert cuda_ltl_step.launches == 0
-    assert cuda_ltl_step.launches_by_form == {}
-
-
-def test_kernel_counts_its_launches_by_the_order_it_sums_in():
-    # the card's launches are counted by form beside .launches (the CPU's
-    # plain version launches nothing); the kernel sums rows first
-    assert FORM == "row_first" and FORM in tltl.FORMS
-    assert isinstance(cuda_ltl_step.launches_by_form, dict)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -324,7 +324,7 @@ def test_seam_band_keeps_the_default_build(monkeypatch, capsys):
                                                   **kw)
         return res if out is None else out.copy_(res)
 
-    real_band, real_k2 = seam.fused_band, seam.cuda_dense_step
+    real_band, real_k2 = seam.fused_band, cuda_stencil.cuda_dense_step
 
     def band(*args, **kw):
         band_calls.append(kw)
@@ -337,12 +337,15 @@ def test_seam_band_keeps_the_default_build(monkeypatch, capsys):
     monkeypatch.setitem(backend.KERNELS, "bit",
                         ("K1", k1, backend.cuda_bitlife.refusal))
     monkeypatch.setattr(seam, "fused_band", band)
-    monkeypatch.setattr(seam, "cuda_dense_step", k2)
+    monkeypatch.setattr(cuda_stencil, "cuda_dense_step", k2)
+    monkeypatch.setitem(backend.KERNELS, "dense",
+                        ("K2", k2, cuda_stencil.refusal))
     monkeypatch.setattr(backend, "check_blocks", lambda *a: None)
     config = GolConfig(rows=64, cols=90, steps=0, comm_every=2)
     eng = backend.build_engine(config, device="cpu", blocks=[32, 4])
     assert eng.seam and eng.kind == "bit"
-    assert "the seam band keeps K2's default build" in capsys.readouterr().err
+    assert "the seam band's one launch takes no tile" in \
+        capsys.readouterr().err
     eng.step(eng.init_grid(), 4)
     assert k1_calls and all(d == {"K1_ROWS": 32, "K1_WPL": 4}
                             for d in k1_calls)

@@ -251,9 +251,9 @@ def test_two_rank_exchange_equals_one_process(halo_ranks, k):
 ], ids=["bosco-k4", "r2-k9"])
 def test_two_rank_seam_band_deeper_than_k2(tmp_path, argv):
     """A padded periodic 1x2 mesh over 2 ranks with comm_every x r in
-    17..31: the band the owner of shard (0, 1) steps goes in chunks of
-    16/r, and the group's files equal the reference's single-process run
-    and its final board the oracle's."""
+    17..31, past K2's 16: the owner of shard (0, 1) steps the band, and
+    the group's files equal the reference's single-process run and its
+    final board the oracle's."""
     port, ref = str(tmp_path / "port"), str(tmp_path / "ref")
     run_group(argv + ["--save", "--quiet", "--mesh", "1x2"], 2, port)
     name = f"run-{argv[0]}x{argv[1]}-11-s47"

@@ -30,6 +30,7 @@ from mpi_tpu_torch.backends.serial_np import evolve_np
 from mpi_tpu_torch.config import ConfigError, GolConfig
 from mpi_tpu_torch.models.rules import rule_from_name
 from mpi_tpu_torch.ops import cuda_bitlife, cuda_bitltl, cuda_stencil
+from mpi_tpu_torch.parallel import seam
 from mpi_tpu_torch.parallel import step as port_step
 from mpi_tpu_torch.parallel.mesh import make_mesh
 from mpi_tpu_torch.utils.hashinit import init_tile_np
@@ -77,7 +78,7 @@ CASES = [
     ((1, 2), R2, "periodic", 64, 80, 2, False, 5),
     ((2, 4), "life", "periodic", 32, 32, 1, False, 4),
     # the seam band deeper than K2's 16 cells (comm_every x r in 17..31),
-    # stepped in chunks of 16/r: Bosco at comm_every 4, R2 at 9
+    # still one launch: Bosco at comm_every 4, R2 at 9
     ((1, 2), "bosco", "periodic", 39, 90, 4, False, 11),
     ((1, 2), R2, "periodic", 40, 140, 9, False, 11),
 ]
@@ -222,38 +223,121 @@ def test_padded_dead_stepper_equals_the_reference(K):
                                   np.asarray(jev(h, 2 * K + 1)))
 
 
+def _count_fused_bands(monkeypatch):
+    """Record every ``seam.fused_band`` call as (src shape, width, k)."""
+    calls = []
+    real = seam.fused_band
+
+    def counting(src, out, rule, width, k, handle=None):
+        calls.append((tuple(src.shape), width, k))
+        return real(src, out, rule, width, k, handle)
+
+    monkeypatch.setattr(seam, "fused_band", counting)
+    return calls
+
+
 @pytest.mark.parametrize("rule,rows,cols,k,seed", [
     ("bosco", 39, 90, 4, 47), (R2, 40, 140, 9, 47)], ids=["bosco", "r2"])
 def test_seam_band_deeper_than_k2_steps_in_chunks(monkeypatch, rule, rows,
                                                    cols, k, seed):
     """A padded periodic mesh keeps the bit-sliced engine while
-    comm_every x r <= 31, past K2's 16: the seam band steps in chunks of
-    16/r generations (``parallel/seam.py:band_chunks``), and the grid
-    equals the reference engine's and the oracle's after 11 steps."""
-    from mpi_tpu_torch.parallel import seam
+    comm_every x r <= 31, past K2's 16: the seam band is one
+    ``fused_band`` call a pass, K2 runs nothing, and the grid equals the
+    reference engine's and the oracle's after 11 steps."""
+    calls = _count_fused_bands(monkeypatch)
+    k2 = []
 
-    calls = []
-    step_band_k2 = seam.cuda_dense_step
+    def no_k2(*args, **kw):
+        k2.append(args[0].shape)
+        return real_k2(*args, **kw)
 
-    def counting(x, rule, boundary, gens=1, **kw):
-        calls.append(gens)
-        return step_band_k2(x, rule, boundary, gens=gens, **kw)
-
-    monkeypatch.setattr(seam, "cuda_dense_step", counting)
+    real_k2 = cuda_stencil.cuda_dense_step
+    monkeypatch.setattr(cuda_stencil, "cuda_dense_step", no_k2)
+    monkeypatch.setitem(port.KERNELS, "dense",
+                        ("K2", no_k2, cuda_stencil.refusal))
     case = ((1, 2), rule, "periodic", rows, cols, k, False, 11)
     eng, ref, _, _ = _build_both(case, seed=seed)
     assert eng.kind == "ltl" and eng.seam
     g = eng.step(eng.init_grid(), 11)
     r = eng.config.rule.radius
-    top = 16 // r
-    want_calls = []
-    for kp in [k] * (11 // k) + [11 % k]:
-        want_calls += [top] * (kp // top) + ([kp % top] if kp % top else [])
-    assert calls == want_calls and max(calls) * r <= 16 < k * r
+    passes = [k] * (11 // k) + [11 % k]
+    assert [c[2] for c in calls] == passes and 16 < k * r <= 31
+    assert k2 == []
     np.testing.assert_array_equal(eng.fetch(g), ref.fetch(ref.step(
         ref.init_grid(), 11)))
     np.testing.assert_array_equal(eng.fetch(g), evolve_np(
         init_tile_np(rows, cols, seed), 11, eng.config.rule, "periodic"))
+
+
+def test_seam_block_holds_the_strip_at_its_own_width():
+    """``seam.seam_block``: for every depth d <= 31 and width C >= 4d,
+    4d <= width <= 32 x len(words), and the block of the strip's words
+    holds the strip at that width as the grid holds it at C."""
+    gen = torch.Generator().manual_seed(5)
+    for d in range(1, 32):
+        for C in range(4 * d, 4 * d + 97):
+            words, width = seam.seam_block(C, d)
+            assert words == seam.strip_words(C, d)
+            assert 4 * d <= width <= 32 * len(words), (C, d)
+            if words[-1] - words[0] + 1 == len(words):
+                assert width == C   # the runs touch: the grid's first words
+            if C % 7:
+                continue
+            grid = torch.randint(-2**31, 2**31, (2, -(-C // 32)),
+                                 generator=gen, dtype=torch.int64)
+            grid = grid.to(torch.int32)
+            block = grid[:, list(words)].contiguous()
+            assert seam.extract_band(block, width, d).equal(
+                seam.extract_band(grid, C, d)), (C, d)
+
+
+# (mesh, rule, rows, cols, comm_every, steps, boards, the band's block:
+# its words and real width at the full pass's depth)
+MESH_SEAM = [
+    ((1, 2), "life", 64, 80, 3, 7, 0, (0, 2), 48),
+    ((2, 2), "life", 64, 100, 2, 5, 0, (0, 3), 36),
+    ((1, 2), "life", 64, 80, 3, 7, 2, (0, 2), 48),       # a batch of 2
+    ((1, 2), R2, 40, 140, 9, 11, 0, (0, 1, 3, 4), 108),  # d = 18 > 16
+    ((1, 2), "life", 32, 70, 8, 9, 0, (0, 1, 2), 70),    # the runs touch
+]
+
+
+@pytest.mark.parametrize(
+    "mesh,rule,rows,cols,K,steps,boards,words,width", MESH_SEAM,
+    ids=["1x2", "2x2", "1x2-batch", "1x2-deep", "1x2-touching"])
+def test_mesh_seam_pass_is_one_fused_band_on_its_block(
+        monkeypatch, mesh, rule, rows, cols, K, steps, boards, words,
+        width):
+    """Each pass of a padded periodic mesh gathers the strip's words into
+    one block and calls ``fused_band`` once on it, at the block's own
+    width; the grid (each board of a batch) equals the reference mesh
+    engine's and the oracle's."""
+    calls = _count_fused_bands(monkeypatch)
+    case = (mesh, rule, "periodic", rows, cols, K, False, steps)
+    eng, ref, _, _ = _build_both(case)
+    assert eng.seam and (eng.mi, eng.mj) == mesh
+    r = eng.config.rule.radius
+    assert seam.seam_block(cols, K * r) == (words, width)
+    passes = [K] * (steps // K) + ([steps % K] if steps % K else [])
+    oracle = [evolve_np(init_tile_np(rows, cols, s), steps, eng.config.rule,
+                        "periodic") for s in (7, 8)]
+    if boards:
+        g = eng.step_batched(eng.stack_grids(
+            [eng.init_grid(seed=s) for s in (7, 8)]), steps)
+        finals = eng.fetch_batched(g)
+        lead = (boards,)
+    else:
+        finals = [eng.fetch(eng.step(eng.init_grid(), steps))]
+        lead = ()
+    assert [c[1:] for c in calls] == [seam.seam_block(cols, k * r)[1:] + (k,)
+                                      for k in passes]
+    assert calls[0][0] == lead + (rows, len(words))
+    for c in calls:
+        assert 4 * c[2] * r <= c[1] <= 32 * c[0][-1]
+    np.testing.assert_array_equal(finals[0], ref.fetch(ref.step(
+        ref.init_grid(), steps)))
+    for got, want in zip(finals, oracle):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_every_local_launch_is_the_engines_kernel(monkeypatch):

@@ -12,9 +12,8 @@ phase 2).  Two spots of the source are rewritten for the host compiler,
 as for K3 (``tests/test_torch_k3_emulated.py``): the ``<<<...>>>`` launch
 and the dynamic shared memory.
 
-Then the seam stepper's dispatch: the device default takes the one launch
-and counts ``fused`` in ``seam.launches_by_form``; a stepper built with
-``band=evolve_band`` keeps the three pieces and counts ``split``."""
+Then the seam stepper: every pass calls ``fused_band`` once, after its
+kernel, and equals the three pieces composed by hand."""
 
 import ctypes
 import re
@@ -166,11 +165,11 @@ def test_fused_band_source_refuses_what_it_cannot_serve(k, C, NW, radius,
                              C, radius, k, rule_table(LIFE), None) == 1
 
 
-def _stepper(C, K, H, **kw):
+def _stepper(C, K):
     def inner(src, k, dst):
         return cuda_bit_step(src, LIFE, "periodic", k, out=dst, col_limit=C)
 
-    return seam.make_seam_stepper(inner, LIFE, C, K, **kw)
+    return seam.make_seam_stepper(inner, LIFE, C, K)
 
 
 @pytest.mark.parametrize("H,C,K,steps,passes", [
@@ -179,45 +178,52 @@ def _stepper(C, K, H, **kw):
 ])
 def test_default_stepper_fuses_the_band_and_counts_each_pass(
         monkeypatch, H, C, K, steps, passes):
-    """The device default (``band=step_band``) launches ``fused_band``
-    once a pass and counts ``fused``; ``band=evolve_band`` keeps extract,
-    band and stitch, counts ``split``, and both equal the oracle.  The
-    launcher is stubbed by a recorder around the plain version."""
+    """Each pass launches the kernel and then ``fused_band`` once, on the
+    pass's input and output, and the grid equals the three plain pieces
+    composed here around the same kernel and the oracle.  The launcher is
+    stubbed by a recorder around the plain version."""
     calls = []
     real = seam.fused_band
 
-    def launcher(src, out, rule, width, k, span=None):
+    def launcher(src, out, rule, width, k, handle=None):
         calls.append((tuple(src.shape), width, k))
-        return real(src, out, rule, width, k, span)
+        return real(src, out, rule, width, k, handle)
 
     monkeypatch.setattr(seam, "fused_band", launcher)
-    monkeypatch.setattr(seam, "launches_by_form", {"fused": 0, "split": 0})
     grid = init_packed(H, -(-C // 32) * 32, 9, col_limit=C, device="cpu")
-    fused, _ = _stepper(C, K, H)(grid.clone(), steps, None)
-    assert seam.launches_by_form == {"fused": passes, "split": 0}
+    fused, _ = _stepper(C, K)(grid.clone(), steps, None)
     depths = [K] * (steps // K) + ([steps % K] if steps % K else [])
-    assert [c[1:] for c in calls] == [(C, k) for k in depths]
-    split, _ = _stepper(C, K, H, band=seam.evolve_band)(grid.clone(), steps,
-                                                        None)
-    assert seam.launches_by_form == {"fused": passes, "split": passes}
-    assert len(calls) == passes
-    assert fused.equal(split)
+    assert len(depths) == passes
+    assert calls == [(tuple(grid.shape), C, k) for k in depths]
+    pieces = grid.clone()
+    for k in depths:
+        out = cuda_bit_step(pieces, LIFE, "periodic", k, col_limit=C)
+        band = seam.evolve_band(seam.extract_band(pieces, C, k), LIFE, k)
+        pieces = seam.stitch_band(out, band, C, k)
+    assert fused.equal(pieces)
     want = evolve_np(unpack(grid)[:, :C].numpy(), steps, LIFE, "periodic")
     np.testing.assert_array_equal(unpack(fused)[:, :C].numpy(), want)
 
 
 def test_padded_engine_steps_by_the_fused_band(monkeypatch):
     """A periodic padded engine (K1, 1.5 words a row) and its batch: one
-    ``fused`` pass a pass, the boards equal to the oracle's."""
-    monkeypatch.setattr(seam, "launches_by_form", {"fused": 0, "split": 0})
+    ``fused_band`` call a pass, the boards equal to the oracle's."""
+    calls = []
+    real = seam.fused_band
+
+    def launcher(src, out, rule, width, k, handle=None):
+        calls.append((src.dim(), width, k))
+        return real(src, out, rule, width, k, handle)
+
     cfg = GolConfig(rows=40, cols=48, steps=0, comm_every=3, seed=4)
     eng = backend.build_engine(cfg, device="cpu")
     assert eng.seam
     eng.warm_up(boards=2)
+    monkeypatch.setattr(seam, "fused_band", launcher)
     got = eng.fetch(eng.step(eng.init_grid(), 7))
     batch = eng.step_batched(eng.stack_grids(
         [eng.init_grid(seed=s) for s in (5, 6)]), 7)
-    assert seam.launches_by_form == {"fused": 6, "split": 0}
+    assert calls == [(d, 48, k) for d in (2, 3) for k in (3, 3, 1)]
     np.testing.assert_array_equal(
         got, evolve_np(init_tile_np(40, 48, 4), 7, LIFE, "periodic"))
     for b, s in zip(eng.fetch_batched(batch), (5, 6)):

@@ -435,8 +435,8 @@ def test_coalesced_batch_on_a_mesh_is_one_launch_a_shard(managers, cols,
     shards = eng.mi * eng.mj
     assert eng.batched_step_calls == 2 and eng.step_calls == 0
     assert rec.counts.get(eng.kernel_id, 0) == shards
-    assert rec.counts.get("K2", 0) == (1 if eng.seam else 0) \
-        or eng.kernel_id == "K2"
+    assert rec.counts.get("seam", 0) == (1 if eng.seam else 0)
+    assert rec.counts.get("K2", 0) == 0 or eng.kernel_id == "K2"
     assert ours.stats()["batch"]["coalesced_calls"] \
         == ref.stats()["batch"]["coalesced_calls"] == 2
     for s, r, seed in zip(sids, rids, seeds):

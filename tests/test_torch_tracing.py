@@ -3,9 +3,9 @@ load counters, on the CPU: an ``obs`` span is a ``record_function`` range
 while ``torch.profiler`` records on its thread and calls nothing more
 outside a profile; an engine carrying an ``Obs`` handle records
 ``engine.pass`` around each pass and, on a periodic padded grid,
-``seam.band`` inside it around the band's one launch (a split band:
-``seam.extract``, ``seam.band`` and ``seam.stitch``, around the ATen ops
-each makes); with ``obs=None`` an engine makes no
+``seam.band`` inside it around the band's one launch (on the CPU its
+plain version's ``seam.extract`` and ``seam.stitch`` inside that, around
+the ATen ops each makes); with ``obs=None`` an engine makes no
 ``record_function`` call, records nothing and launches and steps exactly
 as an armed one; ``ops/_build.py`` counts the libraries it loads and the
 seconds their builds and loads take, nvcc stubbed."""
@@ -152,20 +152,6 @@ def test_batched_pass_carries_its_board_count():
     assert (p["depth"], p["boards"], inner) == (4, 3, FUSED)
 
 
-def test_split_seam_nests_its_three_spans_in_each_pass():
-    """A stepper built with the plain band keeps extract, band and stitch,
-    each in its span inside the pass's."""
-    eng = _engine(60, 4)
-    obs = Obs()
-    eng.obs = obs
-    eng._evolve = seam.make_seam_stepper(eng._pass, LIFE, 60, 4,
-                                         band=seam.evolve_band, obs=eng._obs)
-    eng.step(eng.init_grid(seed=5), 10)
-    passes = _passes(obs.tracer.snapshot())
-    assert [p["depth"] for p, _ in passes] == [4, 4, 2]
-    assert [inner for _, inner in passes] == [list(SEAM)] * 3
-
-
 @pytest.mark.parametrize("cols,rule,boundary,K", [
     (64, LIFE, "periodic", 4),    # K1 on whole words: no seam
     (64, BOSCO, "periodic", 1),   # K3
@@ -183,12 +169,12 @@ def test_armed_engine_without_a_seam_records_one_span_a_pass(cols, rule,
 
 
 def test_seam_spans_enclose_their_aten_ops_under_the_profiler():
-    # the three pieces of a split band (a stepper built with the plain
-    # band); the one-launch band: the test below
+    # the default stepper on the CPU: the band's plain version, its
+    # extraction and stitch inside the band's span
     eng = _engine(60, 4)
     eng.obs = Obs()
     eng._evolve = seam.make_seam_stepper(eng._pass, LIFE, 60, 4,
-                                         band=seam.evolve_band, obs=eng._obs)
+                                         obs=eng._obs)
     grid = eng.init_grid(seed=9)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         eng.step(grid, 4)
@@ -197,6 +183,8 @@ def test_seam_spans_enclose_their_aten_ops_under_the_profiler():
     assert set(spans) == {"engine.pass", *SEAM}
     for name in SEAM:
         assert _inside(spans["engine.pass"], spans[name])
+    for name in ("seam.extract", "seam.stitch"):
+        assert _inside(spans["seam.band"], spans[name])
     ops = [e for e in events if not e[3]]
 
     def within(name):
@@ -204,10 +192,11 @@ def test_seam_spans_enclose_their_aten_ops_under_the_profiler():
 
     assert "aten::index_select" in within("seam.extract")
     assert {"aten::index_add_", "aten::index_copy_"} <= within("seam.stitch")
-    assert within("seam.band")
-    # in order: the extraction, then the band's step, then the stitch
-    assert spans["seam.extract"][2] <= spans["seam.band"][1] \
-        <= spans["seam.band"][2] <= spans["seam.stitch"][1]
+    # the strip's step between them, inside the band's span
+    assert within("seam.band") - within("seam.extract") \
+        - within("seam.stitch")
+    # in order: the extraction, then the strip's step, then the stitch
+    assert spans["seam.extract"][2] <= spans["seam.stitch"][1]
 
 
 def test_fused_seam_nests_its_plain_pieces_in_the_band_span():
